@@ -1,0 +1,297 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one CUDA card.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from `nerf_workspaces_explorer_tpu_torch/
+csrc/`, holds each against its plain PyTorch version on the card at the main
+path's shapes (one 320x240 frame: 76,800 rays, 8x256 coarse+fine nets from
+`assets/bench/synth_hier.npz`, 64 coarse + 128 importance samples), times
+them with CUDA events, then serves floor-plan clicks through
+`Workspace.render_image` at precision="fast" and checks each frame against
+the fp32 parity render (SSIM >= 0.99, the repo's gate for bf16 serving,
+reports/reference_parity_320x240.md) and that every kernel of the path ran
+once per frame.
+
+Its last two lines are a JSON object with one entry per kernel and the
+result line `{"ok": true, "device": {...}}`. Any failure raises and exits
+nonzero; without a CUDA card, or outside the repository, it exits 2 and
+prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PACKAGE = "nerf_workspaces_explorer_tpu_torch"
+CKPT = os.path.join(HERE, "assets", "bench", "synth_hier.npz")
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+BF16_ATOL = 5e-3  # bf16 kernels (tests/test_golden.py:52)
+SSIM_GATE = 0.99  # bf16 serving vs fp32 (reports/reference_parity_320x240.md)
+EPS = 1e-3  # the renderer's early-stop eps on the main path
+CLICKS = [  # (office class name, rel_x, rel_y, horizontal angle, vertical angle)
+    ("OfficeTokyoWorkspace", 0.5, 0.5, 0, 0),
+    ("OfficeTokyoWorkspace", 0.5, 0.5, 60, 0),  # same spot, another yaw
+    ("OfficeGeneveWorkspace", 0.4, 0.6, 30, -10),
+]
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of `fn` over `reps` back-to-back calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def render_macs(kp, density_only: bool):
+    """(MACs per evaluated sample, MACs per ray) of the fused render kernel."""
+    per_sample = sum(w.shape[0] * w.shape[1] for w in (*kp.w_layers, *kp.w_skip_enc)) + kp.width
+    if density_only:
+        return per_sample, 0
+    half = kp.width // 2
+    per_sample += kp.width * kp.width + half * kp.width + 3 * half
+    return per_sample, half * kp.w_view_enc.shape[1]
+
+
+def weight_bytes(kp) -> int:
+    ts = (*kp.w_layers, *kp.w_skip_enc, *kp.b_layers, kp.w_fa, kp.b_fa, kp.w_view_h,
+          kp.w_view_enc, kp.b_view, kp.w_rgb, kp.b_rgb)
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def require(ok: bool, what: str) -> None:
+    """A check that holds under `python -O` too."""
+    if not ok:
+        raise AssertionError(what)
+
+
+def merge_check(out, ref, z):
+    """Importance merge: equal up to the CDF's fp32 summation order. Flips to
+    a neighbouring interval on < 0.5% of depths, each within one coarse bin,
+    outside merged rows -3 and -2, where the u = 1 quantile may sit at either
+    end of the last bin (tests/test_torch_importance_merge.py::
+    assert_merge_close). Returns (max |err|, flips on all rows, flips off the
+    u = 1 rows)."""
+    err = (out - ref).abs()
+    rows = torch.ones(out.shape[0], dtype=torch.bool, device=out.device)
+    rows[-3:-1] = False
+    flips = float((err > 1e-4).float().mean())
+    flips_rest = float((err[rows] > 1e-4).float().mean())
+    bin_w = float(torch.diff(z, dim=0).max())
+    if flips_rest >= 5e-3 or float(err.max()) > bin_w + 1e-4:
+        raise AssertionError(f"importance kernel: flips {flips_rest:.4%} off the u = 1 rows, "
+                             f"max err {float(err.max())}")
+    if not bool((torch.diff(out, dim=0) >= 0).all()):
+        raise AssertionError("importance kernel output is not sorted")
+    return float(err.max()), flips, flips_rest
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, PACKAGE)) or not os.path.exists(CKPT):
+        print(f"chip_smoke: run from a checkout of the repository ({PACKAGE}/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from nerf_workspaces_explorer_tpu_torch.app import workspace as ws
+    from nerf_workspaces_explorer_tpu_torch.camera.poses import poses_from_coordinates
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import load_checkpoint, params_from_numpy
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import spec_from_config
+    from nerf_workspaces_explorer_tpu_torch.ops import _build
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_render as fr
+    from nerf_workspaces_explorer_tpu_torch.ops import importance_merge as im
+    from nerf_workspaces_explorer_tpu_torch.rays.raygen import create_rays
+    from nerf_workspaces_explorer_tpu_torch.rays.sampling import coarse_z_vals
+    from nerf_workspaces_explorer_tpu_torch.utils.metrics import ssim
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+
+    # 1. Build every kernel of the path from the checkout's sources.
+    t0 = time.time()
+    names = ["fused_render", "importance_merge"]
+    _build.build(names)
+    print(f"build: {time.time() - t0:.1f} s", flush=True)
+    for name in names:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+    # 2. Kernels against their plain versions at the main path's shapes.
+    cfg = load_config(office_name="tokyo")
+    spec = spec_from_config(cfg)
+    tree, _, _ = load_checkpoint(CKPT)
+    kp = {k: fr.prepare_kernel_params(params_from_numpy(tree[k], device, torch.bfloat16), spec)
+          for k in ("coarse", "fine")}
+    init, coord = ws.OfficeTokyoWorkspace(ckpt_path=CKPT).transform_relative_coordinates(*CLICKS[0][1:])
+    pose = poses_from_coordinates(init, [coord])[0]
+    h, w = cfg.experiment.image_height, cfg.experiment.image_width
+    rays = create_rays(torch.as_tensor(pose, device=device), h, w, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                       *cfg.rendering.depth_range).reshape(h * w)
+    n_rays, s_c, n_imp = h * w, cfg.rendering.n_samples, cfg.rendering.n_importance
+    o_ph, d_ph = fr.ray_phase_vectors(rays.origins, rays.dirs)
+    venc = fr.encode_viewdirs_kernel_order(rays.viewdirs)
+    dir_norm = torch.linalg.norm(rays.dirs, dim=-1)[None]
+    z_c = coarse_z_vals(rays.near, rays.far, s_c).T.contiguous()
+    dist_c = fr._dists_from_z(z_c, dir_norm)
+
+    k1 = lambda eps, live=None: fr.nerf_render(  # noqa: E731
+        kp["coarse"], o_ph, d_ph, z_c, dist_c, density_only=True, early_stop_eps=eps, live_groups=live)
+    weights = k1(0.0)
+    torch.cuda.synchronize()
+    weights_plain = fr.nerf_render_plain(kp["coarse"], o_ph, d_ph, z_c, dist_c, density_only=True)
+    k1_err = float((weights - weights_plain).abs().max())
+    require(k1_err <= BF16_ATOL, f"K1 coarse kernel disagrees: {k1_err}")
+
+    z_f = im.importance_merge(weights, z_c, n_imp)
+    torch.cuda.synchronize()
+    z_f_plain = im.importance_merge_plain(weights, z_c, n_imp)
+    k2_err, k2_flips, k2_flips_rest = merge_check(z_f, z_f_plain, z_c)
+    dist_f = fr._dists_from_z(z_f, dir_norm)
+
+    k3 = lambda eps, live=None: fr.nerf_render(  # noqa: E731
+        kp["fine"], o_ph, d_ph, z_f, dist_f, venc, early_stop_eps=eps, live_groups=live)
+    maps = k3(0.0)
+    torch.cuda.synchronize()
+    maps_plain = fr.nerf_render_plain(kp["fine"], o_ph, d_ph, z_f, dist_f, venc)
+    k3_err = float(torch.cat([maps[0:3], maps[4:5]]).sub(torch.cat([maps_plain[0:3], maps_plain[4:5]])).abs().max())
+    require(k3_err <= BF16_ATOL, f"K3 fine kernel disagrees on rgb/acc: {k3_err}")
+    require(bool(torch.isfinite(maps).all() and torch.isfinite(weights).all()), "non-finite kernel output")
+
+    # Times at the main path's arguments (early stop at the renderer's eps),
+    # with the samples the blocks evaluated counted for the bound.
+    live1 = torch.zeros(1, dtype=torch.int32, device=device)
+    live3 = torch.zeros(1, dtype=torch.int32, device=device)
+    k1(EPS, live1), k3(EPS, live3)
+    torch.cuda.synchronize()
+    samples1, samples3 = int(live1) * 4 * 32, int(live3) * 4 * 32
+    reps = 5
+    t = {
+        "k1": time_ms(lambda: k1(EPS), reps), "k1_eps0": time_ms(lambda: k1(0.0), reps),
+        "k1_plain": time_ms(lambda: fr.nerf_render_plain(kp["coarse"], o_ph, d_ph, z_c, dist_c, density_only=True), 2),
+        "k2": time_ms(lambda: im.importance_merge(weights, z_c, n_imp), 20),
+        "k2_plain": time_ms(lambda: im.importance_merge_plain(weights, z_c, n_imp), 5),
+        "k3": time_ms(lambda: k3(EPS), reps), "k3_eps0": time_ms(lambda: k3(0.0), reps),
+        "k3_plain": time_ms(lambda: fr.nerf_render_plain(kp["fine"], o_ph, d_ph, z_f, dist_f, venc), 2),
+    }
+    mac1, _ = render_macs(kp["coarse"], True)
+    mac3, mac3_ray = render_macs(kp["fine"], False)
+    ray_bytes = 2 * 3 * n_rays * 4  # base phases of o and d
+    b1, by1 = bound_ms(2 * mac1 * samples1, ray_bytes + 3 * s_c * n_rays * 4 + weight_bytes(kp["coarse"]))
+    b1_dense, _ = bound_ms(2 * mac1 * s_c * n_rays, 0)
+    s_f = s_c + n_imp
+    b3, by3 = bound_ms(2 * (mac3 * samples3 + mac3_ray * n_rays),
+                       ray_bytes + 2 * s_f * n_rays * 4 + 32 * n_rays * 2 + 8 * n_rays * 4 + weight_bytes(kp["fine"]))
+    b3_dense, _ = bound_ms(2 * (mac3 * s_f * n_rays + mac3_ray * n_rays), 0)
+    b2, by2 = bound_ms(0, (2 * s_c + s_f) * n_rays * 4)
+    print(f"K1 coarse density: ms {t['k1']:.3f} (eps 0: {t['k1_eps0']:.3f}) plain_ms {t['k1_plain']:.3f} "
+          f"bound_ms {b1:.3f} ({samples1} of {s_c * n_rays} samples evaluated; dense bound {b1_dense:.3f}) "
+          f"max_abs_err {k1_err:.2e}", flush=True)
+    print(f"K2 importance merge: ms {t['k2']:.4f} plain_ms {t['k2_plain']:.3f} bound_ms {b2:.4f} "
+          f"max_abs_err {k2_err:.2e} (boundary flips {k2_flips:.4%}; off the u = 1 rows {k2_flips_rest:.4%})",
+          flush=True)
+    print(f"K3 fine full: ms {t['k3']:.3f} (eps 0: {t['k3_eps0']:.3f}) plain_ms {t['k3_plain']:.3f} "
+          f"bound_ms {b3:.3f} ({samples3} of {s_f * n_rays} samples evaluated; dense bound {b3_dense:.3f}) "
+          f"max_abs_err {k3_err:.2e}", flush=True)
+
+    # 3. Serve clicks through the product path; parity renders on the card.
+    offices = {}
+    for cls_name in dict.fromkeys(c[0] for c in CLICKS):
+        cls = getattr(ws, cls_name)
+        fast, parity = cls(ckpt_path=CKPT, precision="fast"), cls(ckpt_path=CKPT, precision="parity")
+        fast.initialize_models()
+        parity.initialize_models()
+        offices[cls_name] = (fast, parity)
+        fast.render_image(*CLICKS[0][1:])  # warm-up: first launches, allocator
+        parity.render_image(*CLICKS[0][1:])
+    torch.cuda.synchronize()
+    for d in (fr.LAUNCHES, im.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    frames, fast_ms = [], []
+    for cls_name, *click in CLICKS:
+        t0 = time.perf_counter()
+        frame = offices[cls_name][0].render_image(*click)  # ends in a device -> host copy
+        fast_ms.append((time.perf_counter() - t0) * 1e3)
+        frames.append(frame)
+    launches = {"K1": fr.LAUNCHES["density_only"], "K2": im.LAUNCHES["importance_merge"],
+                "K3": fr.LAUNCHES["full"]}
+    n_frames = len(CLICKS)
+    require(launches == {"K1": n_frames, "K2": n_frames, "K3": n_frames}, f"launches {launches}")
+    parity_ms = []
+    for (cls_name, *click), frame in zip(CLICKS, frames):
+        require(frame.dtype == np.uint8 and frame.shape == (h, w, 3), f"frame {frame.dtype} {frame.shape}")
+        t0 = time.perf_counter()
+        ref = offices[cls_name][1].render_image(*click)
+        parity_ms.append((time.perf_counter() - t0) * 1e3)
+        score = ssim(frame / 255.0, ref / 255.0)
+        diff = np.abs(frame.astype(int) - ref.astype(int))
+        print(f"frame {cls_name} {click}: SSIM vs parity {score:.5f}, mean |diff| {diff.mean():.4f}, "
+              f"max {diff.max()}, mean level {frame.mean():.2f}", flush=True)
+        require(score >= SSIM_GATE, f"SSIM {score} below {SSIM_GATE}")
+    require(not np.array_equal(frames[0], frames[1]), "two yaws of one spot gave one frame")
+    print(f"serve: fast warm ms/frame {', '.join(f'{x:.1f}' for x in fast_ms)}; "
+          f"parity warm ms/frame {', '.join(f'{x:.1f}' for x in parity_ms)}; launches {launches}; "
+          f"card {card}", flush=True)
+
+    # 4. The kernels line, then the result line.
+    src = f"{PACKAGE}/csrc/"
+    kernels = [
+        dict(name="K1 fused render, density-only (coarse pass)", route="cuda", source=src + "fused_render.cu",
+             replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598", launches=launches["K1"],
+             max_abs_err=k1_err, ms=t["k1"], plain_ms=t["k1_plain"], bound_ms=b1, bound_by=by1,
+             library_ms=None, ms_eps0=t["k1_eps0"], dense_bound_ms=b1_dense, held_against_plain=True),
+        dict(name="K2 importance merge", route="cuda", source=src + "importance_merge.cu",
+             replaces="nerf_workspaces_explorer_tpu/ops/pallas_sampling.py:47", launches=launches["K2"],
+             max_abs_err=k2_err, ms=t["k2"], plain_ms=t["k2_plain"], bound_ms=b2, bound_by=by2,
+             library_ms=None, boundary_flips=k2_flips, boundary_flips_off_u1_rows=k2_flips_rest,
+             held_against_plain=True),
+        dict(name="K3 fused render, full (fine pass)", route="cuda", source=src + "fused_render.cu",
+             replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598", launches=launches["K3"],
+             max_abs_err=k3_err, ms=t["k3"], plain_ms=t["k3_plain"], bound_ms=b3, bound_by=by3,
+             library_ms=None, ms_eps0=t["k3_eps0"], dense_bound_ms=b3_dense, held_against_plain=True),
+    ]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,109 @@
+"""Checkpoint loading into torch parameter trees.
+
+Counterpart of `nerf_workspaces_explorer_tpu/infer/checkpoint.py`. Two
+formats load:
+
+  - the native `.npz`: path-flattened arrays under `||`-joined keys
+    (`params||fine||pts||0||w`) plus a `__meta__` JSON blob;
+  - the reference's torch `.ckpt` (`network_coarse_state_dict`,
+    `network_fine_state_dict`; reference
+    nerf/training/nerf_replica_training_handler.py:404-407), whose keys may
+    or may not carry the `_` attribute prefix (the reference re-prefixes
+    them on load, …inference_handler.py:150-164) and whose nn.Linear weights
+    are [out, in] and transpose to the tree's [in, out].
+
+A tree is nested dicts and lists of tensors:
+{"coarse": {"pts": [{"w", "b"}, ...], "feature", "alpha", "views", "rgb"},
+"fine": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+Params = Dict[str, Any]
+
+_SEP = "||"
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> Any:
+    """Nested dict/list tree from `||`-joined key paths (digit parts index lists)."""
+    root: Dict[str, Any] = {}
+    for key, value in flat.items():
+        parts = key.split(_SEP)
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+
+    def fixup(node: Any) -> Any:
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [fixup(node[str(i)]) for i in range(len(node))]
+        return {k: fixup(v) for k, v in node.items()}
+
+    return fixup(root)
+
+
+def params_from_numpy(
+    tree: Any, device: torch.device | str = "cpu", dtype: torch.dtype = torch.float32
+) -> Any:
+    """Carry a parameter tree of arrays (a JAX tree through `np.asarray`, or a
+    loaded `.npz`) into torch tensors on `device`."""
+    if isinstance(tree, Mapping):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device, dtype) for v in tree]
+    arr = np.asarray(tree, dtype=np.float32)
+    return torch.from_numpy(arr.copy()).to(device=device, dtype=dtype)
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, np.ndarray], int, Dict[str, Any]]:
+    """Load a native `.npz` -> (params tree of numpy arrays, step, metadata)."""
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files}
+    meta = json.loads(bytes(arrays.pop("__meta__").tobytes()).decode())
+    step = int(meta.pop("step", 0))
+    arrays = {k: v for k, v in arrays.items() if not k.startswith(f"opt{_SEP}")}
+    return _unflatten(arrays)["params"], step, meta
+
+
+def torch_state_dict_to_params(state_dict: Mapping[str, Any]) -> Params:
+    """One reference NeRFModel state dict -> parameter tree of numpy arrays."""
+    norm: Dict[str, np.ndarray] = {}
+    for key, value in state_dict.items():
+        parts = [p[1:] if p.startswith("_") else p for p in key.split(".")]
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        norm[".".join(parts)] = np.asarray(value)
+
+    def linear(name: str) -> Dict[str, np.ndarray]:
+        return {"w": norm[f"{name}.weight"].T, "b": norm[f"{name}.bias"]}
+
+    def count(prefix: str) -> int:
+        return len({k.split(".")[1] for k in norm if k.startswith(prefix + ".")})
+
+    params: Params = {"pts": [linear(f"pts_linears.{i}") for i in range(count("pts_linears"))]}
+    if "alpha_linear.weight" in norm:
+        params["alpha"] = linear("alpha_linear")
+        params["feature"] = linear("feature_linear")
+        params["views"] = [
+            linear(f"views_linears.{i}") for i in range(count("views_linears"))
+        ]
+        params["rgb"] = linear("rgb_linear")
+    else:
+        params["output"] = linear("output_linear")
+    return params
+
+
+def load_torch_checkpoint(path: str) -> Tuple[Params, Params, int]:
+    """Reference-format torch checkpoint -> (coarse, fine, step), numpy trees."""
+    checkpoint = torch.load(path, map_location="cpu", weights_only=False)
+    coarse = torch_state_dict_to_params(checkpoint["network_coarse_state_dict"])
+    fine = torch_state_dict_to_params(checkpoint["network_fine_state_dict"])
+    return coarse, fine, int(checkpoint.get("global_step", 0))

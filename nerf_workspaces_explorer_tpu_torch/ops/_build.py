@@ -1,0 +1,115 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` exposes a plain C entry point and compiles on its own
+into `build/torch_kernels/<name>-<source hash>.so` under the repository root
+(a gitignored directory), at first use, with nvcc's output (the
+`-Xptxas -v` report: registers, shared memory, spills) beside it in
+`<name>-<source hash>.log`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
+
+The hash of the source and flags in the file name means an edited source
+never loads a stale library. Pointers and the stream cross into C as `c_void_p`; every entry
+point returns `cudaGetLastError()` and `check` raises on a nonzero code.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable
+
+import torch
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "torch_kernels")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# A shared library, once loaded, is process-wide; so is this cache of them.
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    found = candidate if os.path.exists(candidate) else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH)")
+    return found
+
+
+def library_path(name: str) -> str:
+    """The library's path, named by a hash of its source and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
+        digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
+
+
+def _log_path(lib: str) -> str:
+    return lib[: -len(".so")] + ".log"
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current library of `csrc/<name>.cu`."""
+    with open(_log_path(library_path(name))) as f:
+        return f.read()
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile the named sources that have no current library, all nvcc
+    processes started together. Returns {name: library path}."""
+    names = list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in names:
+        lib = library_path(name)
+        if os.path.exists(lib) and os.path.exists(_log_path(lib)):
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, lib)
+    failed = []
+    for name, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        with open(f"{tmp}.log", "w") as f:
+            f.write(log)
+        os.replace(f"{tmp}.log", _log_path(lib))
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return {name: library_path(name) for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = _LIBS[name] = ctypes.CDLL(build([name])[name])
+        return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def stream_handle(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

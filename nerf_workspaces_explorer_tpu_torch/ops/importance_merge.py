@@ -1,0 +1,78 @@
+"""Importance sampling + coarse/fine depth merge of the fused inference path.
+
+Counterpart of `nerf_workspaces_explorer_tpu/ops/pallas_sampling.py`
+(`importance_merge_pallas`, merge=True). Per ray: bins = midpoints of the S
+coarse depths, pdf = normalised `w[1:-1] + 1e-5`, deterministic quantiles
+u = linspace(0, 1, I), inverse CDF with the reference's guards, then the
+sorted union with the coarse depths.
+
+`importance_merge` launches the CUDA kernel `csrc/importance_merge.cu` for a
+CUDA tensor and runs `importance_merge_plain` for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from nerf_workspaces_explorer_tpu_torch.ops import _build
+from nerf_workspaces_explorer_tpu_torch.rays.sampling import merge_sorted_z, sample_pdf
+
+# Kernel launches made by `importance_merge`, by kernel name.
+LAUNCHES = {"importance_merge": 0}
+
+
+def importance_merge_plain(
+    weights_t: torch.Tensor, z_t: torch.Tensor, n_importance: int
+) -> torch.Tensor:
+    """[S, R] coarse weights and depths -> [S + I, R] merged depths:
+    `merge_sorted_z(z, sample_pdf(z_mid, w[1:-1], I))` per ray."""
+    z, w = z_t.T, weights_t.T
+    z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
+    samples = sample_pdf(z_mid, w[:, 1:-1], n_importance)
+    return merge_sorted_z(z, samples).T.contiguous()
+
+
+def _importance_merge_cuda(
+    weights_t: torch.Tensor, z_t: torch.Tensor, n_importance: int
+) -> torch.Tensor:
+    s, r = z_t.shape
+    if z_t.device.type != "cuda":
+        raise ValueError(f"no importance kernel for device {z_t.device}")
+    if not 3 <= s <= 256:
+        raise ValueError(f"the importance kernel takes 3..256 coarse samples, got {s}")
+    for name, t in (("weights_t", weights_t), ("z_t", z_t)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != z_t.device:
+            raise ValueError(f"{name} must be contiguous float32 on {z_t.device}")
+    lib = _build.load("importance_merge")
+    fn = lib.importance_merge_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((s + n_importance, r), dtype=torch.float32, device=z_t.device)
+    code = fn(
+        weights_t.data_ptr(), z_t.data_ptr(), out.data_ptr(), r, s, n_importance,
+        _build.stream_handle(z_t.device),
+    )
+    _build.check(code, "importance_merge_launch")
+    LAUNCHES["importance_merge"] += 1
+    return out
+
+
+def importance_merge(
+    weights_t: torch.Tensor, z_t: torch.Tensor, n_importance: int
+) -> torch.Tensor:
+    """weights_t, z_t: [S, R] (rays on the last axis). Returns the per-ray
+    sorted union of the coarse depths and the I deterministic inverse-CDF
+    samples, [S + I, R], equal to `importance_merge_plain` up to the fp32
+    summation order of the CDF."""
+    if n_importance < 2:
+        raise ValueError(
+            "importance_merge needs n_importance >= 2 (deterministic quantiles "
+            "are linspace(0, 1, n_importance))"
+        )
+    if weights_t.shape != z_t.shape or z_t.ndim != 2:
+        raise ValueError(f"weights_t {tuple(weights_t.shape)} and z_t {tuple(z_t.shape)} must be one [S, R] shape")
+    if z_t.device.type == "cpu":
+        return importance_merge_plain(weights_t, z_t, n_importance)
+    return _importance_merge_cuda(weights_t, z_t, n_importance)

@@ -1,0 +1,57 @@
+"""Volume rendering compositing: raw network outputs -> per-ray maps.
+
+Counterpart of `nerf_workspaces_explorer_tpu/render/volume.py` (reference
+nerf/models/model_utils.py:33-100, `raw2outputs`), inference form (no sigma
+noise):
+  - dists between consecutive z values, last dist 1e10, scaled by |ray dir|;
+  - alpha = 1 - exp(-relu(sigma) * dists);
+  - weights = alpha * exclusive-cumprod(1 - alpha + 1e-10), in linear space
+    (a log-space product NaNs the gradients once density saturates);
+  - rgb/depth/disp/acc maps, disp guarded where acc == 0.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class RenderOutputs(NamedTuple):
+    rgb: torch.Tensor  # [..., 3]
+    disp: torch.Tensor  # [...]
+    acc: torch.Tensor  # [...]
+    weights: torch.Tensor  # [..., S]
+    depth: torch.Tensor  # [...]
+
+
+def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
+    """[1, x0, x0*x1, ...] along the last axis (reference model_utils.py:75-80)."""
+    ones = torch.ones_like(x[..., :1])
+    return torch.cumprod(torch.cat([ones, x], -1), -1)[..., :-1]
+
+
+def composite_rays(
+    raw: torch.Tensor,
+    z_vals: torch.Tensor,
+    rays_d: torch.Tensor,
+    *,
+    white_background: bool = False,
+) -> RenderOutputs:
+    """Alpha-composite raw [..., S, 4] predictions at depths [..., S]."""
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], -1)
+    dists = dists * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+
+    rgb = torch.sigmoid(raw[..., :3])
+    alpha = 1.0 - torch.exp(-torch.relu(raw[..., 3]) * dists)
+    weights = alpha * exclusive_cumprod(1.0 - alpha + 1e-10)
+
+    rgb_map = (weights[..., None] * rgb).sum(-2)
+    depth_map = (weights * z_vals).sum(-1)
+    acc_map = weights.sum(-1)
+    # The reference's 1 / max(1e-10, depth/acc) is NaN at acc == 0.
+    disp_map = 1.0 / torch.clamp(depth_map / torch.clamp(acc_map, min=1e-10), min=1e-10)
+    if white_background:
+        rgb_map = rgb_map + (1.0 - acc_map[..., None])
+    return RenderOutputs(rgb=rgb_map, disp=disp_map, acc=acc_map, weights=weights, depth=depth_map)

@@ -1,0 +1,107 @@
+"""Import rules of the PyTorch port: no JAX, nothing of the JAX package, no
+silent CPU fallback."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "nerf_workspaces_explorer_tpu_torch")
+
+
+def _port_modules():
+    mods = []
+    for dirpath, _, files in os.walk(PORT):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)[:-3]
+                mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    return sorted(mods)
+
+
+def _imported_names(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return names
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['nerf_workspaces_explorer_tpu'] = None\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize(
+    "path",
+    [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "profile_torch_frame.py")]
+    + sorted(
+        os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")
+    ),
+    ids=lambda p: os.path.relpath(p, ROOT),
+)
+def test_no_jax_package_imports(path):
+    for name in _imported_names(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "nerf_workspaces_explorer_tpu"), (path, name)
+
+
+def test_renderer_without_device_raises_without_cuda():
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NeRFRenderer("tokyo", os.path.join(ROOT, "assets", "bench", "synth_hier.npz"))
+
+
+def test_unported_options_raise():
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+
+    with pytest.raises(ValueError, match="precision"):
+        NeRFRenderer("tokyo", precision="int8", device="cpu")
+    with pytest.raises(ValueError, match="preset"):
+        NeRFRenderer("tokyo", preset="turbo", device="cpu")
+
+
+def test_missing_checkpoint_raises():
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+
+    r = NeRFRenderer("tokyo", "/nonexistent/model.ckpt", device="cpu")
+    with pytest.raises(RuntimeError, match="cannot be found"):
+        r.initialize_models()
+
+
+def test_kernels_refuse_other_devices():
+    """A kernel wrapper takes the plain version only for a CPU tensor; any
+    other device gets the kernel or an error."""
+    from nerf_workspaces_explorer_tpu_torch.ops.importance_merge import importance_merge
+
+    z = torch.linspace(0.1, 1.0, 8)[:, None].repeat(1, 4).to("meta")
+    with pytest.raises(ValueError, match="no importance kernel"):
+        importance_merge(torch.zeros_like(z), z, 4)
+    with pytest.raises(ValueError, match="n_importance >= 2"):
+        importance_merge(torch.zeros(8, 4), torch.zeros(8, 4), 1)
