@@ -6,14 +6,26 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `nerf_workspaces_explorer_tpu_torch/
-csrc/`, holds each against its plain PyTorch version on the card at the main
-path's shapes (one 320x240 frame: 76,800 rays, 8x256 coarse+fine nets from
-`assets/bench/synth_hier.npz`, 64 coarse + 128 importance samples), times
-them with CUDA events, then serves floor-plan clicks through
+csrc/` and drives the port's two paths.
+
+Serving: holds K1-K3 against their plain PyTorch versions on the card at the
+main path's shapes (one 320x240 frame: 76,800 rays, 8x256 coarse+fine nets
+from `assets/bench/synth_hier.npz`, 64 coarse + 128 importance samples),
+times them with CUDA events, then serves floor-plan clicks through
 `Workspace.render_image` at precision="fast" and checks each frame against
 the fp32 parity render (SSIM >= 0.99, the repo's gate for bf16 serving,
 reports/reference_parity_320x240.md) and that every kernel of the path ran
 once per frame.
+
+Training: on the room scene at 320x240 (60-frame walkthrough, every 5th
+frame a train view, +2 a test view: 12 and 12) with the stock config (8x256
+nets, 1024 rays of 64 + 128 samples), holds K4 (field forward) and K5
+(field backward) against the plain field on one real step's points, checks
+that two K5 launches agree bit for bit, times both, then trains 300 steps
+through `Trainer` with the fused field (two K4 and two K5 calls per step,
+loss falling), renders two test views through K1-K3, trains the same 300
+steps with the plain field (test-view PSNR within 1 dB), and resumes a
+fresh Trainer from the step-150 checkpoint (its next loss equal to 1e-6).
 
 Its last two lines are a JSON object with one entry per kernel and the
 result line `{"ok": true, "device": {...}}`. Any failure raises and exits
@@ -21,8 +33,10 @@ nonzero; without a CUDA card, or outside the repository, it exits 2 and
 prints no result.
 """
 
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -36,7 +50,16 @@ CKPT = os.path.join(HERE, "assets", "bench", "synth_hier.npz")
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-BF16_ATOL = 5e-3  # bf16 kernels (tests/test_golden.py:52)
+BF16_ATOL = 5e-3  # bf16 kernels (tests/test_golden.py:52, tests/test_pallas_train.py:40)
+BF16_GRAD_REL = 0.08  # bf16 field gradients vs fp32 (tests/test_pallas_train.py:54-56)
+TRAIN_SIZE = (320, 240)  # width, height of the room scene's views
+TRAIN_FRAMES, TRAIN_STRIDE = 60, 5  # walkthrough frames; every 5th trains, +2 tests: 12 and 12
+TRAIN_EVAL_VIEWS = 2  # test views rendered after training
+TRAIN_STEPS = 300
+TRAIN_WINDOW = 20  # steps averaged at each end of a run for "loss falls"
+WARM_SKIP = 10  # first steps left out of the warm ms per step
+RESUME_STEP = 150
+PSNR_GAP_DB = 1.0  # fused against plain field after TRAIN_STEPS
 SSIM_GATE = 0.99  # bf16 serving vs fp32 (reports/reference_parity_320x240.md)
 EPS = 1e-3  # the renderer's early-stop eps on the main path
 CLICKS = [  # (office class name, rel_x, rel_y, horizontal angle, vertical angle)
@@ -116,6 +139,228 @@ def merge_check(out, ref, z):
     return float(err.max()), flips, flips_rest
 
 
+def field_macs(spec):
+    """(forward, backward) multiply-adds per point of the training field: the
+    forward's products, and the backward's recomputed forward plus its
+    input-gradient products (none into the encodings) plus one weight-
+    gradient product per weight."""
+    w, half = spec.width, spec.width // 2
+    fwd = sum(i * o for i, o in spec.layer_dims()) + w * w + w + (w + spec.input_ch_views) * half + half * 3
+    dx = (spec.depth - 1) * w * w + w * w + w + w * half + half * 3
+    return fwd, 2 * fwd + dx
+
+
+def named_leaves(tree, prefix=""):
+    """[(dotted name, leaf)] in `tree_leaves` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in named_leaves(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree) for x in named_leaves(t, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def zero_launches(*counters) -> None:
+    for d in counters:
+        for k in d:
+            d[k] = 0
+
+
+def train_config():
+    """The stock config on the room scene: its depth range (cli/train.py
+    --scene room), no console print, checkpoint or eval render on a cadence
+    (the phase saves and renders itself)."""
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+
+    cfg = load_config(office_name="tokyo")
+    return dataclasses.replace(
+        cfg,
+        rendering=dataclasses.replace(cfg.rendering, depth_range=(0.1, 8.0)),
+        logging=dataclasses.replace(cfg.logging, step_log_print=0, step_save_ckpt=0,
+                                    step_render_test=0, step_render_train=0),
+    )
+
+
+def train_phase(card: str, device: torch.device):
+    """The training path (module docstring); returns the K4 and K5 entries
+    of the kernels line."""
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import make_room_scene_splits
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import settings_from_config, spec_from_config
+    from nerf_workspaces_explorer_tpu_torch.models.mlp import tree_leaves
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_render as fr
+    from nerf_workspaces_explorer_tpu_torch.ops import importance_merge as im
+    from nerf_workspaces_explorer_tpu_torch.render.pipeline import render_ray_bundle
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer, step_seed
+    from nerf_workspaces_explorer_tpu_torch.train.step import draw_step, sample_training_rays
+    from nerf_workspaces_explorer_tpu_torch.utils.metrics import img2mse
+
+    cfg = train_config()
+    spec = spec_from_config(cfg)
+    w, h = TRAIN_SIZE
+    near, far = cfg.rendering.depth_range
+    t0 = time.time()
+    train, test, _ = make_room_scene_splits(n_frames=TRAIN_FRAMES, stride=TRAIN_STRIDE, height=h, width=w,
+                                            near=near, far=far, device=device)
+    print(f"room scene: {len(train)} train / {len(test)} test views at {w}x{h}, ground truth "
+          f"{time.time() - t0:.1f} s", flush=True)
+    out_dir = os.path.join(HERE, "build", "torch_kernels", "smoke_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def trainer(field_impl: str, name: str) -> Trainer:
+        tr = Trainer("office_tokyo", cfg, train_data=train, test_data=test, device=device,
+                     save_dir=os.path.join(out_dir, name), enable_tensorboard=False,
+                     field_impl=field_impl, eval_max_views=TRAIN_EVAL_VIEWS)
+        tr.setup()
+        return tr
+
+    fused = trainer("auto", "fused")
+    require(fused.field_impl == "fused", f"field_impl auto on {device} chose {fused.field_impl}")
+
+    # 2. K4 and K5 against the fp32 plain field on the points of one real
+    # step (step 0's draws on the room scene, the initial weights): the plain
+    # step's autograd gives the raw maps, their cotangents and every leaf's
+    # gradient.
+    settings = settings_from_config(cfg)._replace(train=True, field_impl="plain")
+    rgbs = torch.as_tensor(train.rgb.reshape(len(train), -1, 3), dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device).manual_seed(step_seed(0, 0))
+    draws = draw_step(gen, len(train), w * h, cfg.rendering.n_rays, settings, device)
+    rays, gt = sample_training_rays(fused.rays_train, rgbs, draws.img_idx, draws.pix_idx)
+    out = render_ray_bundle(fused.params, rays, settings, spec=spec, draws=draws.render, full_outputs=True)
+    loss = img2mse(out["rgb_coarse"], gt) + img2mse(out["rgb_fine"], gt)
+    nets = ("coarse", "fine")
+    leaves = {k: tree_leaves(fused.params[k]) for k in nets}
+    grads = torch.autograd.grad(loss, [out["raw_coarse"], out["raw_fine"], *leaves["coarse"], *leaves["fine"]])
+    g_raws = dict(zip(nets, grads[:2]))
+    ref_grads = {"coarse": grads[2: 2 + len(leaves["coarse"])], "fine": grads[2 + len(leaves["coarse"]):]}
+    mac_fwd, mac_bwd = field_macs(spec)
+    res = {}
+    for net in nets:
+        z = out[f"z_vals_{net}"]
+        n = z.numel()
+        pts_t = (rays.origins[:, None, :] + rays.dirs[:, None, :] * z[..., None]).reshape(n, 3).T.contiguous()
+        views_t = rays.viewdirs[:, None, :].expand(-1, z.shape[1], 3).reshape(n, 3).T.contiguous()
+        g_raw = torch.cat([g_raws[net].reshape(n, 4).T, torch.zeros(4, n, device=device)]).contiguous()
+        inputs, meta = ff.build_kernel_inputs(fused.params[net], spec)
+        raw = ff.field_forward(inputs, meta, pts_t, views_t)
+        torch.cuda.synchronize()
+        raw_ref = out[f"raw_{net}"].detach().reshape(n, 4).T
+        k4_err = float((raw[:4] - raw_ref).abs().max())
+        require(bool(torch.isfinite(raw).all()), f"K4 {net}: non-finite output")
+        require(k4_err <= BF16_ATOL, f"K4 {net}: max |err| {k4_err} against the fp32 field")
+        kg = ff.field_backward(inputs, meta, pts_t, views_t, g_raw)
+        kg2 = ff.field_backward(inputs, meta, pts_t, views_t, g_raw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(kg[k], kg2[k]) for k in kg)
+        require(same, f"K5 {net}: two launches on the same inputs differ")
+        errs = []
+        for (name, a), b in zip(named_leaves(ff.grads_to_tree(kg, meta)), ref_grads[net]):
+            require(tuple(a.shape) == tuple(b.shape), f"K5 {net} {name}: shape {tuple(a.shape)}")
+            abs_err = float((a - b).abs().max())
+            errs.append((abs_err / (float(b.abs().max()) + 1e-30), abs_err, name))
+        worst = max(errs)
+        require(worst[0] < BF16_GRAD_REL, f"K5 {net} {worst[2]}: rel err {worst[0]} against fp32 autograd")
+        t = dict(
+            k4=time_ms(lambda: ff.field_forward(inputs, meta, pts_t, views_t), 10),
+            k4_plain=time_ms(lambda: ff.field_forward_plain(inputs, meta, pts_t, views_t), 3),
+            k5=time_ms(lambda: ff.field_backward(inputs, meta, pts_t, views_t, g_raw), 5),
+            k5_plain=time_ms(lambda: ff.field_backward_plain(inputs, meta, pts_t, views_t, g_raw), 3),
+        )
+        # Bytes: points and view directions in, raw [8, N] out, bf16 weights
+        # read once; the backward reads cotangent rows 0-3, the weights and
+        # their transposes, and writes fp32 gradients.
+        w_bytes = sum(x.numel() * 2 for x in leaves[net])
+        b4 = bound_ms(2 * mac_fwd * n, n * (6 * 4 + 8 * 4) + w_bytes)
+        b5 = bound_ms(2 * mac_bwd * n, n * (6 * 4 + 4 * 4) + 4 * w_bytes)
+        res[net] = dict(n=n, k4_err=k4_err, k5_rel=worst[0], k5_abs=max(e[1] for e in errs), worst=worst[2],
+                        t=t, b4=b4, b5=b5)
+        print(f"{net} field, {n} points: K4 ms {t['k4']:.3f} plain_ms {t['k4_plain']:.3f} bound_ms {b4[0]:.4f} "
+              f"max_abs_err {k4_err:.2e} (vs fp32); K5 ms {t['k5']:.3f} plain_ms {t['k5_plain']:.3f} "
+              f"bound_ms {b5[0]:.4f} max rel err {worst[0]:.2e} ({worst[2]}), deterministic {same}", flush=True)
+    del out, grads, loss
+
+    # 3. Train with the fused field: exactly two K4 and two K5 calls per step.
+    def run(tr: Trainer, ckpt_at: int = -1):
+        losses, ms, ckpt = [], [], None
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(tr.step(i)["total_loss"]))  # waits for the step's device work
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i + 1 == ckpt_at:
+                ckpt = tr.save_models_checkpoint(ckpt_at)
+        k = TRAIN_WINDOW
+        require(all(np.isfinite(losses)), f"{tr.field_impl}: non-finite loss")
+        first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+        require(last < first, f"{tr.field_impl}: loss did not fall ({first} -> {last})")
+        warm = float(np.median(ms[WARM_SKIP:]))
+        print(f"train {tr.field_impl}: {TRAIN_STEPS} steps, mean loss first {k} {first:.5f} -> last {k} "
+              f"{last:.5f}; warm ms/step {warm:.2f} (median), {1e3 / warm:.1f} steps/s; first step "
+              f"{ms[0]:.1f} ms; card {card}", flush=True)
+        return losses, warm, ckpt
+
+    counters = (ff.LAUNCHES, fr.LAUNCHES, im.LAUNCHES)
+    zero_launches(*counters)
+    losses, warm_fused, ckpt = run(fused, RESUME_STEP)
+    launches = dict(ff.LAUNCHES)
+    want = {"forward": 2 * TRAIN_STEPS, "backward": 2 * TRAIN_STEPS, "backward_kernels": 8 * TRAIN_STEPS}
+    require(launches == want, f"K4/K5 launches {launches}, expected {want}")
+    require(sum(fr.LAUNCHES.values()) + sum(im.LAUNCHES.values()) == 0, "a render kernel ran in a train step")
+    print(f"train launches: K4 {launches['forward']}, K5 {launches['backward']} calls "
+          f"({launches['backward_kernels']} kernel launches): {launches['forward'] / TRAIN_STEPS:g} and "
+          f"{launches['backward'] / TRAIN_STEPS:g} per step", flush=True)
+    zero_launches(*counters)
+    psnr_fused = fused.render_test_images(TRAIN_STEPS)
+    eval_launches = {"K1": fr.LAUNCHES["density_only"], "K2": im.LAUNCHES["importance_merge"],
+                     "K3": fr.LAUNCHES["full"]}
+    require(min(eval_launches.values()) >= 1 and sum(ff.LAUNCHES.values()) == 0,
+            f"eval render launches {eval_launches}, field {ff.LAUNCHES}")
+    print(f"test views ({TRAIN_EVAL_VIEWS}) through K1-K3: PSNR {psnr_fused:.3f} dB; launches {eval_launches}",
+          flush=True)
+
+    # 4. The same steps with the plain fp32 field.
+    plain = trainer("plain", "plain")
+    zero_launches(*counters)
+    _, warm_plain, _ = run(plain)
+    require(sum(ff.LAUNCHES.values()) == 0, f"the plain field launched {ff.LAUNCHES}")
+    psnr_plain = plain.render_test_images(TRAIN_STEPS)
+    gap = abs(psnr_fused - psnr_plain)
+    print(f"test-view PSNR after {TRAIN_STEPS} steps: fused {psnr_fused:.3f} dB, plain {psnr_plain:.3f} dB "
+          f"(gap {gap:.3f}, limit {PSNR_GAP_DB}); warm ms/step fused {warm_fused:.2f}, plain {warm_plain:.2f}",
+          flush=True)
+    require(np.isfinite(gap) and gap <= PSNR_GAP_DB, f"PSNR gap {gap} dB")
+
+    # 5. Resume a fresh Trainer from the step-RESUME_STEP checkpoint: its next
+    # two losses (params, then params after an Adam update from the restored
+    # moments) equal the uninterrupted run's.
+    resumed = trainer("auto", "resumed")
+    start = resumed.resume_from_checkpoint(ckpt)
+    require(start == RESUME_STEP, f"resumed at {start}")
+    again = [float(resumed.step(i)["total_loss"]) for i in (start, start + 1)]
+    diffs = [abs(a - b) for a, b in zip(again, losses[start: start + 2])]
+    print(f"resume from step {start}: losses {again[0]:.7f}, {again[1]:.7f} against {losses[start]:.7f}, "
+          f"{losses[start + 1]:.7f} (|diff| {diffs[0]:.1e}, {diffs[1]:.1e})", flush=True)
+    require(max(diffs) <= 1e-6, f"resumed losses differ by {diffs}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    src = f"{PACKAGE}/csrc/train_field.cu"
+    c, f = res["coarse"], res["fine"]
+    per_step = lambda key: c["t"][key] + f["t"][key]  # noqa: E731
+    common = dict(route="cuda", source=src, library_ms=None, held_against_plain=True, calls_per_step=2,
+                  points_coarse=c["n"], points_fine=f["n"])
+    return [
+        dict(name="K4 fused field forward (training, coarse + fine call of one step)",
+             replaces="nerf_workspaces_explorer_tpu/ops/pallas_train.py:222", launches=launches["forward"],
+             max_abs_err=max(c["k4_err"], f["k4_err"]), ms=per_step("k4"), plain_ms=per_step("k4_plain"),
+             bound_ms=c["b4"][0] + f["b4"][0], bound_by=f["b4"][1], ms_coarse=c["t"]["k4"],
+             ms_fine=f["t"]["k4"], **common),
+        dict(name="K5 fused field backward (training, coarse + fine call of one step)",
+             replaces="nerf_workspaces_explorer_tpu/ops/pallas_train.py:237", launches=launches["backward"],
+             kernel_launches=launches["backward_kernels"], max_abs_err=max(c["k5_abs"], f["k5_abs"]),
+             max_rel_err=max(c["k5_rel"], f["k5_rel"]), deterministic=True, ms=per_step("k5"),
+             plain_ms=per_step("k5_plain"), bound_ms=c["b5"][0] + f["b5"][0], bound_by=f["b5"][1],
+             ms_coarse=c["t"]["k5"], ms_fine=f["t"]["k5"], **common),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -144,7 +389,7 @@ def main() -> int:
 
     # 1. Build every kernel of the path from the checkout's sources.
     t0 = time.time()
-    names = ["fused_render", "importance_merge"]
+    names = ["fused_render", "importance_merge", "train_field"]
     _build.build(names)
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name in names:
@@ -269,7 +514,10 @@ def main() -> int:
           f"parity warm ms/frame {', '.join(f'{x:.1f}' for x in parity_ms)}; launches {launches}; "
           f"card {card}", flush=True)
 
-    # 4. The kernels line, then the result line.
+    # 4. Training.
+    train_kernels = train_phase(card, device)
+
+    # 5. The kernels line, then the result line.
     src = f"{PACKAGE}/csrc/"
     kernels = [
         dict(name="K1 fused render, density-only (coarse pass)", route="cuda", source=src + "fused_render.cu",
@@ -285,7 +533,7 @@ def main() -> int:
              replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598", launches=launches["K3"],
              max_abs_err=k3_err, ms=t["k3"], plain_ms=t["k3_plain"], bound_ms=b3, bound_by=by3,
              library_ms=None, ms_eps0=t["k3_eps0"], dense_bound_ms=b3_dense, held_against_plain=True),
-    ]
+    ] + train_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

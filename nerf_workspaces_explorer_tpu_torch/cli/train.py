@@ -1,0 +1,147 @@
+"""Training CLI of the port: a NeRF trained on an analytic synthetic scene.
+
+Counterpart of `nerf_workspaces_explorer_tpu/cli/train.py` (reference
+nerf/train.py:11-56: `--office` whitelist, config load, handler setup, the
+per-step wall-clock print), its `--synthetic` path. Runs on `cuda` (the
+fused K4/K5 field kernels) unless given `--device cpu` (plain PyTorch).
+Options of the JAX CLI that this port does not have yet raise.
+
+Usage:
+    python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --scene room
+    python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --device cpu \\
+        --synthetic-size 16 --iterations 40
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+AVAILABLE_OFFICES = ("tokyo", "new_york", "geneve", "belgrade")
+
+# Options of the JAX package's CLI that are not ported, with the value that
+# means "not asked for".
+UNPORTED = {
+    "proposal": False, "fast_preset": False, "mesh": 0, "steps_per_call": 1,
+    "profile": None, "nan_debug": False, "export_final": False,
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--office", type=str, default="tokyo")
+    parser.add_argument("--config", type=str, default=None,
+                        help="config YAML (reference schema) in place of the office's")
+    parser.add_argument("--iterations", type=int, default=None)
+    parser.add_argument("--resume", type=str, default=None, help="checkpoint to resume")
+    parser.add_argument("--synthetic", action="store_true",
+                        help="train on a synthetic scene (required: the Replica loader is not ported)")
+    parser.add_argument("--synthetic-size", type=int, default=64, help="image width (height 3/4 of it)")
+    parser.add_argument("--synthetic-views", type=int, nargs=2, default=(8, 2),
+                        metavar=("N_TRAIN", "N_TEST"), help="--scene orbit view counts")
+    parser.add_argument("--scene", choices=("orbit", "room"), default="orbit",
+                        help="orbit (blob orbit) or room (interior walkthrough, every-5th/+2 split)")
+    parser.add_argument("--room-frames", type=int, default=900, help="--scene room: trajectory frames")
+    parser.add_argument("--room-stride", type=int, default=5, help="--scene room: train ids = every Nth frame")
+    parser.add_argument("--scene-cache", type=str, default=None,
+                        help="--scene room: ground-truth cache directory (none by default)")
+    parser.add_argument("--save-final", action="store_true",
+                        help="save a checkpoint at the final step into <save-dir>/checkpoints")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--save-dir", type=str, default=None)
+    parser.add_argument("--field", choices=("auto", "plain", "fused"), default="auto",
+                        help="training field: fused = the K4/K5 CUDA kernels (bf16 products), "
+                        "plain = fp32 PyTorch, auto = fused on cuda, plain on the CPU")
+    parser.add_argument("--eval-max-views", type=int, default=0, metavar="N",
+                        help="evenly subsample the eval renders to at most N views (0 = all)")
+    parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    # Not ported: each raises when given.
+    parser.add_argument("--mesh", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--profile", type=str, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--export-final", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--proposal", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--fast-preset", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--steps-per-call", type=int, default=1, help=argparse.SUPPRESS)
+    parser.add_argument("--nan-debug", action="store_true", help=argparse.SUPPRESS)
+    return parser
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    for name, off in UNPORTED.items():
+        if getattr(args, name) != off:
+            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported to the PyTorch trainer yet")
+    if not args.synthetic:
+        raise NotImplementedError("the Replica loader is not ported: train with --synthetic")
+
+    office_name = str(args.office).lower().strip().replace(" ", "_")
+    if office_name not in AVAILABLE_OFFICES:
+        raise RuntimeError(f"Office {office_name} not available for training.")
+    office = f"office_{office_name}"
+
+    import torch
+
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import (
+        make_room_scene_splits,
+        make_synthetic_scene,
+    )
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import resolve_device
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
+
+    device = resolve_device(torch.device(args.device))
+    config = load_config(args.config, office_name=office)
+    size = args.synthetic_size
+    if args.scene == "room":
+        near, far = 0.1, 8.0
+        config = dataclasses.replace(
+            config, rendering=dataclasses.replace(config.rendering, depth_range=(near, far))
+        )
+        train_data, test_data, _ = make_room_scene_splits(
+            n_frames=args.room_frames, stride=args.room_stride, height=size * 3 // 4, width=size,
+            seed=7 + args.seed, near=near, far=far, cache_dir=args.scene_cache, device=device,
+        )
+        print(f"room scene: {len(train_data)} train / {len(test_data)} test views at "
+              f"{size}x{size * 3 // 4}")
+    else:
+        near, far = config.rendering.depth_range
+        n_train, n_test = args.synthetic_views
+        train_data, test_data, _ = make_synthetic_scene(
+            n_train=n_train, n_test=n_test, height=size * 3 // 4, width=size, seed=args.seed,
+            near=near, far=far, device=device,
+        )
+
+    trainer = Trainer(
+        office, config, train_data=train_data, test_data=test_data, seed=args.seed,
+        save_dir=args.save_dir, field_impl=args.field, eval_max_views=args.eval_max_views,
+        device=device,
+    )
+    trainer.setup()
+    start_step = 0
+    if args.resume is not None:
+        start_step = trainer.resume_from_checkpoint(args.resume)
+        print(f"Resumed from {args.resume} at step {start_step}")
+    num_iterations = args.iterations if args.iterations is not None else config.training.n_iterations
+
+    print("#" * 80)
+    print("------------------------------- Training loop ---------------------------------")
+    print("#" * 80)
+    for i in range(start_step, num_iterations):
+        step_start = time.time()
+        trainer.step(i)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        duration = time.time() - step_start
+        print(f"Finished step: {i + 1}/{num_iterations} --> Step duration: {duration} sec")
+
+    if args.save_final:
+        trainer.save_models_checkpoint(num_iterations)
+    written = trainer.export_results()
+    if written:
+        print(f"Exported {len(written)} result curves to {trainer.save_dir}/results")
+
+
+if __name__ == "__main__":
+    main()

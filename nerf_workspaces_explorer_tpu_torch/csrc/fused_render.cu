@@ -24,33 +24,16 @@
 //   transmittance and the composite stay in shared memory, and a block stops
 //   once every ray it owns has transmittance at or below eps, which is exact
 //   up to eps because samples run front to back. Simple first: no TMA, no
-//   wgmma, one block per SM.
+//   wgmma, one block per SM. The MMA tiles, epilogues and encoding are
+//   nerf_mlp.cuh's, shared with the training field kernels.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "nerf_mlp.cuh"
 
 #define RB 32                 // rays per block
-#define SG 4                  // samples per step
-#define MP (RB * SG)          // points per step
-#define WIDTH 256             // trunk width
-#define HALF (WIDTH / 2)      // view layer width
-#define ENC 64                // point encoding rows: 3 + 6 * 10, padded to 64
-#define PTS_FREQS 10
-#define VENC 32               // view encoding rows: 3 + 6 * 4, padded to 32
-#define LDA (WIDTH + 8)       // activation row stride (bf16), keeps 32 B alignment
-#define LDE (ENC + 8)         // encoding row stride
-#define KS 64                 // slab depth (inputs per staged weight slab)
-#define LDS (KS + 8)          // slab row stride
-#define NCH 128               // output columns per chunk
-#define NWARPS 8
-#define NTHREADS (NWARPS * 32)
-#define LDST 20               // per-warp fp32 staging row stride
+#define SG 4                  // samples per step (RB * SG = MP points)
 #define MAXD 16
+
+static_assert(RB * SG == MP, "a block step is one MP-point tile");
 
 struct NetPtrs {
   const bf16* w[MAXD];        // layer i: [256, in_i], in_0 = ENC, else 256
@@ -68,115 +51,6 @@ struct NetPtrs {
   int depth;
   int skip_layer;             // layer whose input is [encoding, h]; -1 for none
 };
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
-// acc[f] += A[this warp's 16 rows, 0:K] . W[n0 + 16 f + (0..15), 0:K]^T, with
-// W row-major [*, K]. All threads of the block must call it together.
-template <int NF>
-__device__ __forceinline__ void mma_accum(Acc (&acc)[NF], const bf16* A, int lda,
-                                          const bf16* __restrict__ W, int K, int n0,
-                                          bf16* slab) {
-  const int warp = threadIdx.x >> 5;
-  constexpr int VPR = KS / 8;  // 16-byte vectors per slab row
-  for (int k0 = 0; k0 < K; k0 += KS) {
-    for (int v = threadIdx.x; v < NF * 16 * VPR; v += NTHREADS) {
-      const int r = v / VPR, c = (v % VPR) * 8;
-      *reinterpret_cast<uint4*>(slab + r * LDS + c) =
-          *reinterpret_cast<const uint4*>(W + (size_t)(n0 + r) * K + k0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KS; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + warp * 16 * lda + k0 + kk, lda);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, slab + f * 16 * LDS + kk, LDS);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-enum { EPI_RELU = 0, EPI_LINEAR = 1, EPI_VIEW = 2, EPI_F32 = 3 };
-
-// Bias (+ per-ray view term) (+ ReLU) on this warp's accumulators, written
-// as bf16 activations to dst, or as fp32 columns < ncols to out32.
-template <int NF, int MODE>
-__device__ __forceinline__ void epilogue(Acc (&acc)[NF], const float* __restrict__ bias,
-                                         int n0, bf16* dst, float* stage,
-                                         const float* hvenc, float* out32, int ostride,
-                                         int ncols) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    wmma::store_matrix_sync(stage, acc[f], LDST, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = e & 15;
-      const int row = warp * 16 + r, col = n0 + f * 16 + c;
-      float v = stage[r * LDST + c];
-      if (MODE == EPI_VIEW) v += hvenc[(row % RB) * HALF + col];
-      v += bias[col];
-      if (MODE == EPI_RELU || MODE == EPI_VIEW) v = fmaxf(v, 0.f);
-      if (MODE == EPI_F32) {
-        if (col < ncols) out32[row * ostride + col] = v;
-      } else {
-        dst[row * LDA + col] = __float2bfloat16(v);
-      }
-    }
-    __syncwarp();
-  }
-}
-
-__device__ __forceinline__ void zero_acc(Acc (&acc)[8]) {
-#pragma unroll
-  for (int f = 0; f < 8; ++f) wmma::fill_fragment(acc[f], 0.f);
-}
-
-// dst[:, 0:n_out] = epi(A[:, 0:K] . W^T (+ E . W_skip^T)), in 128-column chunks.
-template <int MODE>
-__device__ void dense(const bf16* A, int lda, const bf16* W, int K, const bf16* E,
-                      const bf16* W_skip, const float* bias, int n_out, bf16* dst,
-                      bf16* slab, float* stage, const float* hvenc) {
-  for (int n0 = 0; n0 < n_out; n0 += NCH) {
-    Acc acc[8];
-    zero_acc(acc);
-    mma_accum<8>(acc, A, lda, W, K, n0, slab);
-    if (W_skip != nullptr) mma_accum<8>(acc, E, LDE, W_skip, ENC, n0, slab);
-    epilogue<8, MODE>(acc, bias, n0, dst, stage, hvenc, nullptr, 0, 0);
-  }
-}
-
-// One 16-column head (alpha or rgb) into fp32 columns < ncols of out32.
-__device__ void head16(const bf16* A, const bf16* W, int K, const float* bias,
-                       float* out32, int ostride, int ncols, bf16* slab, float* stage) {
-  Acc acc[1];
-  wmma::fill_fragment(acc[0], 0.f);
-  mma_accum<1>(acc, A, LDA, W, K, 0, slab);
-  epilogue<1, EPI_F32>(acc, bias, 0, nullptr, stage, nullptr, out32, ostride, ncols);
-}
-
-// Quadrant-reduced polynomial sin/cos (cephes coefficients on [-pi/4, pi/4],
-// two-term pi/2 split), the TPU kernel's _sincos_poly.
-__device__ __forceinline__ void sincos_poly(float p, float& s, float& c) {
-  const float PIO2_HI = 1.5707855224609375f;
-  const float PIO2_LO = (float)(1.5707963267948966 - 1.5707855224609375);
-  const float q = rintf(p * 0.6366197723675814f);
-  const float r = (p - q * PIO2_HI) - q * PIO2_LO;
-  const float r2 = r * r;
-  const float s0 = r + r * r2 * (-1.6666654611e-1f + r2 * (8.3321608736e-3f + r2 * -1.9515295891e-4f));
-  const float c0 = 1.f + r2 * (-0.5f + r2 * (4.166664568298827e-2f +
-                                             r2 * (-1.388731625493765e-3f + r2 * 2.443315711809948e-5f)));
-  const int qi = (int)q;
-  const bool swap = (qi & 1) == 1;
-  const float sign = (qi & 2) == 2 ? -1.f : 1.f;
-  s = (swap ? c0 : s0) * sign;
-  c = (swap ? -s0 : c0) * sign;
-}
 
 template <bool DENSITY_ONLY>
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -247,17 +121,7 @@ render_kernel(NetPtrs net, const float* __restrict__ o_ph, const float* __restri
       const bool live = s < S;
       const float z = live ? zv[(size_t)s * R + ray] : 0.f;
       const float p = o_ph[(size_t)c * R + ray] + z * d_ph[(size_t)c * R + ray];
-      bf16* e = E + row * LDE;
-      e[c] = __float2bfloat16(p);
-      float sn, cs;
-      sincos_poly(p, sn, cs);
-      for (int k = 0; k < PTS_FREQS; ++k) {
-        e[3 + 3 * k + c] = __float2bfloat16(sn);
-        e[3 + 3 * PTS_FREQS + 3 * k + c] = __float2bfloat16(cs);
-        const float s2 = 2.f * sn * cs;
-        cs = 1.f - 2.f * sn * sn;
-        sn = s2;
-      }
+      encode_coord<PTS_FREQS>(E + row * LDE, c, p);
       if (c == 0) {
         zs[row] = z;
         ds[row] = live ? dv[(size_t)s * R + ray] : 0.f;  // dist 0: alpha 0
@@ -267,20 +131,20 @@ render_kernel(NetPtrs net, const float* __restrict__ o_ph, const float* __restri
 
     // Density trunk.
     dense<EPI_RELU>(E, LDE, net.w[0], ENC, nullptr, nullptr, net.b[0], WIDTH, bufs[0], slab,
-                    stage, nullptr);
+                    stage, nullptr, 1);
     for (int i = 1; i < net.depth; ++i) {
       const bool skip = i == net.skip_layer;
       dense<EPI_RELU>(bufs[(i - 1) & 1], LDA, net.w[i], WIDTH, E, skip ? net.w_skip : nullptr,
-                      net.b[i], WIDTH, bufs[i & 1], slab, stage, nullptr);
+                      net.b[i], WIDTH, bufs[i & 1], slab, stage, nullptr, 1);
     }
     bf16* h = bufs[(net.depth - 1) & 1];
     bf16* other = bufs[net.depth & 1];
     head16(h, net.w_alpha, WIDTH, net.b_alpha, sig, 1, 1, slab, stage);
     if (!DENSITY_ONLY) {
       dense<EPI_LINEAR>(h, LDA, net.w_feat, WIDTH, nullptr, nullptr, net.b_feat, WIDTH, other,
-                        slab, stage, nullptr);
+                        slab, stage, nullptr, 1);
       dense<EPI_VIEW>(other, LDA, net.w_view_h, WIDTH, nullptr, nullptr, net.b_view,
-                      HALF, h, slab, stage, hvenc);
+                      HALF, h, slab, stage, hvenc, RB);
       head16(h, net.w_rgb, HALF, net.b_rgb, rgbraw, 4, 3, slab, stage);
     }
     __syncthreads();

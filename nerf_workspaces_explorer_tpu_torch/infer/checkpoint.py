@@ -1,10 +1,14 @@
-"""Checkpoint loading into torch parameter trees.
+"""Checkpoints: the native `.npz` (save and load) and the reference's torch
+`.ckpt` (load).
 
 Counterpart of `nerf_workspaces_explorer_tpu/infer/checkpoint.py`. Two
 formats load:
 
   - the native `.npz`: path-flattened arrays under `||`-joined keys
-    (`params||fine||pts||0||w`) plus a `__meta__` JSON blob;
+    (`params||fine||pts||0||w`) plus a `__meta__` JSON blob, and, from a
+    training run, the optimizer's leaves under `opt||i` (optax.adam's
+    flattened state: count, first moments, second moments, count). Both
+    packages write and read it;
   - the reference's torch `.ckpt` (`network_coarse_state_dict`,
     `network_fine_state_dict`; reference
     nerf/training/nerf_replica_training_handler.py:404-407), whose keys may
@@ -20,7 +24,8 @@ A tree is nested dicts and lists of tensors:
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Mapping, Tuple
+import os
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,26 +56,77 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Any:
 
 
 def params_from_numpy(
-    tree: Any, device: torch.device | str = "cpu", dtype: torch.dtype = torch.float32
+    tree: Any,
+    device: torch.device | str = "cpu",
+    dtype: torch.dtype = torch.float32,
+    *,
+    requires_grad: bool = False,
 ) -> Any:
-    """Carry a parameter tree of arrays (a JAX tree through `np.asarray`, or a
-    loaded `.npz`) into torch tensors on `device`."""
+    """Carry a parameter tree of arrays (a JAX tree through `np.asarray`, a
+    JAX TrainState's params, or a loaded `.npz`) into torch tensors on
+    `device`; with `requires_grad`, leaf tensors a training state can own."""
     if isinstance(tree, Mapping):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+        return {k: params_from_numpy(v, device, dtype, requires_grad=requires_grad)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [params_from_numpy(v, device, dtype) for v in tree]
+        return [params_from_numpy(v, device, dtype, requires_grad=requires_grad) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach().cpu().numpy()
     arr = np.asarray(tree, dtype=np.float32)
-    return torch.from_numpy(arr.copy()).to(device=device, dtype=dtype)
+    out = torch.from_numpy(arr.copy()).to(device=device, dtype=dtype)
+    return out.requires_grad_(True) if requires_grad else out
 
 
-def load_checkpoint(path: str) -> Tuple[Dict[str, np.ndarray], int, Dict[str, Any]]:
-    """Load a native `.npz` -> (params tree of numpy arrays, step, metadata)."""
+def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, np.ndarray]]:
+    """`||`-joined key paths, dict keys sorted, as the JAX package writes them."""
+    if isinstance(tree, Mapping):
+        return [kv for k in sorted(tree) for kv in _flatten(tree[k], f"{prefix}{k}{_SEP}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in _flatten(v, f"{prefix}{i}{_SEP}")]
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach().cpu().numpy()
+    return [(prefix[: -len(_SEP)], np.asarray(tree))]
+
+
+def save_checkpoint(
+    path: str,
+    params: Any,
+    *,
+    step: int = 0,
+    opt_leaves: Optional[List[np.ndarray]] = None,
+    metadata: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Save a parameter tree (tensors or arrays) and optionally the
+    optimizer's leaves as a native `.npz` (JAX `save_checkpoint`)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    arrays = dict(_flatten({"params": params}))
+    for i, leaf in enumerate(opt_leaves or []):
+        arrays[f"opt{_SEP}{i}"] = np.asarray(leaf)
+    meta = dict(metadata or {})
+    meta["step"] = int(step)
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(path, **arrays)
+
+
+def load_training_checkpoint(
+    path: str,
+) -> Tuple[Dict[str, np.ndarray], int, List[np.ndarray], Dict[str, Any]]:
+    """Load a native `.npz` -> (params tree of numpy arrays, step, optimizer
+    leaves in `opt||i` order (empty if none), metadata)."""
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}
     meta = json.loads(bytes(arrays.pop("__meta__").tobytes()).decode())
     step = int(meta.pop("step", 0))
-    arrays = {k: v for k, v in arrays.items() if not k.startswith(f"opt{_SEP}")}
-    return _unflatten(arrays)["params"], step, meta
+    opt_keys = sorted((k for k in arrays if k.startswith(f"opt{_SEP}")),
+                      key=lambda k: int(k.split(_SEP)[1]))
+    opt_leaves = [arrays.pop(k) for k in opt_keys]
+    return _unflatten(arrays)["params"], step, opt_leaves, meta
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, np.ndarray], int, Dict[str, Any]]:
+    """Load a native `.npz` -> (params tree of numpy arrays, step, metadata)."""
+    params, step, _, meta = load_training_checkpoint(path)
+    return params, step, meta
 
 
 def torch_state_dict_to_params(state_dict: Mapping[str, Any]) -> Params:

@@ -9,8 +9,8 @@ into `build/torch_kernels/<name>-<source hash>.so` under the repository root
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
 
-The hash of the source and flags in the file name means an edited source
-never loads a stale library. Pointers and the stream cross into C as `c_void_p`; every entry
+The hash of the source, the shared headers (`csrc/*.cuh`) and the flags in
+the file name means an edited source never loads a stale library. Pointers and the stream cross into C as `c_void_p`; every entry
 point returns `cudaGetLastError()` and `check` raises on a nonzero code.
 Nothing here runs at import time.
 """
@@ -50,10 +50,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """The library's path, named by a hash of its source and the flags."""
+    """The library's path, named by a hash of its source, the headers and
+    the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for source in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, source), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -1,5 +1,6 @@
-"""Depth sampling along rays: linear coarse depths and deterministic
-inverse-CDF importance samples (the inference path).
+"""Depth sampling along rays: linear coarse depths, their stratified jitter
+(training), and inverse-CDF importance samples at deterministic quantiles
+(inference) or at given random ones (training).
 
 Counterpart of `nerf_workspaces_explorer_tpu/rays/sampling.py` (reference
 nerf/rays/rays.py:74-121 and nerf/inference/nerf_replica_inference_handler.py:
@@ -29,21 +30,37 @@ def coarse_z_vals(near: torch.Tensor, far: torch.Tensor, n_samples: int) -> torc
     return near * (1.0 - t) + far * t
 
 
-def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int) -> torch.Tensor:
-    """Deterministic inverse-CDF sampling (reference rays.py:74-121).
+def stratified_perturb(z_vals: torch.Tensor, t_rand: torch.Tensor) -> torch.Tensor:
+    """One draw per bin between interval midpoints (clamped by the first and
+    last sample), t_rand ~ U[0, 1) of z_vals' shape (reference
+    …training_handler.py:553-562; JAX `stratified_perturb`)."""
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    upper = torch.cat([mids, z_vals[..., -1:]], -1)
+    lower = torch.cat([z_vals[..., :1], mids], -1)
+    return lower + (upper - lower) * t_rand
+
+
+def sample_pdf(
+    bins: torch.Tensor, weights: torch.Tensor, n_samples: int, u: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Inverse-CDF sampling (reference rays.py:74-121).
 
     bins: [..., B] sorted bin edges (coarse z midpoints); weights: [..., B-1]
     unnormalized bin weights (coarse weights[1:-1]). Returns [..., n_samples]
-    ascending depths at the quantiles u = linspace(0, 1, n_samples).
+    depths at the quantiles u: linspace(0, 1, n_samples) (ascending), or the
+    given random u [..., n_samples] of training. The interval search reads a
+    detached CDF (reference rays.py:103); callers detach the result.
     """
     weights = weights + 1e-5  # nan/zero-division guard (reference rays.py:87)
     pdf = weights / weights.sum(-1, keepdim=True)
     cdf = torch.cat([torch.zeros_like(pdf[..., :1]), torch.cumsum(pdf, -1)], -1)
-    u = linspace01(n_samples, cdf.device).expand(*cdf.shape[:-1], n_samples).contiguous()
+    if u is None:
+        u = linspace01(n_samples, cdf.device).expand(*cdf.shape[:-1], n_samples)
+    u = u.contiguous()
     # `right=True` counts the entries with cdf_b <= u, so `below` is the last
     # of them and `above` the first entry past u, clamped to the last bin
     # when u >= cdf[-1] (reference rays.py:103-111).
-    above = torch.searchsorted(cdf.contiguous(), u, right=True)
+    above = torch.searchsorted(cdf.detach().contiguous(), u, right=True)
     below = above - 1
     above = above.clamp(max=cdf.shape[-1] - 1)
     cdf_below, cdf_above = cdf.gather(-1, below), cdf.gather(-1, above)

@@ -1,10 +1,10 @@
 """Volume rendering compositing: raw network outputs -> per-ray maps.
 
 Counterpart of `nerf_workspaces_explorer_tpu/render/volume.py` (reference
-nerf/models/model_utils.py:33-100, `raw2outputs`), inference form (no sigma
-noise):
+nerf/models/model_utils.py:33-100, `raw2outputs`):
   - dists between consecutive z values, last dist 1e10, scaled by |ray dir|;
-  - alpha = 1 - exp(-relu(sigma) * dists);
+  - alpha = 1 - exp(-relu(sigma + noise) * dists), the Gaussian sigma noise
+    a training regularizer (reference model_utils.py:64-71);
   - weights = alpha * exclusive-cumprod(1 - alpha + 1e-10), in linear space
     (a log-space product NaNs the gradients once density saturates);
   - rgb/depth/disp/acc maps, disp guarded where acc == 0.
@@ -31,20 +31,41 @@ def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
     return torch.cumprod(torch.cat([ones, x], -1), -1)[..., :-1]
 
 
+def _dists(z_vals: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], -1)
+    return dists * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+
+
+def sigma_to_weights(
+    sigma: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor
+) -> torch.Tensor:
+    """Noiseless compositing weights from raw sigma [..., S] (the weights
+    slice of `composite_rays`; JAX `sigma_to_weights`)."""
+    alpha = 1.0 - torch.exp(-torch.relu(sigma) * _dists(z_vals, rays_d))
+    return alpha * exclusive_cumprod(1.0 - alpha + 1e-10)
+
+
 def composite_rays(
     raw: torch.Tensor,
     z_vals: torch.Tensor,
     rays_d: torch.Tensor,
     *,
+    raw_noise_std: float = 0.0,
+    noise: torch.Tensor | None = None,
     white_background: bool = False,
 ) -> RenderOutputs:
-    """Alpha-composite raw [..., S, 4] predictions at depths [..., S]."""
-    dists = z_vals[..., 1:] - z_vals[..., :-1]
-    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], -1)
-    dists = dists * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-
+    """Alpha-composite raw [..., S, 4] predictions at depths [..., S]. With
+    raw_noise_std > 0, `noise` (standard normal, [..., S]) times the std is
+    added to sigma before the ReLU."""
+    dists = _dists(z_vals, rays_d)
     rgb = torch.sigmoid(raw[..., :3])
-    alpha = 1.0 - torch.exp(-torch.relu(raw[..., 3]) * dists)
+    sigma = raw[..., 3]
+    if raw_noise_std > 0.0:
+        if noise is None:
+            raise ValueError("raw_noise_std > 0 requires noise")
+        sigma = sigma + noise * raw_noise_std
+    alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
     weights = alpha * exclusive_cumprod(1.0 - alpha + 1e-10)
 
     rgb_map = (weights[..., None] * rgb).sum(-2)

@@ -1,0 +1,377 @@
+"""Training orchestration: data on the device, the step loop, logging, eval
+renders, checkpoint and resume.
+
+Counterpart of `nerf_workspaces_explorer_tpu/train/loop.py` (reference
+NeRFReplicaTrainingHandler, nerf/training/nerf_replica_training_handler.py:
+24-618, and the loop of nerf/train.py:30-56). Cadences and metric names are
+the reference's: console print every `step_log_print`, TensorBoard scalars
+and sigma histograms every `step_log_tensorboard`, train/test eval renders
+(PNG, mp4, batch PSNR/MSE) every `step_render_{train,test}`, checkpoints
+every `step_save_ckpt`.
+
+On `cuda` the field is the fused K4/K5 kernels (`field_impl="auto"`) and
+eval renders go through the fused serving path (K1-K3 on the current
+weights); on the CPU both are plain PyTorch. Each step's random draws come
+from the Trainer's generator seeded from (seed, step), so a run resumed
+from a checkpoint takes the same steps as one that never stopped.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from nerf_workspaces_explorer_tpu_torch.core.config import FrameworkConfig, load_config
+from nerf_workspaces_explorer_tpu_torch.data.replica import ReplicaDataset, SceneData
+from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import (
+    load_training_checkpoint,
+    params_from_numpy,
+    save_checkpoint,
+)
+from nerf_workspaces_explorer_tpu_torch.infer.renderer import (
+    resolve_device,
+    settings_from_config,
+    spec_from_config,
+)
+from nerf_workspaces_explorer_tpu_torch.models.mlp import tree_leaves
+from nerf_workspaces_explorer_tpu_torch.obs.profiler import StepTimer
+from nerf_workspaces_explorer_tpu_torch.obs.tb import TensorboardWriter
+from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
+    prepare_kernel_params,
+    render_rays_fused,
+)
+from nerf_workspaces_explorer_tpu_torch.rays.raygen import RayBundle, create_rays
+from nerf_workspaces_explorer_tpu_torch.render.pipeline import FIELD_IMPLS, render_rays_chunked
+from nerf_workspaces_explorer_tpu_torch.train.step import (
+    ExponentialDecay,
+    TrainState,
+    draw_step,
+    init_train_state,
+    load_optimizer_leaves,
+    optimizer_leaves,
+    train_step,
+)
+from nerf_workspaces_explorer_tpu_torch.utils.metrics import to8b
+from nerf_workspaces_explorer_tpu_torch.utils.viz import depth2rgb
+
+EXPERIMENTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "experiments")
+# Rays per eval-render group (bounds the fine pass's [192, R] buffers).
+EVAL_GROUP_RAYS = 1_000_000
+
+
+def _next_run_dir(base: str) -> str:
+    """Numbered run directories: max(existing numbers) + 1, created
+    exclusively (JAX `_next_run_dir`)."""
+    run = 1
+    if os.path.exists(base):
+        run = max((int(d) for d in os.listdir(base) if d.isdigit()), default=0) + 1
+    while True:
+        path = os.path.join(base, str(run))
+        try:
+            os.makedirs(path, exist_ok=False)
+            return path
+        except FileExistsError:
+            run += 1
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The generator seed of step `step` of a run seeded `seed`."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+
+
+class Trainer:
+    """End-to-end NeRF training for one workspace."""
+
+    def __init__(
+        self,
+        office_name: str,
+        config: Optional[FrameworkConfig] = None,
+        *,
+        train_data: Optional[SceneData] = None,
+        test_data: Optional[SceneData] = None,
+        experiments_dir: str = EXPERIMENTS_DIR,
+        seed: int = 0,
+        save_dir: Optional[str] = None,
+        enable_tensorboard: bool = True,
+        field_impl: str = "auto",
+        eval_max_views: int = 0,
+        device: Optional[str | torch.device] = None,
+    ) -> None:
+        self._device = resolve_device(device)
+        self._office_name = office_name
+        self._config = config if config is not None else load_config(office_name=office_name)
+        self._seed = seed
+        if field_impl == "auto":
+            field_impl = "fused" if self._device.type == "cuda" else "plain"
+        if field_impl not in FIELD_IMPLS:
+            raise ValueError(f"unknown field_impl {field_impl!r} (auto|{'|'.join(FIELD_IMPLS)})")
+        self._field_impl = field_impl
+        self._eval_max_views = max(0, int(eval_max_views))
+        self.timer = StepTimer(self._device)
+        self._save_dir = save_dir or _next_run_dir(os.path.join(experiments_dir, office_name))
+
+        cfg = self._config
+        if cfg.rendering.test_viz_factor != 1:
+            raise ValueError("test_viz_factor != 1 (downscaled eval renders) is not ported")
+        self._spec = spec_from_config(cfg)
+        self._settings = settings_from_config(cfg)._replace(train=True, field_impl=field_impl)
+        self._schedule = ExponentialDecay(
+            cfg.training.learning_rate, cfg.training.learning_rate_decay_rate,
+            cfg.training.learning_rate_decay_steps,
+        )
+        self._tb = (
+            TensorboardWriter(self._save_dir, cfg.to_dict()) if enable_tensorboard else None
+        )
+        if train_data is None or test_data is None:
+            ReplicaDataset(office_name)  # raises: the loader is not ported
+        self._train_data, self._test_data = train_data, test_data
+        self._img_h, self._img_w = int(train_data.rgb.shape[1]), int(train_data.rgb.shape[2])
+        self._state: Optional[TrainState] = None
+        self._gen = torch.Generator(device=self._device)
+
+    @property
+    def field_impl(self) -> str:
+        return self._field_impl
+
+    @property
+    def save_dir(self) -> str:
+        return self._save_dir
+
+    @property
+    def state(self) -> TrainState:
+        if self._state is None:
+            raise RuntimeError("initialize_models() has not run")
+        return self._state
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        return self.state.params
+
+    # Setup (reference prepare_data / initialize_models / initialize_rays,
+    # …training_handler.py:118-263).
+
+    def prepare_data(self) -> None:
+        """Training colors to the device; ground truth to TensorBoard."""
+        n_train, n_test = len(self._train_data), len(self._test_data)
+        self._train_rgbs = torch.as_tensor(
+            self._train_data.rgb.reshape(n_train, -1, 3), dtype=torch.float32, device=self._device
+        )
+
+        def eval_ids(n: int) -> Optional[np.ndarray]:
+            if 0 < self._eval_max_views < n:
+                return np.linspace(0, n - 1, self._eval_max_views).astype(int)
+            return None
+
+        self._train_eval_ids, self._test_eval_ids = eval_ids(n_train), eval_ids(n_test)
+        pick = lambda a, ids: a if ids is None else a[ids]  # noqa: E731
+        self._train_rgbs_eval = pick(self._train_data.rgb, self._train_eval_ids)
+        self._test_rgbs_eval = pick(self._test_data.rgb, self._test_eval_ids)
+        if self._tb is not None:
+            self._tb.write_image("Train/rgb_ground_truth", self._train_data.rgb, 0)
+            self._tb.write_image("Test/rgb_ground_truth", self._test_data.rgb, 0)
+            near, far = self._config.rendering.depth_range
+            depth_viz = np.stack([depth2rgb(d, near, far) for d in self._train_data.depth])
+            self._tb.write_image("Train/depth_ground_truth", depth_viz / 255.0, 0)
+
+    def initialize_models(self) -> None:
+        self._state = init_train_state(self._spec, self._schedule, self._device, seed=self._seed)
+
+    def initialize_rays(self) -> None:
+        """Per-image ray bundles on the device (reference :243-263)."""
+        near, far = self._config.rendering.depth_range
+        h, w = self._img_h, self._img_w
+        fx = w / 2.0 / np.tan(np.radians(self._config.hfov_degrees / 2.0))
+
+        def rays_for(poses: np.ndarray) -> RayBundle:
+            c2w = torch.as_tensor(np.asarray(poses, np.float32), device=self._device)
+            return create_rays(c2w, h, w, fx, fx, (w - 1.0) / 2.0, (h - 1.0) / 2.0, near, far)
+
+        pick = lambda a, ids: a if ids is None else a[ids]  # noqa: E731
+        self.rays_train = rays_for(self._train_data.camera_pose)
+        self.rays_vis = rays_for(pick(self._train_data.camera_pose, self._train_eval_ids))
+        self.rays_test = rays_for(pick(self._test_data.camera_pose, self._test_eval_ids))
+
+    def setup(self) -> None:
+        self.prepare_data()
+        self.initialize_models()
+        self.initialize_rays()
+
+    # The step loop (reference step(), …training_handler.py:265-339).
+
+    def step(self, global_step: int) -> Dict[str, Any]:
+        """One optimization step plus cadenced logging, eval and checkpoints."""
+        cfg = self._config
+        n_img, hw = self._train_rgbs.shape[0], self._train_rgbs.shape[1]
+        with self.timer.phase("train_step"):
+            self._gen.manual_seed(step_seed(self._seed, global_step))
+            draws = draw_step(self._gen, n_img, hw, cfg.rendering.n_rays, self._settings,
+                              self._device)
+            self._state, metrics = train_step(
+                self.state, self.rays_train, self._train_rgbs, draws, self._settings,
+                self._spec, self._schedule,
+            )
+
+        log = cfg.logging
+        if log.step_log_print > 0 and global_step % log.step_log_print == 0:
+            s = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
+            print(
+                f"[TRAIN] Iter: {global_step} Loss: {s['total_loss']:.6f}, "
+                f"rgb_coarse: {s['rgb_loss_coarse']:.6f}, rgb_fine: {s['rgb_loss_fine']:.6f}, "
+                f"PSNR_coarse: {s['psnr_coarse']:.3f}, PSNR_fine: {s['psnr_fine']:.3f}"
+            )
+        if self._tb is not None and global_step % log.step_log_tensorboard == 0:
+            names = ("rgb_loss_coarse", "rgb_loss_fine", "total_loss")
+            self._tb.write_scalars(global_step, [metrics[k] for k in names],
+                                   [f"Train/Loss/{k}" for k in names])
+            self._tb.write_scalars(global_step, [metrics["psnr_coarse"], metrics["psnr_fine"]],
+                                   ["Train/Metric/psnr_coarse", "Train/Metric/psnr_fine"])
+            self._tb.write_histogram(global_step, metrics["trans_coarse"], "trans_coarse")
+            self._tb.write_histogram(global_step, metrics["trans_fine"], "trans_fine")
+            for phase, mean_s in self.timer.summary().items():
+                self._tb.write_scalars(global_step, [mean_s * 1000.0], [f"Perf/{phase}_ms"])
+        if log.step_render_train > 0 and global_step % log.step_render_train == 0 and global_step > 0:
+            self.render_train_images(global_step)
+        if log.step_render_test > 0 and global_step % log.step_render_test == 0 and global_step > 0:
+            self.render_test_images(global_step)
+        if log.step_save_ckpt > 0 and global_step % log.step_save_ckpt == 0:
+            self.save_models_checkpoint(global_step)
+        return metrics
+
+    def fit(self, n_iterations: Optional[int] = None, *, start_step: int = 0) -> None:
+        """Run the main loop (reference nerf/train.py:48-56), one step at a time."""
+        total = n_iterations if n_iterations is not None else self._config.training.n_iterations
+        for i in range(start_step, total):
+            self.step(i)
+
+    # Eval renders (reference :411-508).
+
+    @torch.no_grad()
+    def _render_rays(self, flat_rays: RayBundle) -> torch.Tensor:
+        """rgb [R, 3] of a flat bundle: the fused serving path (K1-K3) on the
+        current weights on `cuda`, the plain fp32 pipeline on the CPU."""
+        eval_settings = self._settings.for_eval()._replace(field_impl="plain")
+        params = self.params
+        if self._device.type == "cuda":
+            kparams = {k: prepare_kernel_params(params[k], self._spec) for k in ("coarse", "fine")}
+            return render_rays_fused(kparams, flat_rays, eval_settings)
+        chunk = min(self._config.model.chunk, flat_rays.origins.shape[0])
+        out = render_rays_chunked(params, flat_rays, eval_settings, spec=self._spec, chunk=chunk)
+        return out["rgb_fine"]
+
+    def _render_image_set(self, rays: RayBundle, save_dir: Optional[str]) -> np.ndarray:
+        """Every image of a ray set -> [N, H, W, 3], in groups of whole images."""
+        h, w = self._img_h, self._img_w
+        n_img, n_pix = rays.origins.shape[0], h * w
+        per_group = min(n_img, max(1, EVAL_GROUP_RAYS // n_pix))
+        images = []
+        for start in range(0, n_img, per_group):
+            group = RayBundle(*(f[start : start + per_group] for f in rays))
+            n_group = group.origins.shape[0]
+            rgb = self._render_rays(group.reshape(n_group * n_pix))
+            images.append(rgb.reshape(n_group, h, w, 3).cpu().numpy())
+        images = np.concatenate(images, axis=0)
+        if save_dir is not None:
+            for i, rgb in enumerate(images):
+                self._write_png(os.path.join(save_dir, f"rgb_{i:03d}.png"), to8b(rgb))
+            self._write_mp4(os.path.join(save_dir, "rgb.mp4"), to8b(images))
+        return images
+
+    @staticmethod
+    def _write_png(path: str, image: np.ndarray) -> None:
+        try:
+            import imageio
+        except ImportError:  # optional, as in the JAX package
+            return
+        imageio.imwrite(path, image)
+
+    _warned_mp4 = False
+
+    @classmethod
+    def _write_mp4(cls, path: str, images: np.ndarray) -> None:
+        try:
+            import imageio
+
+            imageio.mimwrite(path, images, fps=30, quality=8)
+        except (ImportError, ValueError, OSError) as exc:
+            if not cls._warned_mp4:
+                cls._warned_mp4 = True
+                print(f"(mp4 export unavailable — {type(exc).__name__}: "
+                      f"PNG frames are written where imageio is installed)")
+
+    def _eval_split(self, tag: str, rays: RayBundle, gt: np.ndarray, global_step: int,
+                    subdir: str) -> float:
+        save_dir = os.path.join(self._save_dir, subdir, f"step_{global_step:06d}")
+        os.makedirs(save_dir, exist_ok=True)
+        with self.timer.phase(f"render_{tag.lower()}"):
+            rgbs = self._render_image_set(rays, save_dir)
+        mse = float(np.mean((rgbs - gt) ** 2))
+        psnr = float(-10.0 * np.log(mse) / np.log(10.0))
+        if self._tb is not None:
+            self._tb.write_scalars(global_step, [psnr, mse],
+                                   [f"{tag}/Metric/batch_PSNR", f"{tag}/Metric/batch_MSE"])
+            self._tb.write_image(f"{tag}/rgb", rgbs, global_step)
+        return psnr
+
+    def render_train_images(self, global_step: int) -> float:
+        return self._eval_split("Train", self.rays_vis, self._train_rgbs_eval, global_step,
+                                "train_render")
+
+    def render_test_images(self, global_step: int) -> float:
+        return self._eval_split("Test", self.rays_test, self._test_rgbs_eval, global_step,
+                                "test_render")
+
+    # Checkpoint and resume (reference :394-409; resume is the JAX package's).
+
+    def save_models_checkpoint(self, global_step: int) -> str:
+        """`checkpoints/<global_step>.npz`: params, the Adam state in the JAX
+        package's `opt||i` layout, and the number of updates taken (so a
+        resumed run continues at the next step)."""
+        path = os.path.join(self._save_dir, "checkpoints", f"{global_step:06d}.npz")
+        save_checkpoint(path, self.params, step=self.state.step,
+                        opt_leaves=optimizer_leaves(self.state),
+                        metadata={"office": self._office_name})
+        print(f"Saved checkpoints at {path}")
+        return path
+
+    def resume_from_checkpoint(self, path: str) -> int:
+        """Restore params, Adam state and step; returns the step to run next.
+        Reads either package's checkpoints; one without optimizer leaves
+        restarts Adam from zero moments at its step."""
+        if self._state is None:
+            self.initialize_models()
+        params, step, opt_leaves, _ = load_training_checkpoint(path)
+        loaded = params_from_numpy({k: params[k] for k in ("coarse", "fine")}, self._device)
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(self.params), tree_leaves(loaded)):
+                if dst.shape != src.shape:
+                    raise ValueError(f"checkpoint leaf {tuple(src.shape)} != {tuple(dst.shape)}")
+                dst.copy_(src)
+        state = self.state
+        if opt_leaves:
+            state = load_optimizer_leaves(state, opt_leaves)
+        self._state = state._replace(step=step)
+        return step
+
+    def export_results(self, out_dir: Optional[str] = None) -> list:
+        """The reference's nine SVG training curves from this run's scalars."""
+        from nerf_workspaces_explorer_tpu_torch.obs.export import (
+            export_training_curves,
+            scalars_from_tensorboard_logs,
+        )
+
+        out_dir = out_dir or os.path.join(self._save_dir, "results")
+        writer = getattr(self._tb, "summary_writer", None) if self._tb else None
+        if writer is not None and getattr(writer, "scalars", None):
+            scalars = writer.scalars  # the null writer's in-memory history
+        elif writer is not None:
+            self._tb.flush()
+            try:
+                scalars = scalars_from_tensorboard_logs(os.path.join(self._save_dir, "tensorboard_logs"))
+            except ImportError:
+                scalars = {}
+        else:
+            scalars = {}
+        return export_training_curves(scalars, out_dir)

@@ -1,0 +1,212 @@
+"""The fused training field (K4/K5) against the JAX package's custom-VJP
+field, run as tests/test_pallas_train.py runs it (interpret mode on the
+CPU): on a CPU tensor the port's wrapper runs its plain, bf16-modelling
+version."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerf_workspaces_explorer_tpu.models import NerfMLPSpec as JSpec
+from nerf_workspaces_explorer_tpu.models import apply_nerf_mlp as japply
+from nerf_workspaces_explorer_tpu.models import init_nerf_params
+from nerf_workspaces_explorer_tpu.models.encoding import positional_encoding as jencode
+from nerf_workspaces_explorer_tpu.ops import pallas_train as jpt
+from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import params_from_numpy
+from nerf_workspaces_explorer_tpu_torch.models.encoding import positional_encoding
+from nerf_workspaces_explorer_tpu_torch.models.mlp import NerfMLPSpec, apply_nerf_mlp, tree_leaves
+from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+
+torch.set_num_threads(2)
+
+SMALL = dict(depth=4, width=64, input_ch=39, input_ch_views=15)  # F = 6 / 2
+BF16_ATOL = 5e-3  # bf16 weights (tests/test_pallas_train.py:40)
+BF16_GRAD_REL = 0.08  # bf16 recompute + bf16 grad products (:54-56)
+
+
+def _inputs(seed, n=256):
+    rng = np.random.default_rng(seed)
+    pts = (rng.normal(size=(n, 3)) * 2.0).astype(np.float32)
+    vd = rng.normal(size=(n, 3)).astype(np.float32)
+    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
+    tgt = rng.normal(size=(n, 4)).astype(np.float32)
+    return pts, vd, tgt
+
+
+def _trees(spec_kwargs, seed=0):
+    params = init_nerf_params(jax.random.PRNGKey(seed), JSpec(**spec_kwargs))
+    mine = params_from_numpy(jax.tree.map(np.asarray, params))
+    for leaf in tree_leaves(mine):
+        leaf.requires_grad_(True)
+    return params, mine
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-8))
+
+
+def _port_grads(fn, mine, pts, vd, tgt):
+    out = fn(mine, torch.from_numpy(pts), torch.from_numpy(vd))
+    loss = torch.mean((out - torch.from_numpy(tgt)) ** 2)
+    grads = torch.autograd.grad(loss, tree_leaves(mine))
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+def _jax_grads(fn, params, pts, vd, tgt):
+    out = np.asarray(fn(params, jnp.asarray(pts), jnp.asarray(vd)))
+    g = jax.grad(lambda p: jnp.mean((fn(p, jnp.asarray(pts), jnp.asarray(vd)) - tgt) ** 2))(params)
+    return out, [np.asarray(x) for x in jax.tree_util.tree_leaves(g)]
+
+
+@pytest.mark.parametrize("skips", [(4,), (0,), (1,), (2,)], ids=["no-skip", "skip1", "skip2", "skip3"])
+def test_fused_field_matches_jax_kernels(skips):
+    """Forward within the bf16 bound, every gradient leaf within rel 0.08 of
+    JAX's interpret-mode kernels; skips=(4,) is vacuous at depth 4, the
+    others put the skip concat before each of layers 1-3."""
+    spec_kwargs = dict(SMALL, skips=skips)
+    params, mine = _trees(spec_kwargs, seed=len(skips) + skips[0])
+    pts, vd, tgt = _inputs(1)
+    jfield = jpt.make_field_train_fn(JSpec(**spec_kwargs), row_tile=128, interpret=True)
+    spec = NerfMLPSpec(**spec_kwargs)
+    out, grads = _port_grads(lambda p, x, v: ff.fused_field(p, spec, x, v), mine, pts, vd, tgt)
+    ref_out, ref_grads = _jax_grads(jfield, params, pts, vd, tgt)
+    np.testing.assert_allclose(out, ref_out, atol=BF16_ATOL)
+    assert len(grads) == len(ref_grads)
+    for i, (a, b) in enumerate(zip(grads, ref_grads)):
+        assert a.shape == b.shape
+        assert _rel(a, b) < BF16_GRAD_REL, (i, _rel(a, b))
+
+
+def test_fused_field_matches_f32_reference():
+    """The fused field against JAX's fp32 encode + MLP on the inputs of the
+    JAX package's own kernel test (tests/test_pallas_train.py:20-56), to
+    its bounds. The bound is the bf16 algorithm's and depends on the data:
+    both packages' kernels agree to 1e-4 on any input (the test above)."""
+    params = init_nerf_params(jax.random.PRNGKey(0), JSpec(**SMALL))
+    mine = params_from_numpy(jax.tree.map(np.asarray, params))
+    for leaf in tree_leaves(mine):
+        leaf.requires_grad_(True)
+    pts = np.array(jax.random.normal(jax.random.PRNGKey(1), (256, 3)) * 2.0)
+    vd = jax.random.normal(jax.random.PRNGKey(2), (256, 3))
+    vd = np.array(vd / jnp.linalg.norm(vd, axis=-1, keepdims=True))
+    tgt = np.array(jax.random.normal(jax.random.PRNGKey(3), (256, 4)))
+    spec = NerfMLPSpec(**SMALL)
+
+    def jref(p, x, v):
+        return japply(p, JSpec(**SMALL), jencode(x, 6, 10.0), jencode(v, 2, 1.0))
+
+    out, grads = _port_grads(lambda p, x, v: ff.fused_field(p, spec, x, v), mine, pts, vd, tgt)
+    ref_out, ref_grads = _jax_grads(jref, params, pts, vd, tgt)
+    np.testing.assert_allclose(out, ref_out, atol=BF16_ATOL)
+    for a, b in zip(grads, ref_grads):
+        assert _rel(a, b) < BF16_GRAD_REL
+
+
+def test_plain_f32_field_matches_jax():
+    """The f32 plain field (field_impl="plain"): forward atol 1e-5, gradients
+    rel 1e-4 against JAX's encode + apply_nerf_mlp."""
+    params, mine = _trees(SMALL, seed=4)
+    pts, vd, tgt = _inputs(3)
+    spec = NerfMLPSpec(**SMALL)
+
+    def mine_fn(p, x, v):
+        return apply_nerf_mlp(p, spec, positional_encoding(x, 6, 10.0), positional_encoding(v, 2, 1.0))
+
+    def jref(p, x, v):
+        return japply(p, JSpec(**SMALL), jencode(x, 6, 10.0), jencode(v, 2, 1.0))
+
+    out, grads = _port_grads(mine_fn, mine, pts, vd, tgt)
+    ref_out, ref_grads = _jax_grads(jref, params, pts, vd, tgt)
+    np.testing.assert_allclose(out, ref_out, atol=1e-5)
+    for a, b in zip(grads, ref_grads):
+        assert _rel(a, b) < 1e-4
+
+
+@pytest.mark.parametrize("spec_kwargs", [SMALL, dict()], ids=["4x64", "8x256"])
+def test_kernel_inputs_match_jax(spec_kwargs):
+    params, mine = _trees(spec_kwargs, seed=5)
+    ref, ref_meta = jpt._build_kernel_inputs(params, JSpec(**spec_kwargs))
+    inputs, meta = ff.build_kernel_inputs(mine, NerfMLPSpec(**spec_kwargs))
+    assert list(inputs) == list(ref)
+    for k in ref:
+        assert inputs[k].dtype == (torch.bfloat16 if k.startswith("w") else torch.float32), k
+        np.testing.assert_array_equal(inputs[k].float().numpy(), np.asarray(ref[k], np.float32), err_msg=k)
+    assert {k: v for k, v in meta.items()} == {k: v for k, v in ref_meta.items() if k != "dtype"}
+    assert ff.grad_names(meta) == jpt._grad_names(ref_meta)
+    assert ff.grad_shapes(meta) == jpt._grad_shapes(ref_meta)
+
+
+@pytest.mark.parametrize("skips", [(4,), (1,)], ids=["no-skip", "skip2"])
+def test_kernel_layout_backward_matches_jax_kernel(skips):
+    """K5's plain version against the JAX backward kernel on the same
+    kernel-layout inputs (both bf16 with fp32 sums, summed in other orders),
+    and K4's against the forward kernel."""
+    spec_kwargs = dict(SMALL, skips=skips)
+    params, mine = _trees(spec_kwargs, seed=6)
+    pts, vd, _ = _inputs(4, n=300)  # not a multiple of the 128-point tile
+    g = np.random.default_rng(5).normal(size=(8, 300)).astype(np.float32)
+    g[4:] = 0.0
+    ref_in, ref_meta = jpt._build_kernel_inputs(params, JSpec(**spec_kwargs))
+    ref_meta = dict(ref_meta)
+    ref_raw = np.asarray(jpt._run_fwd(ref_in, ref_meta, jnp.asarray(pts.T), jnp.asarray(vd.T), 128, True))
+    ref = jpt._run_bwd(ref_in, ref_meta, jnp.asarray(pts.T), jnp.asarray(vd.T), jnp.asarray(g), 128, True)
+    inputs, meta = ff.build_kernel_inputs(mine, NerfMLPSpec(**spec_kwargs))
+    pts_t, vd_t = torch.from_numpy(pts.T.copy()), torch.from_numpy(vd.T.copy())
+    raw = ff.field_forward(inputs, meta, pts_t, vd_t)
+    np.testing.assert_allclose(raw.numpy(), ref_raw, atol=1e-3)
+    kgrads = ff.field_backward(inputs, meta, pts_t, vd_t, torch.from_numpy(g))
+    assert list(kgrads) == jpt._grad_names(ref_meta)
+    for name, a in kgrads.items():
+        b = np.asarray(ref[name])
+        assert a.shape == b.shape, name
+        assert _rel(a.numpy(), b) < 2e-2, (name, _rel(a.numpy(), b))
+
+
+def test_pullback_matches_jax():
+    """`grads_to_tree` equals `_grads_to_pytree` on the same kernel-layout
+    gradients."""
+    spec_kwargs = dict(SMALL, skips=(1,))
+    params, mine = _trees(spec_kwargs, seed=7)
+    _, meta = ff.build_kernel_inputs(mine, NerfMLPSpec(**spec_kwargs))
+    rng = np.random.default_rng(8)
+    kgrads = {k: rng.normal(size=s).astype(np.float32) for k, s in ff.grad_shapes(meta).items()}
+    _, jmeta = jpt._build_kernel_inputs(params, JSpec(**spec_kwargs))
+    ref = jpt._grads_to_pytree({k: jnp.asarray(v) for k, v in kgrads.items()}, params, jmeta)
+    mine_tree = ff.grads_to_tree({k: torch.from_numpy(v) for k, v in kgrads.items()}, meta)
+    a = tree_leaves(mine_tree)
+    b = jax.tree_util.tree_leaves(ref)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert [g.shape for g in a] == [p.shape for p in tree_leaves(mine)]
+
+
+def test_zero_cotangents_for_points_and_views():
+    _, mine = _trees(SMALL, seed=9)
+    pts, vd, _ = _inputs(6)
+    x = torch.from_numpy(pts).requires_grad_(True)
+    v = torch.from_numpy(vd).requires_grad_(True)
+    out = ff.fused_field(mine, NerfMLPSpec(**SMALL), x, v)
+    dx, dv = torch.autograd.grad(out.sum(), [x, v])
+    assert torch.equal(dx, torch.zeros_like(x)) and torch.equal(dv, torch.zeros_like(v))
+
+
+def test_cpu_wrappers_count_no_launches():
+    """On CPU tensors the wrappers run the plain versions: no kernel launch."""
+    _, mine = _trees(SMALL, seed=10)
+    pts, vd, _ = _inputs(7, n=64)
+    before = dict(ff.LAUNCHES)
+    out = ff.fused_field(mine, NerfMLPSpec(**SMALL), torch.from_numpy(pts), torch.from_numpy(vd))
+    out.sum().backward()
+    assert ff.LAUNCHES == before
+
+
+def test_fused_field_refuses_other_devices():
+    _, mine = _trees(SMALL, seed=11)
+    inputs, meta = ff.build_kernel_inputs(mine, NerfMLPSpec(**SMALL))
+    x = torch.zeros((3, 8), device="meta")
+    with pytest.raises(ValueError, match="no fused field kernel"):
+        ff.field_forward(inputs, meta, x, x)

@@ -57,7 +57,8 @@ def test_port_imports_without_jax():
 
 @pytest.mark.parametrize(
     "path",
-    [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "profile_torch_frame.py")]
+    [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "profile_torch_frame.py"),
+     os.path.join(ROOT, "scripts", "profile_torch_train_step.py")]
     + sorted(
         os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")
     ),
