@@ -17,6 +17,26 @@ the fp32 parity render (SSIM >= 0.99, the repo's gate for bf16 serving,
 reports/reference_parity_320x240.md) and that every kernel of the path ran
 once per frame.
 
+Presets: builds the render kernel for every network shape of the in-repo
+checkpoints (64/F=6, 128/F=8, 192/F=10, 256/F=10) in its bf16, int8-trunk and
+int8 modes; holds K6 (importance-only placement) against its plain version
+at the turbo shapes (64 proposal samples, 48 importance samples, the 4,800
+stride-4 lattice rays of a real proposal pass) and at synth_hier's
+fast-preset shapes (64, 128, 76,800 rays), K1/K3 at the proposal (2x64@6f)
+and student (6x192@10f, all 76,800 rays) shapes, and K7 (int8-trunk and
+int8, density-only and full) on synth_hier's 8x256 nets and the turbo nets,
+all at eps 0 (the kernel and its plain version read one set of int8
+parameters; tests/test_torch_quantize.py holds that set equal to the JAX
+package's on the CPU). Then serves 320x240 frames: synth_hier at
+the reference preset (int8, int8-trunk) and the fast preset (bf16) on the
+three clicks; the room fixture (`room_proposal.npz`, depth range 0.1-8) at
+the fast preset with its proposal net and at the turbo preset (bf16, int8)
+on three walkthrough poses; for each row the warm ms per frame (median of
+6), exactly one density pass, one placement and one fine pass per frame,
+SSIM >= 0.99 at stride 1 against the fp32 parity frame of the same preset
+and pose, and for the stride-4 rows the SSIM against stride 1 and block
+corners equal to stride 1's at eps 0; and times one preview of each kind.
+
 Training: on the room scene at 320x240 (60-frame walkthrough, every 5th
 frame a train view, +2 a test view: 12 and 12) with the stock config (8x256
 nets, 1024 rays of 64 + 128 samples), holds K4 (field forward) and K5
@@ -27,7 +47,8 @@ loss falling), renders two test views through K1-K3, trains the same 300
 steps with the plain field (test-view PSNR within 1 dB), and resumes a
 fresh Trainer from the step-150 checkpoint (its next loss equal to 1e-6).
 
-Its last two lines are a JSON object with one entry per kernel and the
+Its last two lines are a JSON object with one entry per kernel (K1-K7; the
+new K1/K3 shapes and each served K7 mode have entries of their own) and the
 result line `{"ok": true, "device": {...}}`. Any failure raises and exits
 nonzero; without a CUDA card, or outside the repository, it exits 2 and
 prints no result.
@@ -49,6 +70,7 @@ PACKAGE = "nerf_workspaces_explorer_tpu_torch"
 CKPT = os.path.join(HERE, "assets", "bench", "synth_hier.npz")
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 BF16_ATOL = 5e-3  # bf16 kernels (tests/test_golden.py:52, tests/test_pallas_train.py:40)
 BF16_GRAD_REL = 0.08  # bf16 field gradients vs fp32 (tests/test_pallas_train.py:54-56)
@@ -107,8 +129,8 @@ def weight_bytes(kp) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -118,22 +140,26 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def merge_check(out, ref, z):
-    """Importance merge: equal up to the CDF's fp32 summation order. Flips to
-    a neighbouring interval on < 0.5% of depths, each within one coarse bin,
-    outside merged rows -3 and -2, where the u = 1 quantile may sit at either
-    end of the last bin (tests/test_torch_importance_merge.py::
-    assert_merge_close). Returns (max |err|, flips on all rows, flips off the
-    u = 1 rows)."""
+def merge_check(out, ref, z, u1_rows=slice(-3, -1)):
+    """Importance placement: equal up to the CDF's fp32 summation order.
+    Flips to a neighbouring interval on < 0.5% of depths, each within one
+    coarse bin, outside the rows where the u = 1 quantile may sit at either
+    end of the last bin: merged rows -3 and -2 (tests/
+    test_torch_importance_merge.py::assert_merge_close), the last row without
+    the merge. On those rows each ray's depths move by at most its own last
+    bin. Returns (max |err|, flips on all rows, flips off the u = 1 rows)."""
     err = (out - ref).abs()
     rows = torch.ones(out.shape[0], dtype=torch.bool, device=out.device)
-    rows[-3:-1] = False
+    rows[u1_rows] = False
     flips = float((err > 1e-4).float().mean())
     flips_rest = float((err[rows] > 1e-4).float().mean())
     bin_w = float(torch.diff(z, dim=0).max())
-    if flips_rest >= 5e-3 or float(err.max()) > bin_w + 1e-4:
-        raise AssertionError(f"importance kernel: flips {flips_rest:.4%} off the u = 1 rows, "
-                             f"max err {float(err.max())}")
+    mid = 0.5 * (z[1:] + z[:-1])
+    last_bin = mid[-1] - mid[-2]  # [R]
+    u1_excess = float((err[u1_rows] - last_bin).max())
+    if flips_rest >= 5e-3 or float(err[rows].max()) > bin_w + 1e-4 or u1_excess > 1e-4:
+        raise AssertionError(f"importance kernel: flips {flips_rest:.4%} off the u = 1 rows, max err "
+                             f"{float(err[rows].max())} there; u = 1 rows beyond their ray's last bin by {u1_excess}")
     if not bool((torch.diff(out, dim=0) >= 0).all()):
         raise AssertionError("importance kernel output is not sorted")
     return float(err.max()), flips, flips_rest
@@ -361,6 +387,310 @@ def train_phase(card: str, device: torch.device):
     ]
 
 
+ROOM_CKPT = os.path.join(HERE, "assets", "bench", "room_proposal.npz")
+ROOM_YAWS = (-30.0, 0.0, 30.0)  # three walkthrough views from bench.py's room spot
+SERVE_REPS = 2  # passes over a row's three poses: 6 warm frames per median
+STRIDE = 4  # the served placement stride of the proposal rows
+
+
+def k7_share_exact(out, ref, rows):
+    """Share of rays whose outputs agree to 1e-6."""
+    return float(((out[rows] - ref[rows]).abs().amax(0) <= 1e-6).float().mean())
+
+
+def presets_phase(card: str, device: torch.device, main: dict):
+    """The serving presets and precisions (module docstring); returns the
+    kernels line's entries of the widened K1/K3, K6 and K7."""
+    from nerf_workspaces_explorer_tpu_torch.app import workspace as ws
+    from nerf_workspaces_explorer_tpu_torch.camera.poses import poses_from_coordinates
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.core.types import COORD
+    from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import load_checkpoint, params_from_numpy
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_render as fr
+    from nerf_workspaces_explorer_tpu_torch.ops import importance_merge as im
+    from nerf_workspaces_explorer_tpu_torch.ops.quantize import calibrate_trunk, spec_from_net_params
+    from nerf_workspaces_explorer_tpu_torch.rays.raygen import create_rays
+    from nerf_workspaces_explorer_tpu_torch.rays.sampling import coarse_z_vals
+    from nerf_workspaces_explorer_tpu_torch.utils.metrics import ssim
+
+    cfg = load_config(office_name="tokyo")
+    h, w = cfg.experiment.image_height, cfg.experiment.image_width
+    _, _, meta = load_checkpoint(ROOM_CKPT)
+    room_cfg = dataclasses.replace(
+        cfg, rendering=dataclasses.replace(cfg.rendering, depth_range=tuple(meta["depth_range"])))
+    room_init = COORD(x=1.0, y=-0.5, z=0.5, pitch=-90.0)
+    room_poses = [poses_from_coordinates(room_init, [COORD(yaw=y)])[0] for y in ROOM_YAWS]
+    click_poses = []
+    for cls_name, *click in CLICKS:
+        init, coord = getattr(ws, cls_name)(ckpt_path=CKPT, device=device).transform_relative_coordinates(*click)
+        click_poses.append(poses_from_coordinates(init, [coord])[0])
+    src = f"{PACKAGE}/csrc/"
+    entries = []
+
+    def renderer(ckpt, config, precision, preset, **kw):
+        r = NeRFRenderer("tokyo", ckpt, config=config, precision=precision, preset=preset, device=device, **kw)
+        r.initialize_models()
+        return r
+
+    def rays_of(pose, config):
+        near, far = config.rendering.depth_range
+        return create_rays(torch.as_tensor(pose, device=device), h, w, config.fx, config.fy, config.cx,
+                           config.cy, near, far).reshape(h * w)
+
+    # 2. K6 against its plain version at the turbo shapes (S=64, I=48, the
+    # 4,800 stride-4 lattice rays of room pose 0 through the real proposal
+    # pass) and at synth_hier's fast-preset shapes (S=64, I=128, 76,800).
+    turbo_fast = renderer(ROOM_CKPT, room_cfg, "fast", "turbo")
+    kp_prop, kp_student = turbo_fast.kernel_params["proposal"], turbo_fast.kernel_params["fine"]
+    st = turbo_fast.settings
+    rays = rays_of(room_poses[0], room_cfg)
+    lat = torch.arange(h * w, device=device).reshape(h, w)[::STRIDE, ::STRIDE].reshape(-1)
+    o_l, d_l = rays.origins[lat], rays.dirs[lat]
+    o_ph_l, d_ph_l = fr.ray_phase_vectors(o_l, d_l, kp_prop.pts_freqs)
+    z_l = coarse_z_vals(rays.near[lat], rays.far[lat], st.n_samples).T.contiguous()
+    dist_l = fr._dists_from_z(z_l, torch.linalg.norm(d_l, dim=-1)[None])
+    k1p = lambda kp, eps, live=None: fr.nerf_render(  # noqa: E731
+        kp, o_ph_l, d_ph_l, z_l, dist_l, density_only=True, early_stop_eps=eps, live_groups=live)
+    w_l = k1p(kp_prop, 0.0)
+    torch.cuda.synchronize()
+    k1p_err = float((w_l - fr.nerf_render_plain(kp_prop, o_ph_l, d_ph_l, z_l, dist_l, density_only=True)).abs().max())
+    require(k1p_err <= BF16_ATOL, f"K1 proposal (64/F=6) disagrees: {k1p_err}")
+    n_lat, s_c, n_imp = lat.numel(), st.n_samples, st.n_importance
+    z_imp = im.importance_merge(w_l, z_l, n_imp, merge=False)
+    torch.cuda.synchronize()
+    k6_turbo = merge_check(z_imp, im.importance_merge_plain(w_l, z_l, n_imp, merge=False), z_l, slice(-1, None))
+    z_hier = im.importance_merge(main["weights"], main["z_c"], 128, merge=False)
+    torch.cuda.synchronize()
+    k6_hier = merge_check(z_hier, im.importance_merge_plain(main["weights"], main["z_c"], 128, merge=False),
+                          main["z_c"], slice(-1, None))
+    t6 = dict(ms=time_ms(lambda: im.importance_merge(w_l, z_l, n_imp, merge=False), 20),
+              plain=time_ms(lambda: im.importance_merge_plain(w_l, z_l, n_imp, merge=False), 5),
+              ms_hier=time_ms(lambda: im.importance_merge(main["weights"], main["z_c"], 128, merge=False), 20))
+    b6, by6 = bound_ms(0, (2 * s_c + n_imp) * n_lat * 4)
+    print(f"K6 importance-only: turbo shapes (S={s_c}, I={n_imp}, R={n_lat}) ms {t6['ms']:.4f} plain_ms "
+          f"{t6['plain']:.3f} bound_ms {b6:.5f} max_abs_err {k6_turbo[0]:.2e} flips {k6_turbo[1]:.4%} (off the "
+          f"u = 1 row {k6_turbo[2]:.4%}); synth_hier fast shapes (S=64, I=128, R={h * w}) ms {t6['ms_hier']:.4f} "
+          f"max_abs_err {k6_hier[0]:.2e} flips {k6_hier[1]:.4%} (off the u = 1 row {k6_hier[2]:.4%})", flush=True)
+
+    # 3. K1/K3 at the student's shape against the plain version at eps 0: the
+    # 6x192@10f full pass on all 76,800 rays at the lattice placement.
+    z_s = z_imp.reshape(n_imp, h // STRIDE, 1, w // STRIDE, 1).expand(-1, -1, STRIDE, -1, STRIDE)
+    z_s = z_s.reshape(n_imp, h * w).contiguous()
+    o_ph_s, d_ph_s = fr.ray_phase_vectors(rays.origins, rays.dirs, kp_student.pts_freqs)
+    venc_s = fr.encode_viewdirs_kernel_order(rays.viewdirs)
+    dist_s = fr._dists_from_z(z_s, torch.linalg.norm(rays.dirs, dim=-1)[None])
+    k3s = lambda kp, eps, live=None: fr.nerf_render(  # noqa: E731
+        kp, o_ph_s, d_ph_s, z_s, dist_s, venc_s, early_stop_eps=eps, live_groups=live)
+    k3s_plain = lambda kp: fr.nerf_render_plain(kp, o_ph_s, d_ph_s, z_s, dist_s, venc_s)  # noqa: E731
+    maps_s = k3s(kp_student, 0.0)
+    torch.cuda.synchronize()
+    rgba = [0, 1, 2, 4]
+    k3s_err = float((maps_s[rgba] - k3s_plain(kp_student)[rgba]).abs().max())
+    require(k3s_err <= BF16_ATOL, f"K3 student (192/F=10) disagrees: {k3s_err}")
+
+    def timed_pass(fn, kp, dense_samples, ray_bytes, n_rays_pass, density, peak):
+        """(ms at eps 1e-3, samples evaluated, bound, bound_by, dense bound)."""
+        live = torch.zeros(1, dtype=torch.int32, device=device)
+        fn(kp, EPS, live)
+        torch.cuda.synchronize()
+        samples = int(live) * 4 * 32
+        mac, mac_ray = render_macs(kp, density)
+        b, by = bound_ms(2 * (mac * samples + mac_ray * n_rays_pass), ray_bytes + weight_bytes(kp), peak)
+        dense, _ = bound_ms(2 * (mac * dense_samples + mac_ray * n_rays_pass), 0, peak)
+        return time_ms(lambda: fn(kp, EPS), 5), samples, b, by, dense
+
+    lat_bytes = 2 * 3 * n_lat * 4 + 3 * s_c * n_lat * 4
+    stud_bytes = 2 * 3 * h * w * 4 + 2 * n_imp * h * w * 4 + 32 * h * w * 2 + 8 * h * w * 4
+    ms, samples, b, by, dense = timed_pass(k1p, kp_prop, s_c * n_lat, lat_bytes, n_lat, True, PEAK_BF16_FLOPS)
+    t1p = dict(ms=ms, samples=samples, bound=b, by=by, dense=dense,
+               plain=time_ms(lambda: fr.nerf_render_plain(kp_prop, o_ph_l, d_ph_l, z_l, dist_l, density_only=True), 2))
+    ms, samples, b, by, dense = timed_pass(k3s, kp_student, n_imp * h * w, stud_bytes, h * w, False,
+                                           PEAK_BF16_FLOPS)
+    t3s = dict(ms=ms, samples=samples, bound=b, by=by, dense=dense, plain=time_ms(lambda: k3s_plain(kp_student), 1))
+    print(f"K1 proposal 2x64@6f (density, {n_lat} lattice rays x {s_c}): ms {t1p['ms']:.4f} plain_ms "
+          f"{t1p['plain']:.3f} bound_ms {t1p['bound']:.5f} ({t1p['samples']} of {s_c * n_lat} samples evaluated) "
+          f"max_abs_err {k1p_err:.2e}", flush=True)
+    print(f"K3 student 6x192@10f (full, {h * w} rays x {n_imp}): ms {t3s['ms']:.3f} plain_ms {t3s['plain']:.3f} "
+          f"bound_ms {t3s['bound']:.4f} ({t3s['samples']} of {n_imp * h * w} samples evaluated; dense bound "
+          f"{t3s['dense']:.4f}) max_abs_err {k3s_err:.2e}", flush=True)
+    entries += [
+        dict(name="K1 fused render, density-only: proposal pass 2x64@6f (turbo/fast presets)", route="cuda",
+             source=src + "fused_render.cu", replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598",
+             max_abs_err=k1p_err, ms=t1p["ms"], plain_ms=t1p["plain"], bound_ms=t1p["bound"], bound_by=t1p["by"],
+             library_ms=None, dense_bound_ms=t1p["dense"], rays=n_lat, samples=s_c, held_against_plain=True),
+        dict(name="K3 fused render, full: student 6x192@10f (turbo preset, bf16)", route="cuda",
+             source=src + "fused_render.cu", replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598",
+             max_abs_err=k3s_err, ms=t3s["ms"], plain_ms=t3s["plain"], bound_ms=t3s["bound"], bound_by=t3s["by"],
+             library_ms=None, dense_bound_ms=t3s["dense"], rays=h * w, samples=n_imp, held_against_plain=True),
+        dict(name="K6 importance-only placement (fast/turbo presets)", route="cuda",
+             source=src + "importance_merge.cu", replaces="nerf_workspaces_explorer_tpu/ops/pallas_sampling.py:47",
+             max_abs_err=max(k6_turbo[0], k6_hier[0]), ms=t6["ms"], plain_ms=t6["plain"], bound_ms=b6, bound_by=by6,
+             library_ms=None, boundary_flips=k6_turbo[1], boundary_flips_off_u1_row=max(k6_turbo[2], k6_hier[2]),
+             ms_76800_rays_128=t6["ms_hier"], rays=n_lat, samples=s_c, importance=n_imp, held_against_plain=True),
+    ]
+
+    # 4. K7 against its plain version at eps 0: int8-trunk and int8, density
+    # and full, on synth_hier's 8x256 nets (the main path's inputs) and on
+    # the turbo nets.
+    tree, _, _ = load_checkpoint(CKPT)
+    turbo_tree, _, _ = load_checkpoint(os.path.join(HERE, "assets", "bench", "room_proposal.turbo.npz"))
+    k7 = {}
+    for heads in (False, True):
+        mode = "int8" if heads else "int8-trunk"
+        kps = {}
+        for label, net in (("coarse", tree["coarse"]), ("fine", tree["fine"]),
+                           ("proposal", turbo_tree["proposal"]), ("student", turbo_tree["fine"])):
+            spec = spec_from_net_params(net)
+            quant = calibrate_trunk(net, spec, heads=heads)
+            kps[label] = fr.prepare_kernel_params(params_from_numpy(net, device), spec, quant=quant)
+        cases = {
+            "coarse density": (lambda kp, eps, live=None: fr.nerf_render(
+                kp, main["o_ph"], main["d_ph"], main["z_c"], main["dist_c"], density_only=True,
+                early_stop_eps=eps, live_groups=live), kps["coarse"], True,
+                lambda kp: fr.nerf_render_plain(kp, main["o_ph"], main["d_ph"], main["z_c"], main["dist_c"],
+                                                density_only=True), main["s_c"] * h * w, main["coarse_bytes"], h * w),
+            "fine full": (lambda kp, eps, live=None: fr.nerf_render(
+                kp, main["o_ph"], main["d_ph"], main["z_f"], main["dist_f"], main["venc"], early_stop_eps=eps,
+                live_groups=live), kps["fine"], False,
+                lambda kp: fr.nerf_render_plain(kp, main["o_ph"], main["d_ph"], main["z_f"], main["dist_f"],
+                                                main["venc"]), main["s_f"] * h * w, main["fine_bytes"], h * w),
+            "proposal density": (k1p, kps["proposal"], True,
+                                 lambda kp: fr.nerf_render_plain(kp, o_ph_l, d_ph_l, z_l, dist_l, density_only=True),
+                                 s_c * n_lat, lat_bytes, n_lat),
+            "student full": (k3s, kps["student"], False, k3s_plain, n_imp * h * w, stud_bytes, h * w),
+        }
+        for case, (fn, kp, density, plain, dense_samples, nbytes, n_rays_pass) in cases.items():
+            out = fn(kp, 0.0)
+            torch.cuda.synchronize()
+            ref = plain(kp)
+            rows = slice(None) if density else rgba
+            err = float((out[rows] - ref[rows]).abs().max())
+            share = k7_share_exact(out, ref, rows)
+            require(bool(torch.isfinite(out).all()), f"K7 {mode} {case}: non-finite output")
+            require(err <= BF16_ATOL, f"K7 {mode} {case}: max |err| {err} against the plain version")
+            ms, samples, b, by, dense = timed_pass(fn, kp, dense_samples, nbytes, n_rays_pass, density,
+                                                   PEAK_INT8_OPS)
+            plain_ms = time_ms(lambda: plain(kp), 1, warmup=0)
+            k7[(mode, case)] = dict(err=err, share=share, ms=ms, samples=samples, bound=b, by=by, dense=dense,
+                                    plain=plain_ms, rays=n_rays_pass, dense_samples=dense_samples)
+            print(f"K7 {mode} {case}: ms {ms:.3f} plain_ms {plain_ms:.2f} bound_ms {b:.4f} ({samples} of "
+                  f"{dense_samples} samples evaluated; dense bound {dense:.4f}) max_abs_err {err:.2e}, rays "
+                  f"agreeing to 1e-6 {share:.4%}", flush=True)
+
+    # 5. Serve 320x240 frames through the renderer: warm ms per frame (host
+    # clock around render_pose_uint8 up to the device-to-host copy, median of
+    # 6), exact launches per frame, SSIM >= 0.99 at stride 1 against the
+    # parity frame of the same preset and pose, the served stride's SSIM
+    # against stride 1, and exact block corners at eps 0.
+    counters = (fr.LAUNCHES, im.LAUNCHES)
+
+    def serve(r, poses):
+        r.render_pose_uint8(poses[0]).cpu()  # warm-up: build, first launches, allocator
+        torch.cuda.synchronize()
+        zero_launches(*counters)
+        frames, ms = [], []
+        for rep in range(SERVE_REPS):
+            for pose in poses:
+                t0 = time.perf_counter()
+                frame = r.render_pose_uint8(pose).cpu().numpy()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if rep == 0:
+                    frames.append(frame)
+        n = SERVE_REPS * len(poses)
+        launches = {k: v for c in counters for k, v in c.items() if v}
+        kinds = sorted(k.split("_int8")[0].replace("importance_merge", "place").replace("importance_only", "place")
+                       for k in launches)
+        require(kinds == ["density_only", "full", "place"] and all(v == n for v in launches.values()),
+                f"launches {launches} over {n} frames: one density pass, one placement, one full pass per frame")
+        live = torch.zeros(1, dtype=torch.int32, device=device)
+        fr.render_rays_fused(r.kernel_params, rays_of(poses[0], r.config), r.settings, early_stop_eps=EPS,
+                             grid_hw=(h, w), live_groups=live)
+        for f in frames:
+            require(f.dtype == np.uint8 and f.shape == (h, w, 3), f"frame {f.dtype} {f.shape}")
+        return frames, float(np.median(ms)), launches, int(live) * 4 * 32
+
+    def parity_frames(ckpt, config, preset, poses, **kw):
+        r = renderer(ckpt, config, "parity", preset, **kw)
+        return [r.render_pose_uint8(p).cpu().numpy() for p in poses]
+
+    rows = []  # (label, frames, ms, launches, samples, ssim list, extra)
+    hier_parity = {"reference": main["parity_frames"],
+                   "fast": parity_frames(CKPT, cfg, "fast", click_poses)}
+    for precision, preset in (("int8", "reference"), ("int8-trunk", "reference"), ("fast", "fast")):
+        r = renderer(CKPT, cfg, precision, preset)
+        frames, ms, launches, samples = serve(r, click_poses)
+        scores = [ssim(f / 255.0, p / 255.0) for f, p in zip(frames, hier_parity[preset])]
+        rows.append((f"synth_hier {preset} {precision}", ms, launches, samples, scores, ""))
+    room_parity = {p: parity_frames(ROOM_CKPT, room_cfg, p, room_poses, use_proposal=p == "fast")
+                   for p in ("fast", "turbo")}
+    for precision, preset in (("fast", "fast"), ("fast", "turbo"), ("int8", "turbo")):
+        kw = dict(use_proposal=True) if preset == "fast" else {}
+        served = renderer(ROOM_CKPT, room_cfg, precision, preset, **kw)
+        require(served.settings.proposal_subsample == STRIDE, f"{preset} serves at stride "
+                f"{served.settings.proposal_subsample}")
+        frames, ms, launches, samples = serve(served, room_poses)
+        exact = renderer(ROOM_CKPT, room_cfg, precision, preset, proposal_subsample=1, **kw)
+        frames1 = [exact.render_pose_uint8(p).cpu().numpy() for p in room_poses]
+        scores = [ssim(f / 255.0, p / 255.0) for f, p in zip(frames1, room_parity[preset])]
+        s4 = [ssim(a / 255.0, b / 255.0) for a, b in zip(frames, frames1)]
+        eps0 = [renderer(ROOM_CKPT, room_cfg, precision, preset, proposal_subsample=s, early_stop_eps=0.0, **kw)
+                for s in (STRIDE, 1)]
+        corner = max(float((eps0[0].render_pose(p)[::STRIDE, ::STRIDE] - eps0[1].render_pose(p)[::STRIDE, ::STRIDE])
+                           .abs().max()) for p in room_poses)
+        require(corner <= 1e-6, f"{preset} {precision}: block corners differ from stride 1 by {corner}")
+        extra = (f"; stride {STRIDE} against stride 1: SSIM {', '.join(f'{x:.5f}' for x in s4)}, block corners "
+                 f"max |diff| {corner:.1e} at eps 0")
+        rows.append((f"room {preset} {precision}", ms, launches, samples, scores, extra))
+        if (preset, precision) == ("turbo", "int8"):
+            turbo_int8, turbo_int8_frames = served, frames
+    for label, ms, launches, samples, scores, extra in rows:
+        print(f"serve {label}: warm ms/frame {ms:.2f} (median of {SERVE_REPS * 3}); launches in {SERVE_REPS * 3} "
+              f"frames {launches}; "
+              f"samples evaluated (frame 1) {samples}; SSIM vs parity at stride 1 "
+              f"{', '.join(f'{x:.5f}' for x in scores)}{extra}; card {card}", flush=True)
+        require(min(scores) >= SSIM_GATE, f"{label}: SSIM {min(scores)} below {SSIM_GATE}")
+
+    # Previews: synth_hier's coarse net in one pass; turbo's proposal pass and
+    # an importance-only student pass at 32 samples.
+    office = main["fast_office"]
+    office.render_image_preview(*CLICKS[0][1:])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preview = office.render_image_preview(*CLICKS[0][1:])
+    hier_preview_ms = (time.perf_counter() - t0) * 1e3
+    hier_preview_ssim = ssim(preview / 255.0, main["fast_frames"][0] / 255.0)
+    turbo_int8.render_coordinates_preview(room_init, COORD(yaw=ROOM_YAWS[0]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preview = turbo_int8.render_coordinates_preview(room_init, COORD(yaw=ROOM_YAWS[0]))
+    turbo_preview_ms = (time.perf_counter() - t0) * 1e3
+    turbo_preview_ssim = ssim(preview / 255.0, turbo_int8_frames[0] / 255.0)
+    print(f"preview: synth_hier (coarse net, one pass at 64 samples) {hier_preview_ms:.2f} ms, SSIM vs full "
+          f"{hier_preview_ssim:.5f}; turbo int8 (proposal + importance-only at 32) {turbo_preview_ms:.2f} ms, "
+          f"SSIM vs full {turbo_preview_ssim:.5f}; card {card}", flush=True)
+
+    launches = {label: l for label, _, l, _, _, _ in rows}
+    entries[0]["launches"] = launches["room turbo fast"]["density_only"]
+    entries[1]["launches"] = launches["room turbo fast"]["full"]
+    entries[2]["launches"] = launches["room turbo int8"]["importance_only"]
+    # K7's entries: the passes a served row launched (turbo serves int8 only).
+    nets = {"coarse density": ("synth_hier reference", "8x256"), "fine full": ("synth_hier reference", "8x256"),
+            "proposal density": ("room turbo", "2x64@6f"), "student full": ("room turbo", "6x192@10f")}
+    for (mode, case), k in k7.items():
+        row, shape = nets[case]
+        key = ("density_only" if "density" in case else "full") + ("_int8" if mode == "int8" else "_int8_trunk")
+        n = launches.get(f"{row} {mode}", {}).get(key, 0)
+        if not n:
+            continue
+        entries.append(dict(
+            name=f"K7 fused render {mode}, {case} {shape}", route="cuda", source=src + "fused_render.cu",
+            replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:544", launches=n, max_abs_err=k["err"],
+            ms=k["ms"], plain_ms=k["plain"], bound_ms=k["bound"], bound_by=k["by"], library_ms=None,
+            rays_agreeing_1e6=k["share"], dense_bound_ms=k["dense"], rays=k["rays"], held_against_plain=True))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -389,7 +719,7 @@ def main() -> int:
 
     # 1. Build every kernel of the path from the checkout's sources.
     t0 = time.time()
-    names = ["fused_render", "importance_merge", "train_field"]
+    names = [*_build.VARIANTS, "importance_merge", "train_field"]
     _build.build(names)
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name in names:
@@ -498,12 +828,13 @@ def main() -> int:
                 "K3": fr.LAUNCHES["full"]}
     n_frames = len(CLICKS)
     require(launches == {"K1": n_frames, "K2": n_frames, "K3": n_frames}, f"launches {launches}")
-    parity_ms = []
+    parity_ms, refs = [], []
     for (cls_name, *click), frame in zip(CLICKS, frames):
         require(frame.dtype == np.uint8 and frame.shape == (h, w, 3), f"frame {frame.dtype} {frame.shape}")
         t0 = time.perf_counter()
         ref = offices[cls_name][1].render_image(*click)
         parity_ms.append((time.perf_counter() - t0) * 1e3)
+        refs.append(ref)
         score = ssim(frame / 255.0, ref / 255.0)
         diff = np.abs(frame.astype(int) - ref.astype(int))
         print(f"frame {cls_name} {click}: SSIM vs parity {score:.5f}, mean |diff| {diff.mean():.4f}, "
@@ -514,10 +845,17 @@ def main() -> int:
           f"parity warm ms/frame {', '.join(f'{x:.1f}' for x in parity_ms)}; launches {launches}; "
           f"card {card}", flush=True)
 
-    # 4. Training.
+    # 4. The serving presets and precisions.
+    preset_kernels = presets_phase(card, device, dict(
+        weights=weights, z_c=z_c, o_ph=o_ph, d_ph=d_ph, dist_c=dist_c, z_f=z_f, dist_f=dist_f, venc=venc,
+        s_c=s_c, s_f=s_f, coarse_bytes=ray_bytes + 3 * s_c * n_rays * 4,
+        fine_bytes=ray_bytes + 2 * s_f * n_rays * 4 + 32 * n_rays * 2 + 8 * n_rays * 4,
+        parity_frames=refs, fast_office=offices[CLICKS[0][0]][0], fast_frames=frames))
+
+    # 5. Training.
     train_kernels = train_phase(card, device)
 
-    # 5. The kernels line, then the result line.
+    # 6. The kernels line, then the result line.
     src = f"{PACKAGE}/csrc/"
     kernels = [
         dict(name="K1 fused render, density-only (coarse pass)", route="cuda", source=src + "fused_render.cu",
@@ -533,7 +871,7 @@ def main() -> int:
              replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598", launches=launches["K3"],
              max_abs_err=k3_err, ms=t["k3"], plain_ms=t["k3_plain"], bound_ms=b3, bound_by=by3,
              library_ms=None, ms_eps0=t["k3_eps0"], dense_bound_ms=b3_dense, held_against_plain=True),
-    ] + train_kernels
+    ] + preset_kernels + train_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -86,8 +86,8 @@ class Workspace(metaclass=ABCMeta):
         """Public access to the calibration transform (also used by tests)."""
         return self._transform_relative_coordinates(rel_x, rel_y, hor_angle, ver_angle)
 
-    def initialize_models(self) -> None:
-        self._nerf_inference.initialize_models()
+    def initialize_models(self, **kwargs) -> None:
+        self._nerf_inference.initialize_models(**kwargs)
 
     def render_image(
         self, rel_x: float, rel_y: float, horizontal_angle: int, vertical_angle: int
@@ -108,6 +108,17 @@ class Workspace(metaclass=ABCMeta):
             f"-------------------------------------------------------------"
         )
         return self._nerf_inference.render_coordinates(init_coordinates, coordinates)
+
+    def render_image_preview(
+        self, rel_x: float, rel_y: float, horizontal_angle: int, vertical_angle: int
+    ) -> np.ndarray:
+        """The renderer's cheap preview frame of the same click, for
+        progressive rendering (JAX workspace.py:128-141). Silent: the console
+        trace prints once, from the full render that follows."""
+        init_coordinates, coordinates = self._transform_relative_coordinates(
+            rel_x, rel_y, horizontal_angle, vertical_angle
+        )
+        return self._nerf_inference.render_coordinates_preview(init_coordinates, coordinates)
 
 
 def _find_checkpoint(office_name: str) -> str:
@@ -204,5 +215,6 @@ WORKSPACE_CLASSES = {
 
 def make_workspaces(**kwargs) -> List[Workspace]:
     """All four offices in the reference's landing-page order
-    (reference application/app.py:12-15)."""
+    (reference application/app.py:12-15); keyword arguments go to each
+    Workspace (`precision=`, `preset=`, `device=`, as main.py passes them)."""
     return [cls(**kwargs) for cls in WORKSPACE_CLASSES.values()]

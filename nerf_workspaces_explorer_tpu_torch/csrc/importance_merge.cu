@@ -1,14 +1,15 @@
-// Deterministic inverse-CDF importance sampling + coarse/fine depth merge for
-// Hopper (sm_90a).
+// Deterministic inverse-CDF importance sampling (+ coarse/fine depth merge)
+// for Hopper (sm_90a).
 //
 // Replaces: nerf_workspaces_explorer_tpu/ops/pallas_sampling.py::
-//   _importance_merge_kernel with merge=True, launched through
-//   importance_merge_pallas (the TPU path's K2).
+//   _importance_merge_kernel, launched through importance_merge_pallas:
+//   merge=True (the TPU path's K2, the reference preset) and merge=False
+//   (K6, the fast and turbo presets: the I ascending samples alone, :95-99).
 //
 // What bounds it on this card: bytes. Per ray it reads S weights and S
 //   depths and writes S + I depths (76,800 x 320 x 4 B = 98 MB at the main
-//   path's 64 + 128 samples, ~0.03 ms at 3.35 TB/s) and does a few hundred
-//   flops, far below the ridge.
+//   path's 64 + 128 samples, ~0.03 ms at 3.35 TB/s), or I depths without
+//   the merge, and does a few hundred flops, far below the ridge.
 //
 // What the design does about it: one thread per ray, so every global load
 //   and store of a warp touches 32 consecutive rays of one [S, R] row (fully
@@ -18,14 +19,16 @@
 //   in the thread's local memory, the quantiles walk it monotonically (the
 //   `cdf_b <= u` prefix rule: u ascends, so the bin index only moves
 //   forward), and a two-pointer merge with the ascending coarse depths
-//   writes the sorted union directly.
+//   writes the sorted union directly. Without the merge the walk's ascending
+//   quantiles write ascending samples, one row each.
 
 #include <cuda_runtime.h>
 
 #define MAXS 256
 
 __global__ void importance_merge_kernel(const float* __restrict__ w, const float* __restrict__ z,
-                                        float* __restrict__ out, int R, int S, int I) {
+                                        float* __restrict__ out, int R, int S, int I,
+                                        bool merge) {
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   if (ray >= R) return;
   float zc[MAXS];
@@ -59,22 +62,25 @@ __global__ void importance_merge_kernel(const float* __restrict__ w, const float
     float denom = ca - cb;
     if (denom < 1e-5f) denom = 1.f;  // reference rays.py:118
     const float zs = bb + (u - cb) / denom * (ba - bb);
-    while (ic < S && zc[ic] <= zs) out[(size_t)(o++) * R + ray] = zc[ic++];
+    if (merge)
+      while (ic < S && zc[ic] <= zs) out[(size_t)(o++) * R + ray] = zc[ic++];
     out[(size_t)(o++) * R + ray] = zs;
   }
-  while (ic < S) out[(size_t)(o++) * R + ray] = zc[ic++];
+  if (merge)
+    while (ic < S) out[(size_t)(o++) * R + ray] = zc[ic++];
 }
 
-// weights, z: [S, R] fp32 (ray-minor); out: [S + I, R] fp32. Needs
-// 3 <= S <= 256 and I >= 2. Returns the CUDA error code of the launch.
+// weights, z: [S, R] fp32 (ray-minor); out: [S + I, R] fp32 with merge, else
+// [I, R]. Needs 3 <= S <= 256 and I >= 2. Returns the CUDA error code of the
+// launch.
 extern "C" int importance_merge_launch(const float* weights, const float* z, float* out,
-                                       int n_rays, int n_samples, int n_importance,
+                                       int n_rays, int n_samples, int n_importance, int merge,
                                        void* stream) {
   if (n_samples < 3 || n_samples > MAXS || n_importance < 2 || n_rays < 1)
     return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const dim3 grid((n_rays + threads - 1) / threads);
   importance_merge_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      weights, z, out, n_rays, n_samples, n_importance);
+      weights, z, out, n_rays, n_samples, n_importance, merge != 0);
   return (int)cudaGetLastError();
 }

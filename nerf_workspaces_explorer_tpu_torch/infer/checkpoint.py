@@ -18,7 +18,11 @@ formats load:
 
 A tree is nested dicts and lists of tensors:
 {"coarse": {"pts": [{"w", "b"}, ...], "feature", "alpha", "views", "rgb"},
-"fine": {...}}.
+"fine": {...}}, or "proposal" in place of "coarse" for a proposal-mode
+checkpoint, whose nets have different architectures (a 2x64 proposal net
+beside an 8x256 fine net or a narrow student): `params_from_numpy` carries
+any such tree, and each net's spec comes from its own shapes
+(`ops/quantize.py::spec_from_net_params`).
 """
 
 from __future__ import annotations

@@ -1,24 +1,43 @@
 """Full-frame NeRF inference: camera pose -> rendered image.
 
-Counterpart of `nerf_workspaces_explorer_tpu/infer/renderer.py`, reference
-preset (reference NeRFReplicaInferenceHandler,
-nerf/inference/nerf_replica_inference_handler.py:23-277): config and
-checkpoint loading, coarse+fine models, `render_coordinates(init, coord)` ->
-uint8 [H, W, 3].
+Counterpart of `nerf_workspaces_explorer_tpu/infer/renderer.py` (reference
+NeRFReplicaInferenceHandler, nerf/inference/nerf_replica_inference_handler.py:
+23-277): config and checkpoint loading, `render_coordinates(init, coord)` ->
+uint8 [H, W, 3], batches, a pipelined stream and a cheap preview frame.
 
-Two precisions pick the path:
+The precision picks the path:
   - "parity": fp32 weights through the plain pipeline
     (`render.pipeline.render_rays_chunked`);
   - "fast": bf16 weights through the fused path
-    (`ops.fused_render.render_rays_fused`): on `cuda` the coarse render
-    kernel, the importance-merge kernel and the fine render kernel, once each
-    per frame; on `cpu` their plain versions.
+    (`ops.fused_render.render_rays_fused`);
+  - "int8-trunk" / "int8": the fused path with the trunk, or the trunk and
+    the heads, quantized to int8 by a static calibration at load
+    (`ops.quantize`).
+The device picks the implementation: on `cuda` the fused path launches the
+density-pass, placement and fine-pass kernels once each per frame; on `cpu`
+it runs their plain versions (the JAX package refuses int8 without its TPU
+kernel; the port's plain version is the same kernel's arithmetic).
+
+The preset picks the placement (JAX renderer.py:235-319):
+  - "reference": 64 coarse + 128 importance samples merged, as the
+    reference;
+  - "fast": the fine net sees the importance samples only
+    (`merge_coarse=False`); with a proposal checkpoint (`use_proposal`) and
+    a fused precision the density pass runs on a stride-4 ray lattice.
+    Gated on the free-floating orbit scene but not on interiors (-2.38 dB
+    against merged placement on the room walkthrough at 128 samples,
+    reports/quality_gate_room_fast_partial.md): for the offices serve
+    "reference" or a gated "turbo" student;
+  - "turbo": the distilled student in the checkpoint's `.turbo.npz`
+    sidecar, with the spec and serving settings its metadata names.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+import warnings
+from collections import deque
+from typing import Any, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,18 +51,25 @@ from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import (
     params_from_numpy,
 )
 from nerf_workspaces_explorer_tpu_torch.models.encoding import embedding_output_dim
-from nerf_workspaces_explorer_tpu_torch.models.mlp import NerfMLP, NerfMLPSpec
+from nerf_workspaces_explorer_tpu_torch.models.mlp import NerfMLP, NerfMLPSpec, init_nerf_params
 from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
     prepare_kernel_params,
     render_rays_fused,
+    render_rays_single_pass,
+)
+from nerf_workspaces_explorer_tpu_torch.ops.quantize import (
+    calibrate_model_quant,
+    spec_from_net_params,
 )
 from nerf_workspaces_explorer_tpu_torch.rays.raygen import create_rays
 from nerf_workspaces_explorer_tpu_torch.render.pipeline import (
     RenderSettings,
     render_rays_chunked,
 )
+from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
 
-PRECISIONS = ("parity", "fast")
+PRECISIONS = ("parity", "fast", "int8", "int8-trunk")
+PRESETS = ("reference", "fast", "turbo")
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -84,6 +110,11 @@ def spec_from_config(cfg: FrameworkConfig) -> NerfMLPSpec:
     )
 
 
+def _to_uint8(rgb: torch.Tensor) -> torch.Tensor:
+    """Reference to8b_np (model_utils.py:10): floor(255 * clip(rgb, 0, 1))."""
+    return torch.floor(255.0 * torch.clamp(rgb, 0.0, 1.0)).to(torch.uint8)
+
+
 class NeRFRenderer:
     """Pose -> frame renderer for one workspace's trained NeRF."""
 
@@ -94,85 +125,310 @@ class NeRFRenderer:
         *,
         config: Optional[FrameworkConfig] = None,
         precision: str = "parity",
-        preset: str = "reference",
+        chunk: Optional[int] = None,
+        use_proposal: bool = False,
         early_stop_eps: float = 1e-3,
+        sort_rays: bool = False,
+        preset: str = "reference",
+        n_importance: Optional[int] = None,
+        proposal_subsample: Optional[int] = None,
         device: Optional[str | torch.device] = None,
+        mesh: Any = None,
+        nan_debug: bool = False,
     ) -> None:
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r} ({'|'.join(PRECISIONS)})")
-        if preset != "reference":
-            raise ValueError(f"preset {preset!r} is not ported yet (reference only)")
+        if preset not in PRESETS:
+            raise ValueError(f"unknown preset {preset!r} ({'|'.join(PRESETS)})")
+        if mesh is not None:
+            raise ValueError("mesh: multi-GPU rendering is not ported yet")
+        if nan_debug:
+            raise ValueError("nan_debug: the NaN/Inf scan of rendered outputs is not ported yet")
+        fused = precision != "parity"
+        if chunk is not None and fused:
+            raise ValueError(
+                "chunk sets the plain pipeline's ray tile; the fused path takes the whole "
+                "frame in one launch per kernel and has no chunk override"
+            )
         self._device = resolve_device(device)
         self._ckpt_path = ckpt_path
         self._config = config if config is not None else load_config(office_name=office_name)
         self._precision = precision
+        self._chunk = chunk if chunk is not None else self._config.inference.chunk
         # Fused-path early ray termination: samples past transmittance < eps
         # are skipped; the rgb error this commits is bounded by eps (1e-3 is
         # under half a uint8 step).
         self._early_stop_eps = early_stop_eps
+        # Fine pass in saturation order (fused path): exact up to eps.
+        self._sort_rays = sort_rays
         self._spec = spec_from_config(self._config)
-        self._settings = settings_from_config(self._config).for_eval()
+        settings = settings_from_config(self._config).for_eval()
+        if use_proposal:
+            settings = settings._replace(use_proposal=True)
+        if preset == "fast":
+            # Importance-only fine pass; with a proposal net on the fused
+            # path, placement on the stride-4 lattice (gated at -0.02 dB,
+            # reports/quality_gate_subsample4_20k.md). See the module note
+            # on interiors.
+            settings = settings._replace(merge_coarse=False)
+            if use_proposal and fused:
+                settings = settings._replace(proposal_subsample=4)
+        self._turbo_path = None
+        if preset == "turbo":
+            from nerf_workspaces_explorer_tpu_torch.train.distill import (
+                read_turbo_metadata,
+                student_spec_from_meta,
+                turbo_sidecar_path,
+            )
+
+            if ckpt_path is None:
+                raise ValueError("preset='turbo' requires a checkpoint path")
+            self._turbo_path = turbo_sidecar_path(ckpt_path)
+            if not os.path.exists(self._turbo_path):
+                raise RuntimeError(
+                    f"turbo sidecar {self._turbo_path} not found - distill one first with the "
+                    f"JAX package: python -m nerf_workspaces_explorer_tpu.cli.distill --office {office_name}"
+                )
+            # The student's architecture and serving settings come from the
+            # sidecar, before any weights load.
+            self._spec, student = student_spec_from_meta(read_turbo_metadata(self._turbo_path))
+            settings = settings._replace(
+                use_proposal=True,
+                merge_coarse=False,
+                n_samples=int(student.get("n_samples", 64)),
+                n_importance=int(student["n_importance"]),
+                num_freqs_3d=int(student["num_freqs_3d"]),
+                num_freqs_2d=int(student.get("num_freqs_2d", 4)),
+                proposal_num_freqs=int(student.get("proposal_num_freqs", 6)),
+                proposal_subsample=int(student.get("proposal_subsample", 1)),
+            )
+        if n_importance is not None:
+            settings = settings._replace(n_importance=n_importance)
+        if proposal_subsample is not None:
+            if int(proposal_subsample) > 1 and not fused:
+                warnings.warn(
+                    "proposal_subsample > 1 only affects the fused path; the parity "
+                    "pipeline renders with exact per-ray placement",
+                    stacklevel=2,
+                )
+            settings = settings._replace(proposal_subsample=int(proposal_subsample))
+        self._settings = settings
+        self._params: Optional[Dict[str, Any]] = None  # the loaded tree, fp32 tensors
         self._models: Optional[Dict[str, NerfMLP]] = None  # parity
-        self._kparams: Optional[Dict[str, Any]] = None  # fast
+        self._kparams: Optional[Dict[str, Any]] = None  # fused precisions
+        self._quant = None
 
     @property
     def config(self) -> FrameworkConfig:
         return self._config
 
-    def initialize_models(self) -> None:
-        """Load checkpoint weights (torch `.ckpt` or native `.npz`).
+    @property
+    def settings(self) -> RenderSettings:
+        return self._settings
 
-        Mirrors reference initialize_models (…inference_handler.py:88-148),
-        including its RuntimeError on a missing checkpoint.
-        """
-        if self._ckpt_path is None or not os.path.exists(self._ckpt_path):
+    @property
+    def params(self) -> Optional[Dict[str, Any]]:
+        return self._params
+
+    @property
+    def quant(self):
+        """Per-net int8 calibration ({net: TrunkQuant}) or None."""
+        return self._quant
+
+    @property
+    def kernel_params(self) -> Optional[Dict[str, Any]]:
+        """Per-net fused-kernel parameters (fused precisions) or None."""
+        return self._kparams
+
+    def initialize_models(
+        self,
+        *,
+        allow_random_init: bool = False,
+        seed: int = 0,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        """Load checkpoint weights (torch `.ckpt`, native `.npz`, or the turbo
+        sidecar), as reference initialize_models (…inference_handler.py:
+        88-148), including its RuntimeError on a missing checkpoint, unless
+        `allow_random_init`: then fresh weights from `generator` (default: a
+        CPU generator seeded with `seed`; JAX's PRNG streams cannot be
+        reproduced)."""
+        if self._turbo_path is not None:
+            from nerf_workspaces_explorer_tpu_torch.train.distill import load_turbo_checkpoint
+
+            tree, _ = load_turbo_checkpoint(self._turbo_path)
+        elif self._ckpt_path is not None and os.path.exists(self._ckpt_path):
+            if self._ckpt_path.endswith(".ckpt"):
+                coarse, fine, _ = load_torch_checkpoint(self._ckpt_path)
+                tree = {"coarse": coarse, "fine": fine}
+            else:
+                # Native checkpoints carry their net keys verbatim: coarse and
+                # fine, or proposal and fine.
+                tree, _, _ = load_checkpoint(self._ckpt_path)
+        elif allow_random_init:
+            gen = generator if generator is not None else torch.Generator().manual_seed(seed)
+            first = "proposal" if self._settings.use_proposal else "coarse"
+            first_spec = (
+                proposal_spec(self._settings.proposal_num_freqs) if self._settings.use_proposal else self._spec
+            )
+            tree = {first: init_nerf_params(gen, first_spec), "fine": init_nerf_params(gen, self._spec)}
+        else:
             raise RuntimeError(
                 f"Checkpoint path: {self._ckpt_path} for model cannot be found!"
             )
-        if self._ckpt_path.endswith(".ckpt"):
-            coarse, fine, _ = load_torch_checkpoint(self._ckpt_path)
-            tree = {"coarse": coarse, "fine": fine}
-        else:
-            tree, _, _ = load_checkpoint(self._ckpt_path)
-        if "coarse" not in tree or "fine" not in tree:
-            raise ValueError(f"{self._ckpt_path} is not a coarse+fine checkpoint")
-        # fast: bf16 weights, biases included, as the JAX package casts them.
-        dtype = torch.bfloat16 if self._precision == "fast" else torch.float32
-        params = params_from_numpy({k: tree[k] for k in ("coarse", "fine")}, self._device, dtype)
-        if self._precision == "fast":
-            self._kparams = {k: prepare_kernel_params(p, self._spec) for k, p in params.items()}
-        else:
-            self._models = {k: NerfMLP(p, self._spec) for k, p in params.items()}
+        self.set_params(tree)
 
-    @torch.no_grad()
-    def render_pose(self, c2w: np.ndarray) -> torch.Tensor:
-        """Render one camera pose -> float32 [H, W, 3] on the renderer's device."""
+    def set_params(self, params: Dict[str, Any]) -> None:
+        """Install a parameter tree (tensors or arrays; e.g. live from a
+        trainer): recalibrate int8 and rebuild the kernel parameters."""
+        first = "proposal" if self._settings.use_proposal else "coarse"
+        if first not in params or "fine" not in params:
+            have = "/".join(sorted(k for k in params if isinstance(params[k], dict)))
+            hint = " (a proposal checkpoint needs use_proposal=True)" if "proposal" in params else ""
+            raise ValueError(f"the renderer needs {first} and fine nets, got {have}{hint}")
+        tree = params_from_numpy({k: params[k] for k in (first, "fine")}, self._device)
+        self._params = tree
+        specs = {k: spec_from_net_params(p) for k, p in tree.items()}
+        self._models = self._kparams = self._quant = None
+        if self._precision == "parity":
+            self._models = {k: NerfMLP(p, specs[k]) for k, p in tree.items()}
+            return
+        quant = {}
+        if self._precision in ("int8", "int8-trunk"):
+            # Static calibration, once per set of weights; "int8-trunk" keeps
+            # the heads bf16.
+            quant = self._quant = calibrate_model_quant(
+                tree, self._spec, heads=self._precision == "int8"
+            )
+        elif self._precision == "fast":
+            # bf16 weights, biases included, as the JAX package casts them.
+            tree = params_from_numpy(tree, self._device, torch.bfloat16)
+        self._kparams = {
+            k: prepare_kernel_params(p, specs[k], quant=quant.get(k)) for k, p in tree.items()
+        }
+
+    def _require_models(self) -> None:
         if self._kparams is None and self._models is None:
             raise RuntimeError("initialize_models() must be called before rendering")
+
+    def _rays(self, c2ws: Sequence[np.ndarray]):
+        """Rays of one or more poses, frames stacked row-major: [n * H * W]."""
         cfg = self._config
         h, w = cfg.experiment.image_height, cfg.experiment.image_width
         near, far = cfg.rendering.depth_range
-        c2w = torch.as_tensor(np.asarray(c2w, dtype=np.float32), device=self._device)
-        rays = create_rays(c2w, h, w, cfg.fx, cfg.fy, cfg.cx, cfg.cy, near, far).reshape(h * w)
-        if self._precision == "fast":
+        c2w = torch.as_tensor(np.asarray(c2ws, dtype=np.float32), device=self._device)
+        return create_rays(c2w, h, w, cfg.fx, cfg.fy, cfg.cx, cfg.cy, near, far).reshape(len(c2ws) * h * w)
+
+    @torch.no_grad()
+    def _render_batch(self, c2ws: Sequence[np.ndarray]) -> torch.Tensor:
+        """float32 [n, H, W, 3] on the renderer's device."""
+        self._require_models()
+        cfg = self._config
+        h, w = cfg.experiment.image_height, cfg.experiment.image_width
+        rays = self._rays(c2ws)
+        if self._kparams is not None:
+            # The ray axis is n frames of h rows: an (n * h, w) grid, so the
+            # placement lattice's blocks never straddle two frames.
             rgb = render_rays_fused(
-                self._kparams, rays, self._settings, early_stop_eps=self._early_stop_eps
+                self._kparams, rays, self._settings, early_stop_eps=self._early_stop_eps,
+                sort_rays=self._sort_rays, grid_hw=(len(c2ws) * h, w),
             )
         else:
-            out = render_rays_chunked(
-                self._models, rays, self._settings, chunk=cfg.inference.chunk
-            )
+            out = render_rays_chunked(self._models, rays, self._settings, chunk=self._chunk)
             rgb = out.get("rgb_fine", out.get("rgb_coarse"))
-        return rgb.to(torch.float32).reshape(h, w, 3)
+        return rgb.to(torch.float32).reshape(len(c2ws), h, w, 3)
+
+    def render_pose(self, c2w: np.ndarray) -> torch.Tensor:
+        """Render one camera pose -> float32 [H, W, 3] on the renderer's device."""
+        return self._render_batch([c2w])[0]
 
     def render_pose_uint8(self, c2w: np.ndarray) -> torch.Tensor:
-        """Render one camera pose straight to uint8 [H, W, 3] on the device
-        (reference to8b_np, model_utils.py:10: floor(255 * clip))."""
-        rgb = self.render_pose(c2w)
-        return torch.floor(255.0 * torch.clamp(rgb, 0.0, 1.0)).to(torch.uint8)
+        """Render one camera pose straight to uint8 [H, W, 3] on the device."""
+        return _to_uint8(self.render_pose(c2w))
+
+    def render_pose_uint8_pipelined(self, c2w: np.ndarray, n_strips: Optional[int] = None):
+        """The JAX package's strip-pipelined frame (renderer.py:585-630)."""
+        raise NotImplementedError(
+            "the strip-pipelined frame path is not ported yet; use render_pose_uint8"
+        )
 
     def render_coordinates(self, init_coordinates: COORD, coordinates: COORD) -> np.ndarray:
         """COORD pair -> uint8 [H, W, 3] numpy frame (reference
         render_coordinates, …inference_handler.py:166-185)."""
         pose = poses_from_coordinates(init_coordinates, [coordinates])[0]
         return self.render_pose_uint8(pose).cpu().numpy()
+
+    def render_poses(self, c2ws: Sequence[np.ndarray]) -> np.ndarray:
+        """A batch of poses -> float32 [N, H, W, 3] (the tour path): the rays
+        of up to ~1M pixels' worth of frames go through one launch of each
+        kernel."""
+        c2ws = [np.asarray(p, dtype=np.float32) for p in c2ws]
+        frames_per_group = max(1, 1_000_000 // self._config.n_pix)
+        out = [
+            self._render_batch(c2ws[i : i + frames_per_group]).cpu().numpy()
+            for i in range(0, len(c2ws), frames_per_group)
+        ]
+        return np.concatenate(out, axis=0)
+
+    def render_poses_uint8_stream(
+        self, c2ws: Sequence[np.ndarray], lookahead: int = 2
+    ) -> Iterator[np.ndarray]:
+        """Yield uint8 [H, W, 3] frames for a pose sequence, pipelined: up to
+        `lookahead` later frames are enqueued on the device (PyTorch's CUDA
+        calls return before the work ends) before frame k is copied to the
+        host, so the copy overlaps their compute. Frames are bit-identical
+        to per-pose `render_pose_uint8` calls."""
+        self._require_models()
+        pending: "deque[torch.Tensor]" = deque()
+        for pose in c2ws:
+            pending.append(self.render_pose_uint8(pose))
+            if len(pending) > lookahead:
+                yield pending.popleft().cpu().numpy()
+        while pending:
+            yield pending.popleft().cpu().numpy()
+
+    def render_coordinates_preview(
+        self, init_coordinates: COORD, coordinates: COORD, n_samples: int = 64
+    ) -> np.ndarray:
+        """Cheap progressive-rendering frame: COORD pair -> uint8 [H, W, 3]
+        (JAX renderer.py:696-791). With a coarse+fine checkpoint, one pass of
+        the coarse net at `n_samples` uniform depths (the distribution it
+        trains on). With a proposal checkpoint, whose fine net never sees
+        uniform depths, the proposal pass at `n_samples` and an
+        importance-only fine pass at n_samples / 2."""
+        pose = poses_from_coordinates(init_coordinates, [coordinates])[0]
+        return self.render_pose_preview_uint8(pose, n_samples).cpu().numpy()
+
+    @torch.no_grad()
+    def render_pose_preview_uint8(self, c2w: np.ndarray, n_samples: int = 64) -> torch.Tensor:
+        """The preview frame of one pose, uint8 [H, W, 3] on the device."""
+        self._require_models()
+        cfg = self._config
+        h, w = cfg.experiment.image_height, cfg.experiment.image_width
+        rays = self._rays([c2w])
+        s = self._settings.for_eval()
+        if s.use_proposal:
+            prop = s._replace(n_samples=n_samples, n_importance=max(2, n_samples // 2), merge_coarse=False)
+            if self._kparams is not None:
+                rgb = render_rays_fused(self._kparams, rays, prop, early_stop_eps=self._early_stop_eps)
+            else:
+                rgb = render_rays_chunked(self._models, rays, prop, chunk=self._chunk)["rgb_fine"]
+        elif self._kparams is not None:
+            rgb = render_rays_single_pass(
+                self._kparams["coarse"], rays, s, n_samples=n_samples, early_stop_eps=self._early_stop_eps
+            )
+        else:
+            single = s._replace(n_importance=0, n_samples=n_samples)
+            rgb = render_rays_chunked(
+                {"coarse": self._models["coarse"]}, rays, single, chunk=self._chunk
+            )["rgb_coarse"]
+        return _to_uint8(rgb.reshape(h, w, 3))
+
+    def warmup(self, preview_n_samples: Sequence[int] = (64,)) -> None:
+        """Render the preview(s) and one full frame at the identity pose, so
+        the first click pays no kernel build or first-launch cost."""
+        self._require_models()
+        pose = np.eye(4, dtype=np.float32)
+        for n in preview_n_samples:
+            self.render_pose_preview_uint8(pose, n).cpu()
+        self.render_pose_uint8(pose).cpu()

@@ -1,18 +1,20 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
-Each `csrc/<name>.cu` exposes a plain C entry point and compiles on its own
-into `build/torch_kernels/<name>-<source hash>.so` under the repository root
-(a gitignored directory), at first use, with nvcc's output (the
-`-Xptxas -v` report: registers, shared memory, spills) beside it in
+Each library exposes a plain C entry point and compiles on its own into
+`build/torch_kernels/<name>-<source hash>.so` under the repository root (a
+gitignored directory), at first use, with nvcc's output (the `-Xptxas -v`
+report: registers, shared memory, spills) beside it in
 `<name>-<source hash>.log`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v [extra flags] -o <lib> csrc/<source>.cu
 
-The hash of the source, the shared headers (`csrc/*.cuh`) and the flags in
-the file name means an edited source never loads a stale library. Pointers and the stream cross into C as `c_void_p`; every entry
-point returns `cudaGetLastError()` and `check` raises on a nonzero code.
-Nothing here runs at import time.
+A library is `csrc/<name>.cu` itself, or one of VARIANTS: a source compiled
+with extra flags (the render kernel, once per network shape). The hash of
+the source, the shared headers (`csrc/*.cuh`) and the flags in the file name
+means an edited source never loads a stale library. Pointers and the stream
+cross into C as `c_void_p`; every entry point returns `cudaGetLastError()`
+and `check` raises on a nonzero code. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -35,6 +37,21 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# The network shapes (width, point frequencies) the render kernel (K1/K3/K7)
+# is built for, those of the in-repo checkpoints -> whether the full pass is
+# built too (the 2x64 proposal net runs density-only).
+RENDER_SHAPES = {(64, 6): False, (128, 8): True, (192, 10): True, (256, 10): True}
+
+# Libraries built from a shared source with extra flags: name -> (source
+# stem in csrc/, flags). The render kernel compiles once per shape.
+VARIANTS = {
+    f"fused_render_w{w}f{f}": (
+        "fused_render",
+        (f"-DRENDER_WIDTH={w}", f"-DRENDER_FREQS={f}", f"-DRENDER_FULL={int(full)}"),
+    )
+    for (w, f), full in RENDER_SHAPES.items()
+}
+
 # A shared library, once loaded, is process-wide; so is this cache of them.
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -49,13 +66,19 @@ def nvcc_path() -> str:
     return found
 
 
+def _source_and_flags(name: str):
+    source, extra = VARIANTS.get(name, (name, ()))
+    return os.path.join(CSRC_DIR, f"{source}.cu"), (*NVCC_FLAGS, *extra)
+
+
 def library_path(name: str) -> str:
     """The library's path, named by a hash of its source, the headers and
     the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    source, flags = _source_and_flags(name)
+    digest = hashlib.sha256(" ".join(flags).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    for source in [f"{name}.cu", *headers]:
-        with open(os.path.join(CSRC_DIR, source), "rb") as f:
+    for source in [source, *(os.path.join(CSRC_DIR, h) for h in headers)]:
+        with open(source, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
@@ -65,7 +88,7 @@ def _log_path(lib: str) -> str:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output for the current library of `csrc/<name>.cu`."""
+    """nvcc's output for the current library `name`."""
     with open(_log_path(library_path(name))) as f:
         return f.read()
 
@@ -81,7 +104,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if os.path.exists(lib) and os.path.exists(_log_path(lib)):
             continue
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        source, flags = _source_and_flags(name)
+        cmd = [nvcc_path(), *flags, "-o", tmp, source]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, lib)
@@ -89,7 +113,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     for name, (proc, tmp, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue
         with open(f"{tmp}.log", "w") as f:
             f.write(log)
@@ -101,7 +125,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built first if needed."""
+    """The loaded library `name`, built first if needed."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

@@ -41,7 +41,6 @@ from nerf_workspaces_explorer_tpu_torch.models.mlp import (
 from nerf_workspaces_explorer_tpu_torch.ops import _build
 from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
     KERNEL_MAX_DEPTH,
-    KERNEL_WIDTH,
     PTS_FREQS,
     VIEW_FREQS,
     _bf,
@@ -51,6 +50,10 @@ from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
     _freqs_from_input_ch,
     _permute_pad_in_rows,
 )
+
+# The training field kernels are built for the stock network: width 256,
+# 10 point and 4 view frequencies.
+KERNEL_WIDTH = 256
 
 # Launches: K4 calls, K5 calls, and the kernels K5 launches (four per call).
 LAUNCHES = {"forward": 0, "backward": 0, "backward_kernels": 0}

@@ -1,19 +1,22 @@
 """The fused inference path: encoding + MLP + volume compositing per pass.
 
-Counterpart of `nerf_workspaces_explorer_tpu/ops/pallas_render.py` (bf16
-modes): `render_rays_fused` runs the coarse pass density-only, places the
-fine samples (`ops/importance_merge.py`), then runs the fine pass with all
-heads, compositing on the fly so that raw rgba never reaches device memory.
+Counterpart of `nerf_workspaces_explorer_tpu/ops/pallas_render.py`:
+`render_rays_fused` runs the coarse or proposal pass density-only, places
+the fine samples (`ops/importance_merge.py`), then runs the fine pass with
+all heads, compositing on the fly so that raw rgba never reaches device
+memory; `render_rays_single_pass` is the one-net preview pass.
 
 `nerf_render` launches the CUDA kernel `csrc/fused_render.cu` for CUDA
 tensors and runs `nerf_render_plain` for CPU tensors. Both compute what the
 TPU kernel computes: the point encoding from per-ray phase vectors (one
 polynomial sin/cos per coordinate and octave doubling for the higher
-frequencies, rows in kernel order [identity | sin | cos | pad]), bf16
-operands with fp32 accumulation and bf16 activations between layers, the
-skip concat and the view concat folded into sums of two products, the view
+frequencies, rows in kernel order [identity | sin | cos | pad]), the skip
+concat and the view concat folded into sums of two products, the view
 encoding's product once per ray, and front-to-back compositing with running
-transmittance. Arrays at this module's functions keep the JAX package's
+transmittance; in one of three modes (`KernelParams.mode`): bf16 operands
+with fp32 accumulation and bf16 activations, an int8 trunk with integer
+requantization and bf16 heads ("int8-trunk"), or int8 trunk and heads
+("int8"). Arrays at this module's functions keep the JAX package's
 ray-minor layout ([features, rays]), so the two compare like with like.
 """
 
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import warnings
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -29,6 +33,7 @@ import torch
 from nerf_workspaces_explorer_tpu_torch.models.mlp import NerfMLPSpec
 from nerf_workspaces_explorer_tpu_torch.ops import _build
 from nerf_workspaces_explorer_tpu_torch.ops.importance_merge import importance_merge
+from nerf_workspaces_explorer_tpu_torch.ops.quantize import as_float32_array
 from nerf_workspaces_explorer_tpu_torch.rays.raygen import RayBundle
 from nerf_workspaces_explorer_tpu_torch.rays.sampling import coarse_z_vals
 from nerf_workspaces_explorer_tpu_torch.render.pipeline import RenderSettings
@@ -37,17 +42,20 @@ from nerf_workspaces_explorer_tpu_torch.render.volume import exclusive_cumprod
 PTS_FREQS = 10
 VIEW_FREQS = 4
 
-# Kernel launches made by `nerf_render`, by mode: the coarse pass is
-# density-only, the fine pass full.
-LAUNCHES = {"density_only": 0, "full": 0}
+# Kernel launches made by `nerf_render`, by pass and mode: the density pass
+# (coarse or proposal) and the full pass, bf16 (K1, K3) or int8 (K7).
+LAUNCHES = {
+    f"{p}{m}": 0 for p in ("density_only", "full") for m in ("", "_int8_trunk", "_int8")
+}
+
+# Early-stop eps of the density pass that feeds importance-only placement
+# (render_rays_fused): a tenth of the pdf's 1e-5 guard.
+PLACEMENT_EPS = 1e-6
 
 # Rays per step of the plain version (bounds its activations to ~1 GB at
 # 192 samples per ray).
 PLAIN_RAY_CHUNK = 4096
 
-# The CUDA kernel is built for the flagship network: width 256, point
-# encoding F=10 (64 rows), view encoding F=4 (32 rows), at most one skip.
-KERNEL_WIDTH = 256
 KERNEL_MAX_DEPTH = 16
 
 
@@ -103,9 +111,20 @@ def _permute_pad_in_rows(w: torch.Tensor, perm: np.ndarray) -> torch.Tensor:
     return out * torch.as_tensor(perm >= 0, dtype=w.dtype, device=w.device)[:, None]
 
 
+MODE_BF16, MODE_INT8_TRUNK, MODE_INT8 = 0, 1, 2  # KernelParams.mode
+
+
 class KernelParams(NamedTuple):
-    """One network's weights in kernel layout: weights [out, in] bf16,
-    biases [out] fp32 (bf16 mode of the JAX package's KernelParams)."""
+    """One network's weights in kernel layout (the JAX package's
+    KernelParams): weights [out, in], biases [out].
+
+    bf16 mode: bf16 weights, fp32 biases. With `shift_layers` non-empty the
+    trunk is int8 (`ops/quantize.py`): int8 weights, int32 biases with the
+    rounding offset folded in, and the power-of-2 requant shifts; the heads
+    stay bf16, with the trunk's last real scale folded into them
+    ("int8-trunk"), unless `int8_heads` ("int8"): then the fa, view and rgb
+    weights are int8 too and only sigma and rgb dequantize, through s_alpha
+    and s_rgb."""
 
     w_layers: tuple  # depth x [width, in]
     w_skip_enc: tuple  # per skip layer [width, pts enc dim]
@@ -121,68 +140,230 @@ class KernelParams(NamedTuple):
     width: int = 256
     pts_freqs: int = PTS_FREQS
     view_freqs: int = VIEW_FREQS
+    shift_layers: tuple = ()  # int8 trunk: per-layer requant shift
+    skip_shift: tuple = ()  # int8 trunk: per-skip scale-match shift
+    feat_qscale: Optional[float] = None  # int8 trunk: encoding quant scale
+    int8_heads: bool = False
+    k_feat: int = 0  # feature head requant shift (signed clip)
+    k_hv: int = 0  # view layer requant shift
+    s_alpha: float = 1.0  # sigma accumulator -> fp32
+    inv_s_view: float = 1.0  # 1 / view accumulator scale
+    s_rgb: float = 1.0  # rgb accumulator -> fp32
+
+    @property
+    def mode(self) -> int:
+        """The kernel's mode: 0 bf16, 1 int8 trunk, 2 int8 trunk and heads."""
+        if not self.shift_layers:
+            return MODE_BF16
+        return MODE_INT8 if self.int8_heads else MODE_INT8_TRUNK
+
+
+def _balanced_requant(w_unit: float, in_unit: float, target: float) -> Tuple[float, int]:
+    """The requant shift k and the (possibly inflated) weight unit that put
+    the post-shift activation unit raw * 2^k (raw = w_unit * in_unit) as
+    close above the calibrated target as int8 weights and right shifts
+    allow: floor k and absorb the residual factor into the weight unit when
+    the ceil's overshoot would exceed sqrt(2), so at most sqrt(2)x of
+    resolution is lost per requant stage (JAX pallas_render.py:168-194).
+    Returns (w_unit, k)."""
+    t = target / (w_unit * in_unit)
+    if t <= 1.0:
+        # The accumulator is already coarser than the target unit.
+        return w_unit, 0
+    k = math.floor(math.log2(t))
+    s = t / 2.0**k  # overshoot of the floored shift, in [1, 2)
+    if s <= math.sqrt(2.0):
+        return w_unit * s, k
+    return w_unit, k + 1
+
+
+def _quantize_w(w_t: np.ndarray, unit: float) -> np.ndarray:
+    """Per-tensor symmetric int8: clip(round(w / unit), -127, 127), the
+    division in fp32 as the JAX package does it."""
+    return np.clip(np.round(w_t / np.float32(unit)), -127, 127).astype(np.int8)
+
+
+def _quantize_b(b: np.ndarray, unit: float, k: int = 0) -> np.ndarray:
+    """int32 bias round(b / unit), plus 2^(k-1) (the requant's rounding
+    offset) when a shift k > 0 follows."""
+    q = np.round(b / np.float32(unit)).astype(np.int32)
+    return q + np.int32(1 << (k - 1)) if k > 0 else q
 
 
 def prepare_kernel_params(
-    params: Dict[str, Any], spec: Optional[NerfMLPSpec] = None
+    params: Dict[str, Any],
+    spec: Optional[NerfMLPSpec] = None,
+    quant=None,
 ) -> KernelParams:
-    """One network's [in, out] parameter tree -> kernel layout, on the tree's
-    device (`prepare_kernel_params` of the JAX package, bf16 mode)."""
+    """One network's [in, out] parameter tree -> kernel layout on the device
+    of the tree's weights, as the JAX package's `prepare_kernel_params`
+    (pallas_render.py:197-432). With `quant` (an `ops.quantize.TrunkQuant`)
+    the trunk quantizes to int8 with power-of-2 requantization, and with its
+    head fields the heads too. The arithmetic runs in numpy fp32, so both
+    packages give the same int8 weights, int32 biases and shifts."""
     spec = spec or NerfMLPSpec()
     if not spec.use_view_dirs or spec.width % 16:
         raise ValueError("the fused path takes view-dirs models of width divisible by 16")
+    w0 = params["pts"][0]["w"]
+    device = w0.device if isinstance(w0, torch.Tensor) else torch.device("cpu")
     pts_freqs = _freqs_from_input_ch(spec.input_ch)
     view_freqs = _freqs_from_input_ch(spec.input_ch_views)
     pts_perm = _encoding_permutation(pts_freqs, _enc_dim(pts_freqs))
     view_perm = _encoding_permutation(view_freqs, _enc_dim(view_freqs))
     width = spec.width
     fa_rows = _round_up(width + 8, 128)
-    f32 = lambda x: x.to(torch.float32)  # noqa: E731
+    n_layers = len(params["pts"])
+    int8_heads = bool(quant is not None and quant.int8_heads)
+    feat_qscale = 127.0 / quant.feat_max if quant is not None else None
+    shift_layers, skip_shift = [], []
+    a_last = 1.0  # int8-trunk: the last trunk layer's real scale, folded into the heads
+    h_unit = None  # running activation quant unit
 
     w_layers, w_skip_enc, b_layers = [], [], []
     for i, layer in enumerate(params["pts"]):
-        w = f32(layer["w"])  # [in, out]
+        w, b = as_float32_array(layer["w"]), as_float32_array(layer["b"])  # [in, out], [out]
+        w_skip_t = None
         if i == 0:
-            w_t = _permute_pad_in_rows(w, pts_perm).T
+            w_t = _permute_pad_in_rows(torch.tensor(w), pts_perm).numpy().T
         elif (i - 1) in spec.skips:
             # Concat order [input_pts, h] (reference nerf_model.py:59).
-            w_skip_enc.append(_permute_pad_in_rows(w[: spec.input_ch], pts_perm).T)
+            w_skip_t = _permute_pad_in_rows(torch.tensor(w[: spec.input_ch]), pts_perm).numpy().T
             w_t = w[spec.input_ch :].T
         else:
             w_t = w.T
-        w_layers.append(w_t)
-        b_layers.append(f32(layer["b"]))
+        if quant is None:
+            if w_skip_t is not None:
+                w_skip_enc.append(w_skip_t)
+            w_layers.append(w_t)
+            b_layers.append(b)
+            continue
 
-    device = w_layers[0].device
-    w_fa = torch.zeros((fa_rows, width), dtype=torch.float32, device=device)
-    w_fa[:width] = f32(params["feature"]["w"]).T
-    w_fa[width] = f32(params["alpha"]["w"])[:, 0]
-    b_fa = torch.zeros((fa_rows,), dtype=torch.float32, device=device)
-    b_fa[:width] = f32(params["feature"]["b"])
-    b_fa[width] = f32(params["alpha"]["b"])[0]
+        # The accumulator's real scale is raw = w_unit * in_unit; the next
+        # activation's unit is raw * 2^k, so the epilogue is integer-only:
+        # clip((acc + b_i32) >> k, 0, 127).
+        feat_unit = quant.feat_max / 127.0
+        in_unit = feat_unit if i == 0 else h_unit
+        w_unit = quant.w_max[i] / 127.0
+        k = None
+        if i < n_layers - 1 or int8_heads:
+            target = (quant.h_max[i] if i < n_layers - 1 else quant.h_last_max) / 127.0
+            if target <= 0.0:
+                # A layer dead on the calibration batch: anchor its unit at
+                # the encoding's, so the downstream requants stay in range
+                # (k = 0 would push the skip-match shift far below -8).
+                target = quant.feat_max / 127.0
+            w_unit, k = _balanced_requant(w_unit, in_unit, target)
+        raw = w_unit * in_unit
+        if w_skip_t is not None:
+            # Match the skip product's scale to raw with a power-of-2 shift
+            # j (floored, so no skip weight clips); negative j left-shifts,
+            # clamped at -8 to keep 8 bits of int32 headroom.
+            skip_ideal = quant.skip_w_max[len(w_skip_enc)] / 127.0 * feat_unit
+            j_raw = math.floor(math.log2(raw / skip_ideal))
+            if j_raw < -8:
+                warnings.warn(
+                    f"int8 calibration out of range for skip layer {len(w_skip_enc)}: needs "
+                    f"shift {j_raw} < -8; skip weights will saturate - use bf16/parity "
+                    "precision for this checkpoint",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+            j = max(-8, j_raw)
+            skip_shift.append(j)
+            w_skip_enc.append(_quantize_w(w_skip_t, raw / (2.0**j) / feat_unit))
+        if k is not None:
+            h_unit = raw * (2.0**k)
+            shift_layers.append(k)
+            b_layers.append(_quantize_b(b, raw, k))
+        else:
+            shift_layers.append(0)
+            a_last = raw
+            b_layers.append(_quantize_b(b, raw))
+        w_layers.append(_quantize_w(w_t, w_unit))
 
-    w_view = f32(params["views"][0]["w"])  # [width + view_in, width // 2]
-    w_rgb = torch.zeros((16, width // 2), dtype=torch.float32, device=device)
-    w_rgb[:3] = f32(params["rgb"]["w"]).T
-    b_rgb = torch.zeros((16,), dtype=torch.float32, device=device)
-    b_rgb[:3] = f32(params["rgb"]["b"])
+    w_fa = np.zeros((fa_rows, width), dtype=np.float32)
+    w_fa[:width] = as_float32_array(params["feature"]["w"]).T
+    w_fa[width] = as_float32_array(params["alpha"]["w"])[:, 0]
+    # int8-trunk: the trunk's last activations arrive in the integer domain;
+    # their real scale rides in the head weights (1.0 otherwise).
+    w_fa = w_fa * np.float32(a_last) if a_last != 1.0 else w_fa
+    b_fa = np.zeros((fa_rows,), dtype=np.float32)
+    b_fa[:width] = as_float32_array(params["feature"]["b"])
+    b_fa[width] = as_float32_array(params["alpha"]["b"])[0]
 
-    cast = lambda x: x.to(torch.bfloat16).contiguous()  # noqa: E731
+    w_view = as_float32_array(params["views"][0]["w"])  # [width + view_in, width // 2]
+    w_view_h = np.ascontiguousarray(w_view[:width].T)
+    w_view_enc = _permute_pad_in_rows(torch.tensor(w_view[width:]), view_perm).numpy().T
+    b_view = as_float32_array(params["views"][0]["b"])
+    w_rgb = np.zeros((16, width // 2), dtype=np.float32)
+    w_rgb[:3] = as_float32_array(params["rgb"]["w"]).T
+    b_rgb = np.zeros((16,), dtype=np.float32)
+    b_rgb[:3] = as_float32_array(params["rgb"]["b"])
+
+    k_feat = k_hv = 0
+    s_alpha = inv_s_view = s_rgb = 1.0
+    if int8_heads:
+        # The scale chain continues through the heads: fa, view and rgb are
+        # int8 products; only sigma and rgb dequantize; the per-ray view
+        # term moves to the view accumulator's integer domain once per ray.
+        u_feat_w, k_feat = _balanced_requant(
+            quant.w_feat_max / 127.0, h_unit, quant.feature_max / 127.0
+        )
+        u_alpha_w = quant.w_alpha_max / 127.0
+        s_feat_acc = u_feat_w * h_unit
+        s_alpha = u_alpha_w * h_unit
+        w_fa_q = np.zeros((fa_rows, width), dtype=np.int8)
+        w_fa_q[:width] = _quantize_w(w_fa[:width], u_feat_w)
+        w_fa_q[width] = _quantize_w(w_fa[width : width + 1], u_alpha_w)[0]
+        b_fa_q = np.zeros((fa_rows,), dtype=np.int32)
+        b_fa_q[:width] = _quantize_b(b_fa[:width], s_feat_acc, k_feat)
+        b_fa_q[width] = _quantize_b(b_fa[width : width + 1], s_alpha)[0]
+        w_fa, b_fa = w_fa_q, b_fa_q
+        feat_unit = s_feat_acc * (2.0**k_feat)
+        u_vh_w, k_hv = _balanced_requant(quant.w_view_h_max / 127.0, feat_unit, quant.hv_max / 127.0)
+        s_view_acc = u_vh_w * feat_unit
+        inv_s_view = 1.0 / s_view_acc
+        w_view_h = _quantize_w(w_view_h, u_vh_w)
+        u_rgb_w = quant.w_rgb_max / 127.0
+        hv_unit = s_view_acc * (2.0**k_hv)
+        w_rgb = _quantize_w(w_rgb, u_rgb_w)
+        s_rgb = u_rgb_w * hv_unit
+
+    def put(x: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        """To `device` as `dtype`: float arrays round to bf16 there, int8 and
+        int32 arrays keep their integers."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if dtype == torch.bfloat16:
+            t = t.to(torch.bfloat16)
+        return t.to(device=device, dtype=dtype).contiguous()
+
+    trunk_w = torch.int8 if quant is not None else torch.bfloat16
+    trunk_b = torch.int32 if quant is not None else torch.float32
+    head_w = torch.int8 if int8_heads else torch.bfloat16
     return KernelParams(
-        w_layers=tuple(cast(w) for w in w_layers),
-        w_skip_enc=tuple(cast(w) for w in w_skip_enc),
-        b_layers=tuple(b.contiguous() for b in b_layers),
-        w_fa=cast(w_fa),
-        b_fa=b_fa,
-        w_view_h=cast(w_view[:width].T),
-        w_view_enc=cast(_permute_pad_in_rows(w_view[width:], view_perm).T),
-        b_view=f32(params["views"][0]["b"]).contiguous(),
-        w_rgb=cast(w_rgb),
-        b_rgb=b_rgb,
+        w_layers=tuple(put(w, trunk_w) for w in w_layers),
+        w_skip_enc=tuple(put(w, trunk_w) for w in w_skip_enc),
+        b_layers=tuple(put(b, trunk_b) for b in b_layers),
+        w_fa=put(w_fa, head_w),
+        b_fa=put(b_fa, torch.int32 if int8_heads else torch.float32),
+        w_view_h=put(w_view_h, head_w),
+        w_view_enc=put(w_view_enc, torch.bfloat16),
+        b_view=put(b_view, torch.float32),
+        w_rgb=put(w_rgb, head_w),
+        b_rgb=put(b_rgb, torch.float32),
         skips=tuple(spec.skips),
         width=width,
         pts_freqs=pts_freqs,
         view_freqs=view_freqs,
+        shift_layers=tuple(shift_layers),
+        skip_shift=tuple(skip_shift),
+        feat_qscale=feat_qscale,
+        int8_heads=int8_heads,
+        k_feat=k_feat,
+        k_hv=k_hv,
+        s_alpha=s_alpha,
+        inv_s_view=inv_s_view,
+        s_rgb=s_rgb,
     )
 
 
@@ -264,6 +445,55 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _int_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact integer product a @ w.T of int8-valued operands -> int32.
+
+    PyTorch has no int32 matmul on the card (nor int8 on the CPU), so the
+    product runs in float64: every partial sum of int8 x int8 terms is an
+    integer below 2^53 (at most 320 x 127 x 127 here), so any summation
+    order gives the exact result."""
+    return (a.to(torch.float64) @ w.to(torch.float64).T).to(torch.int32)
+
+
+def _shift(x: torch.Tensor, j: int) -> torch.Tensor:
+    """x >> j for j >= 0, x << -j otherwise (arithmetic, int32)."""
+    return x >> j if j >= 0 else x << -j
+
+
+def _quantize_feat(feat: torch.Tensor, qscale: float) -> torch.Tensor:
+    """clip(round(feat * qscale), -127, 127), round half to even, in fp32."""
+    return torch.clamp(torch.round(feat * qscale), -127.0, 127.0).to(torch.int32)
+
+
+def _trunk_plain(kp: KernelParams, feat: torch.Tensor) -> torch.Tensor:
+    """The density trunk of `nerf_render_plain` on encoded points [..., enc]
+    (bf16-valued fp32, or int8-valued int32 in the int8 modes) -> the last
+    activations: bf16-valued fp32 (bf16, int8-trunk) or int8-valued int32
+    (int8)."""
+    int8 = kp.mode != MODE_BF16
+    w_skip = kp.w_skip_enc if int8 else [w.float() for w in kp.w_skip_enc]
+    h, skip_i = feat, 0
+    for i, w in enumerate(kp.w_layers):
+        skip = i > 0 and (i - 1) in kp.skips
+        if not int8:
+            acc = h @ w.float().T
+            if skip:
+                acc = acc + feat @ w_skip[skip_i].T
+                skip_i += 1
+            h = _bf(torch.relu(acc + kp.b_layers[i]))
+            continue
+        acc = _int_dot(h, w)
+        if skip:
+            acc = acc + _shift(_int_dot(feat, w_skip[skip_i]), kp.skip_shift[skip_i])
+            skip_i += 1
+        pre = acc + kp.b_layers[i]
+        if i == len(kp.w_layers) - 1 and kp.mode == MODE_INT8_TRUNK:
+            h = torch.clamp(pre, min=0).to(torch.bfloat16).float()
+        else:
+            h = torch.clamp(pre >> kp.shift_layers[i], 0, 127)
+    return h
+
+
 @torch.no_grad()
 def nerf_render_plain(
     kp: KernelParams,
@@ -275,14 +505,22 @@ def nerf_render_plain(
     *,
     density_only: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the fused render kernel. It evaluates every
-    sample (no early stop), PLAIN_RAY_CHUNK rays at a time. Same arguments
-    and result as `nerf_render`."""
+    """Plain PyTorch version of the fused render kernel, all three modes. It
+    evaluates every sample (no early stop), PLAIN_RAY_CHUNK rays at a time.
+    Same arguments and result as `nerf_render`.
+
+    bf16 mode: bf16 operands, fp32 sums, bf16 activations. int8 modes: the
+    encoding quantized in fp32, exact integer products (`_int_dot`) and
+    integer epilogues in int32 (`clip((acc + b) >> k, 0, 127)`, the skip
+    product shifted before the add); int8-trunk casts the last layer's
+    `max(pre, 0)` to bf16 for its bf16 heads, int8 keeps the heads integer
+    until sigma and rgb."""
     n_samples, n_rays = z_vals.shape
-    width = kp.width
-    w_layers = [w.float() for w in kp.w_layers]
-    w_skip = [w.float() for w in kp.w_skip_enc]
-    w_fa, b_fa = kp.w_fa[: width + 1].float(), kp.b_fa[: width + 1]
+    width, mode = kp.width, kp.mode
+    int8 = mode != MODE_BF16
+    w_fa, b_fa = kp.w_fa[: width + 1], kp.b_fa[: width + 1]
+    if mode != MODE_INT8:
+        w_fa = w_fa.float()
     out_rows = n_samples if density_only else 8
     out = torch.empty((out_rows, n_rays), dtype=torch.float32, device=z_vals.device)
     for r0 in range(0, n_rays, PLAIN_RAY_CHUNK):
@@ -290,32 +528,50 @@ def nerf_render_plain(
         z = z_vals[:, r0:r1].T  # [Rc, S]
         dist = dists[:, r0:r1].T
         p = o_ph[:3, r0:r1].T[:, None, :] + z[..., None] * d_ph[:3, r0:r1].T[:, None, :]
-        feat = _bf(_encode_ladder(p, kp.pts_freqs))  # [Rc, S, enc]
-        h, skip_i = feat, 0
-        for i, w in enumerate(w_layers):
-            acc = h @ w.T
-            if i > 0 and (i - 1) in kp.skips:
-                acc = acc + feat @ w_skip[skip_i].T
-                skip_i += 1
-            h = _bf(torch.relu(acc + kp.b_layers[i]))
-        fa = h @ w_fa.T + b_fa
-        alpha = 1.0 - torch.exp(-torch.relu(fa[..., width]) * dist)  # [Rc, S]
+        feat = _encode_ladder(p, kp.pts_freqs)  # [Rc, S, enc] fp32
+        feat = _quantize_feat(feat, kp.feat_qscale) if int8 else _bf(feat)
+        h = _trunk_plain(kp, feat)
+        if mode == MODE_INT8:
+            fa = _int_dot(h, w_fa) + b_fa
+            sigma = fa[..., width].float() * kp.s_alpha
+        else:
+            fa = h @ w_fa.T + b_fa
+            sigma = fa[..., width]
+        alpha = 1.0 - torch.exp(-torch.relu(sigma) * dist)  # [Rc, S]
         trans = exclusive_cumprod(1.0 - alpha + 1e-10)
         weights = alpha * trans
         if density_only:
             out[:, r0:r1] = weights.T
             continue
         hv_enc = venc[:, r0:r1].T.float() @ kp.w_view_enc.float().T  # [Rc, W/2]
-        hv = _bf(torch.relu(
-            _bf(fa[..., :width]) @ kp.w_view_h.float().T + hv_enc[:, None, :] + kp.b_view
-        ))
-        rgb = torch.sigmoid((hv @ kp.w_rgb[:3].float().T + kp.b_rgb[:3]))  # [Rc, S, 3]
+        if mode == MODE_INT8:
+            hv_q = torch.round((hv_enc + kp.b_view) * kp.inv_s_view).to(torch.int32)
+            if kp.k_hv > 0:
+                hv_q = hv_q + (1 << (kp.k_hv - 1))
+            feature = torch.clamp(fa[..., :width] >> kp.k_feat, -127, 127)
+            hv = torch.clamp((_int_dot(feature, kp.w_view_h) + hv_q[:, None, :]) >> kp.k_hv, 0, 127)
+            rgb = torch.sigmoid(_int_dot(hv, kp.w_rgb[:3]).float() * kp.s_rgb + kp.b_rgb[:3])
+        else:
+            hv = _bf(torch.relu(
+                _bf(fa[..., :width]) @ kp.w_view_h.float().T + hv_enc[:, None, :] + kp.b_view
+            ))
+            rgb = torch.sigmoid((hv @ kp.w_rgb[:3].float().T + kp.b_rgb[:3]))  # [Rc, S, 3]
         out[0:3, r0:r1] = (weights[..., None] * rgb).sum(1).T
         out[3, r0:r1] = (weights * z).sum(1)
         out[4, r0:r1] = weights.sum(1)
         out[5, r0:r1] = trans[:, -1] * (1.0 - alpha[:, -1] + 1e-10)
         out[6:8, r0:r1] = 0.0
     return out
+
+
+# The shapes the CUDA kernel is built for, (width, point frequencies) ->
+# whether the full pass is built too. Each is one library,
+# csrc/fused_render.cu compiled for it (ops/_build.py).
+KERNEL_SHAPES = _build.RENDER_SHAPES
+
+
+def kernel_library(width: int, pts_freqs: int) -> str:
+    return f"fused_render_w{width}f{pts_freqs}"
 
 
 def _kernel_pointers(kp: KernelParams, density_only: bool) -> list:
@@ -332,27 +588,40 @@ def _kernel_pointers(kp: KernelParams, density_only: bool) -> list:
     return ptrs
 
 
-def _check_kernel_params(kp: KernelParams, device: torch.device) -> None:
-    if (kp.width, kp.pts_freqs, kp.view_freqs) != (KERNEL_WIDTH, PTS_FREQS, VIEW_FREQS):
+def _check_kernel_params(kp: KernelParams, device: torch.device, density_only: bool = True) -> None:
+    shape = (kp.width, kp.pts_freqs)
+    if shape not in KERNEL_SHAPES or (not density_only and not KERNEL_SHAPES[shape]):
+        built = ", ".join(f"{w}/F={f}" + ("" if full else " (density-only)") for (w, f), full in KERNEL_SHAPES.items())
         raise ValueError(
-            "the fused render kernel is built for width 256 with 10 point and 4 view "
-            f"frequencies, got width {kp.width}, {kp.pts_freqs}/{kp.view_freqs}"
+            f"the fused render kernel is built for width/point frequencies {built}; got width "
+            f"{kp.width} with {kp.pts_freqs} point frequencies"
+            + ("" if density_only else " in the full pass")
         )
+    if not density_only and kp.view_freqs != VIEW_FREQS:
+        raise ValueError(f"the full pass takes {VIEW_FREQS} view frequencies, got {kp.view_freqs}")
     if len(kp.skips) > 1 or len(kp.w_layers) > KERNEL_MAX_DEPTH:
         raise ValueError("the fused render kernel takes at most one skip and 16 layers")
-    for t in (*kp.w_layers, *kp.w_skip_enc, kp.w_fa, kp.w_view_h, kp.w_view_enc, kp.w_rgb):
-        if t.dtype != torch.bfloat16 or t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"kernel weights must be 16-byte aligned contiguous bf16 on {device}")
-    for t in (*kp.b_layers, kp.b_fa, kp.b_view, kp.b_rgb):
-        if t.dtype != torch.float32 or t.device != device or not t.is_contiguous():
-            raise ValueError(f"kernel biases must be contiguous float32 on {device}")
+    int8 = kp.mode != MODE_BF16
+    heads8 = kp.mode == MODE_INT8
+    weights = [(t, torch.int8 if int8 else torch.bfloat16) for t in (*kp.w_layers, *kp.w_skip_enc)]
+    weights += [(t, torch.int8 if heads8 else torch.bfloat16) for t in (kp.w_fa, kp.w_view_h, kp.w_rgb)]
+    weights += [(kp.w_view_enc, torch.bfloat16)]
+    for t, dtype in weights:
+        if t.dtype != dtype or t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"kernel weights must be 16-byte aligned contiguous {dtype} on {device}")
+    biases = [(t, torch.int32 if int8 else torch.float32) for t in kp.b_layers]
+    biases += [(kp.b_fa, torch.int32 if heads8 else torch.float32), (kp.b_view, torch.float32),
+               (kp.b_rgb, torch.float32)]
+    for t, dtype in biases:
+        if t.dtype != dtype or t.device != device or not t.is_contiguous():
+            raise ValueError(f"kernel biases must be contiguous {dtype} on {device}")
 
 
 def _nerf_render_cuda(kp, o_ph, d_ph, z_vals, dists, venc, density_only, early_stop_eps, live_groups):
     device = z_vals.device
     if device.type != "cuda":
         raise ValueError(f"no fused render kernel for device {device}")
-    _check_kernel_params(kp, device)
+    _check_kernel_params(kp, device, density_only)
     n_samples, n_rays = z_vals.shape
     for name, t in (("o_ph", o_ph), ("d_ph", d_ph), ("z_vals", z_vals), ("dists", dists)):
         if t.dtype != torch.float32 or t.device != device or not t.is_contiguous():
@@ -371,20 +640,23 @@ def _nerf_render_cuda(kp, o_ph, d_ph, z_vals, dists, venc, density_only, early_s
 
     ptrs = _kernel_pointers(kp, density_only)
     ptr_array = (ctypes.c_void_p * len(ptrs))(*[0 if t is None else t.data_ptr() for t in ptrs])
+    depth = len(kp.w_layers)
+    shifts = list(kp.shift_layers) or [0] * depth
+    ishift = (ctypes.c_int * (depth + 3))(*shifts, kp.skip_shift[0] if kp.skip_shift else 0, kp.k_feat, kp.k_hv)
+    fscale = (ctypes.c_float * 4)(kp.feat_qscale or 0.0, kp.s_alpha, kp.inv_s_view, kp.s_rgb)
     skip_layer = kp.skips[0] + 1 if kp.skips else -1
-    lib = _build.load("fused_render")
+    lib = _build.load(kernel_library(kp.width, kp.pts_freqs))
     fn = lib.nerf_render_launch
     fn.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 3
-        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     out_rows = n_samples if density_only else 8
     out = torch.empty((out_rows, n_rays), dtype=torch.float32, device=device)
     code = fn(
-        ctypes.cast(ptr_array, ctypes.c_void_p), len(kp.w_layers), skip_layer,
+        ctypes.cast(ptr_array, ctypes.c_void_p), kp.width, kp.pts_freqs, depth, skip_layer, kp.mode,
+        ctypes.cast(ishift, ctypes.c_void_p), ctypes.cast(fscale, ctypes.c_void_p),
         o_ph.data_ptr(), d_ph.data_ptr(), z_vals.data_ptr(), dists.data_ptr(),
         None if density_only else venc.data_ptr(), out.data_ptr(),
         n_rays, n_samples, int(density_only), float(early_stop_eps),
@@ -392,8 +664,11 @@ def _nerf_render_cuda(kp, o_ph, d_ph, z_vals, dists, venc, density_only, early_s
         _build.stream_handle(device),
     )
     _build.check(code, "nerf_render_launch")
-    LAUNCHES["density_only" if density_only else "full"] += 1
+    LAUNCHES[("density_only" if density_only else "full") + _MODE_SUFFIX[kp.mode]] += 1
     return out
+
+
+_MODE_SUFFIX = {MODE_BF16: "", MODE_INT8_TRUNK: "_int8_trunk", MODE_INT8: "_int8"}
 
 
 def nerf_render(
@@ -414,7 +689,7 @@ def nerf_render(
     [S, R] fp32 sorted depths and |d|-scaled intervals (last 1e10 * |d|);
     venc: [32, R] bf16 (full pass only). Returns weights [S, R] fp32
     (density_only) or maps [8, R] fp32: rows 0-2 rgb, 3 depth, 4 acc, 5 the
-    final transmittance.
+    final transmittance. `kp.mode` picks bf16, int8-trunk or int8.
 
     On a CUDA tensor this launches the kernel, which stops a block of 32 rays
     once all of them have transmittance <= early_stop_eps (exact up to eps;
@@ -443,6 +718,30 @@ class FusedRenderOutputs(NamedTuple):
     disp: torch.Tensor  # [R] inverse depth (reference model_utils.py:88-97)
 
 
+def _finish(maps: torch.Tensor, settings: RenderSettings, full: bool):
+    rgb = maps[0:3].T
+    if settings.white_background:
+        rgb = rgb + (1.0 - maps[4:5].T)
+    if full:
+        depth, acc = maps[3], maps[4]
+        disp = 1.0 / torch.clamp(depth / torch.clamp(acc, min=1e-10), min=1e-10)
+        return FusedRenderOutputs(rgb=rgb, depth=depth, acc=acc, disp=disp)
+    return rgb
+
+
+def _lattice_grid(settings: RenderSettings, grid_hw: Optional[tuple], n_rays: int) -> Optional[tuple]:
+    """(rows, cols) of the flat ray axis when the placement stride applies:
+    a stride > 1 and a grid whose both axes it divides; else None (exact
+    per-ray placement)."""
+    sub = int(settings.proposal_subsample or 1)
+    if sub <= 1 or grid_hw is None:
+        return None
+    gh, gw = int(grid_hw[0]), int(grid_hw[1])
+    if gh * gw != n_rays or gh % sub or gw % sub:
+        return None
+    return gh, gw
+
+
 @torch.no_grad()
 def render_rays_fused(
     kparams: Mapping[str, KernelParams],
@@ -451,43 +750,127 @@ def render_rays_fused(
     *,
     early_stop_eps: float = 1e-4,
     full: bool = False,
+    sort_rays: bool = False,
+    grid_hw: Optional[tuple] = None,
+    live_groups: Optional[torch.Tensor] = None,
 ):
-    """Coarse+fine inference of a flat bundle [R] through the fused path.
+    """Hierarchical inference of a flat bundle [R] through the fused path
+    (JAX pallas_render.py:1048-1260).
 
-    kparams: {"coarse": KernelParams, "fine": KernelParams}. Semantics are
-    the reference inference path's (deterministic importance samples, no
-    sigma noise); the coarse pass is density-only because at inference its
-    only consumer is the importance sampler. Three launches: coarse
-    (density-only), importance merge, fine (full).
+    kparams: {"coarse" or "proposal": KernelParams, "fine": KernelParams},
+    prepared with or without int8 quantization (each one's mode is its
+    own). Semantics are the reference inference path's (deterministic
+    importance samples, no sigma noise). Three launches: the density pass
+    (the coarse net, or the proposal net with `settings.use_proposal`),
+    placement (merged with the coarse depths, or importance-only with
+    `merge_coarse=False`), the fine pass.
+
+    grid_hw: (rows, cols) of the flat ray axis. With
+    `settings.proposal_subsample` s > 1 and a grid both of whose axes s
+    divides, the density pass and placement run on the lattice of every
+    s-th ray per axis and each s x s block shares its corner's fine depths
+    (the fine pass still evaluates every ray); otherwise placement is exact.
+    sort_rays: run the fine pass in the order of the density pass's
+    saturation sample, so blocks of 32 rays stop early together; exact up
+    to eps (per-ray independence), outputs in the original order.
+    live_groups: int32 [1] on the card; both passes add the 4-sample steps
+    their blocks evaluated (`nerf_render`).
 
     Returns rgb [R, 3], or FusedRenderOutputs when `full`.
     """
-    eval_settings = settings.for_eval()
-    kp_coarse, kp_fine = kparams["coarse"], kparams["fine"]
-    if kp_fine.pts_freqs != kp_coarse.pts_freqs:
-        raise ValueError("the coarse and fine nets must share their point encoding")
-    dirs = rays.dirs.to(torch.float32)
-    o_ph, d_ph = ray_phase_vectors(rays.origins.to(torch.float32), dirs, kp_coarse.pts_freqs)
+    s = settings.for_eval()
+    kp_coarse = kparams["proposal" if s.use_proposal else "coarse"]
+    kp_fine = kparams["fine"]
+    origins, dirs = rays.origins.to(torch.float32), rays.dirs.to(torch.float32)
+    near, far = rays.near.to(torch.float32), rays.far.to(torch.float32)
+    n_rays = origins.shape[0]
+
+    grid = _lattice_grid(s, grid_hw, n_rays)
+    sub = int(s.proposal_subsample or 1)
+    if grid is not None:
+        gh, gw = grid
+
+        def lattice(x: torch.Tensor) -> torch.Tensor:
+            # [R, ...] -> [R / s^2, ...], the block-corner rays of the grid.
+            return x.reshape(gh, gw, *x.shape[1:])[::sub, ::sub].reshape(-1, *x.shape[1:])
+
+        origins_c, dirs_c, near_c, far_c = (lattice(x) for x in (origins, dirs, near, far))
+    else:
+        origins_c, dirs_c, near_c, far_c = origins, dirs, near, far
+
+    o_ph_c, d_ph_c = ray_phase_vectors(origins_c, dirs_c, kp_coarse.pts_freqs)
+    if kp_fine.pts_freqs == kp_coarse.pts_freqs and grid is None:
+        o_ph_f, d_ph_f = o_ph_c, d_ph_c
+    else:
+        o_ph_f, d_ph_f = ray_phase_vectors(origins, dirs, kp_fine.pts_freqs)
     venc = encode_viewdirs_kernel_order(rays.viewdirs.to(torch.float32), num_freqs=kp_fine.view_freqs)
     dir_norm = torch.linalg.norm(dirs, dim=-1)[None, :]
+    dir_norm_c = torch.linalg.norm(dirs_c, dim=-1)[None, :] if grid is not None else dir_norm
 
-    z_coarse = coarse_z_vals(
-        rays.near.to(torch.float32), rays.far.to(torch.float32), eval_settings.n_samples
-    ).T.contiguous()
+    z_coarse = coarse_z_vals(near_c, far_c, s.n_samples).T.contiguous()
+    # Importance-only placement reads the density pass's weights down to the
+    # scale of the pdf's 1e-5-per-bin guard: its last quantiles sit where the
+    # CDF creeps along the guard, so zeroing a saturated block's ~1e-5 tail
+    # weights moves them by whole coarse bins. That pass stops only once
+    # T <= PLACEMENT_EPS, a tenth of the guard.
+    density_eps = early_stop_eps if s.merge_coarse else min(early_stop_eps, PLACEMENT_EPS)
     weights_t = nerf_render(
-        kp_coarse, o_ph, d_ph, z_coarse, _dists_from_z(z_coarse, dir_norm),
-        density_only=True, early_stop_eps=early_stop_eps,
+        kp_coarse, o_ph_c, d_ph_c, z_coarse, _dists_from_z(z_coarse, dir_norm_c),
+        density_only=True, early_stop_eps=density_eps, live_groups=live_groups,
     )
-    z_fine = importance_merge(weights_t, z_coarse, eval_settings.n_importance)
+    z_fine = importance_merge(weights_t, z_coarse, s.n_importance, merge=s.merge_coarse)
+    if grid is not None:
+        # Every ray of an s x s block takes its corner's depths.
+        gh, gw = grid
+        z_fine = z_fine.reshape(-1, gh // sub, 1, gw // sub, 1).expand(-1, -1, sub, -1, sub)
+        z_fine = z_fine.reshape(-1, n_rays)
+
+    inv_perm = None
+    if sort_rays and early_stop_eps > 0.0:
+        # Key: the density pass's sample where cumulative opacity crosses
+        # 1 - eps (S when it never does), spread from the lattice.
+        csum = torch.cumsum(weights_t, 0)
+        crossed = csum > 1.0 - early_stop_eps
+        key = torch.where(crossed[-1], torch.argmax(crossed.to(torch.int8), 0), weights_t.shape[0])
+        if grid is not None:
+            gh, gw = grid
+            key = key.reshape(gh // sub, 1, gw // sub, 1).expand(-1, sub, -1, sub).reshape(n_rays)
+        perm = torch.sort(key, stable=True).indices
+        inv_perm = torch.argsort(perm)
+        z_fine, o_ph_f, d_ph_f, venc = (x[:, perm] for x in (z_fine, o_ph_f, d_ph_f, venc))
+        dir_norm = dir_norm[:, perm]
+
+    z_fine = z_fine.contiguous()
     maps = nerf_render(
-        kp_fine, o_ph, d_ph, z_fine, _dists_from_z(z_fine, dir_norm), venc,
+        kp_fine, o_ph_f.contiguous(), d_ph_f.contiguous(), z_fine, _dists_from_z(z_fine, dir_norm),
+        venc.contiguous(), early_stop_eps=early_stop_eps, live_groups=live_groups,
+    )
+    if inv_perm is not None:
+        maps = maps[:, inv_perm]
+    return _finish(maps, s, full)
+
+
+@torch.no_grad()
+def render_rays_single_pass(
+    kp: KernelParams,
+    rays: RayBundle,
+    settings: RenderSettings,
+    *,
+    n_samples: Optional[int] = None,
+    early_stop_eps: float = 1e-3,
+):
+    """One full fused pass of one net over `n_samples` uniform depths: the
+    preview of a coarse+fine checkpoint through its coarse net, no placement
+    and no fine pass (JAX pallas_render.py:1263-1312). Returns rgb [R, 3]."""
+    s = settings.for_eval()
+    dirs = rays.dirs.to(torch.float32)
+    o_ph, d_ph = ray_phase_vectors(rays.origins.to(torch.float32), dirs, kp.pts_freqs)
+    venc = encode_viewdirs_kernel_order(rays.viewdirs.to(torch.float32), num_freqs=kp.view_freqs)
+    z = coarse_z_vals(
+        rays.near.to(torch.float32), rays.far.to(torch.float32), n_samples or s.n_samples
+    ).T.contiguous()
+    maps = nerf_render(
+        kp, o_ph, d_ph, z, _dists_from_z(z, torch.linalg.norm(dirs, dim=-1)[None, :]), venc,
         early_stop_eps=early_stop_eps,
     )
-    rgb = maps[0:3].T
-    if eval_settings.white_background:
-        rgb = rgb + (1.0 - maps[4:5].T)
-    if full:
-        depth, acc = maps[3], maps[4]
-        disp = 1.0 / torch.clamp(depth / torch.clamp(acc, min=1e-10), min=1e-10)
-        return FusedRenderOutputs(rgb=rgb, depth=depth, acc=acc, disp=disp)
-    return rgb
+    return _finish(maps, s, False)

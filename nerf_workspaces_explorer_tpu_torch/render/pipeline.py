@@ -13,6 +13,11 @@ so a test can hand both packages the same draws.
 The field (encode + MLP) is `settings.field_impl`: "plain", the fp32
 `apply_nerf_mlp` that autograd differentiates (the JAX package's "xla"), or
 "fused", the K4/K5 kernels of `ops/fused_field.py` (its "pallas").
+
+Two serving extensions change the placement (JAX pipeline.py:60-84,
+:195-242): `use_proposal` evaluates a small proposal net
+(`render/proposal.py`) in the coarse net's place, and `merge_coarse=False`
+(the fast and turbo presets) gives the fine net only the importance samples.
 """
 
 from __future__ import annotations
@@ -48,6 +53,16 @@ class RenderSettings(NamedTuple):
     use_view_dirs: bool = True
     train: bool = False  # enables perturb/noise/random importance quantiles
     field_impl: str = "plain"
+    # The proposal net (render/proposal.py) in the coarse net's place.
+    use_proposal: bool = False
+    proposal_num_freqs: int = 6
+    # True: the fine net sees sort(cat(z_vals, z_samples)), as the reference
+    # (…inference_handler.py:243); False: the importance samples only.
+    merge_coarse: bool = True
+    # Fused path only: the density pass and the placement run on every s-th
+    # ray per image axis, and each s x s block shares its corner's fine
+    # depths (ops/fused_render.py::render_rays_fused); 1 is exact placement.
+    proposal_subsample: int = 1
 
     @property
     def deterministic_importance(self) -> bool:
@@ -79,7 +94,7 @@ def draw_render_randoms(
     return RenderDraws(
         t_rand=torch.rand((n_rays, s), generator=gen, device=device),
         noise_coarse=torch.randn((n_rays, s), generator=gen, device=device),
-        noise_fine=torch.randn((n_rays, s + i), generator=gen, device=device),
+        noise_fine=torch.randn((n_rays, s + i if settings.merge_coarse else i), generator=gen, device=device),
         u=torch.rand((n_rays, i), generator=gen, device=device),
     )
 
@@ -133,8 +148,9 @@ def render_ray_bundle(
     draws: Optional[RenderDraws] = None,
     full_outputs: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Render a flat bundle [R] through {"coarse", "fine"} nets (NerfMLPs,
-    or parameter trees of architecture `spec`).
+    """Render a flat bundle [R] through {"coarse" or "proposal", "fine"} nets
+    (NerfMLPs, or parameter trees of architecture `spec`; a proposal tree
+    has `proposal_spec`'s).
 
     Training mode (`settings.train`) needs `draws` for its jitter, noise and
     importance quantiles. Returns the reference's output names
@@ -151,7 +167,17 @@ def render_ray_bundle(
         z_vals = stratified_perturb(z_vals, draws.t_rand)
     viewdirs = rays.viewdirs
     pts = rays.origins[..., None, :] + rays.dirs[..., None, :] * z_vals[..., :, None]
-    raw_coarse = _eval_network(models["coarse"], spec, pts, viewdirs, settings)
+    if settings.use_proposal:
+        # Its rgb is never used; its sigma drives the importance weights.
+        from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
+
+        prop_settings = settings._replace(num_freqs_3d=settings.proposal_num_freqs, num_freqs_2d=2)
+        raw_coarse = _eval_network(
+            models["proposal"], proposal_spec(settings.proposal_num_freqs), pts, viewdirs,
+            prop_settings,
+        )
+    else:
+        raw_coarse = _eval_network(models["coarse"], spec, pts, viewdirs, settings)
     out_coarse = composite_rays(
         raw_coarse, z_vals, rays.dirs, raw_noise_std=noise_std,
         noise=None if draws is None else draws.noise_coarse,
@@ -164,7 +190,12 @@ def render_ray_bundle(
         z_samples = sample_pdf(
             z_mid, out_coarse.weights[..., 1:-1], settings.n_importance, u=u
         ).detach()  # the reference detaches (…training_handler.py:580)
-        z_fine = merge_sorted_z(z_vals, z_samples)
+        if settings.merge_coarse:
+            z_fine = merge_sorted_z(z_vals, z_samples)
+        elif settings.deterministic_importance:
+            z_fine = z_samples  # ascending quantiles give ascending depths
+        else:
+            z_fine = torch.sort(z_samples, -1).values
         pts = rays.origins[..., None, :] + rays.dirs[..., None, :] * z_fine[..., :, None]
         raw_fine = _eval_network(models["fine"], spec, pts, viewdirs, settings)
         out_fine = composite_rays(

@@ -153,9 +153,11 @@ def test_render_rays_fused_matches_golden_and_pallas():
 
 
 def test_kernel_refuses_other_specs():
-    """The CUDA kernel is built for width 256 / F=10 / F=4; other specs raise
-    on a non-CPU device instead of launching."""
-    params = init_nerf_params(jax.random.PRNGKey(0), JSpec(**SMALL))
-    kp = fr.prepare_kernel_params(_port_tree(params), NerfMLPSpec(**SMALL))
-    with pytest.raises(ValueError, match="width 256"):
-        fr._check_kernel_params(kp, torch.device("cpu"))
+    """The CUDA kernel is built for the in-repo checkpoints' shapes (64/F=6
+    density-only, 128/F=8, 192/F=10, 256/F=10); other specs raise instead of
+    launching: width 320, F=12, and the proposal shape's full pass."""
+    for spec_kwargs, density_only in ((dict(width=320), True), (dict(input_ch=75), True), (SMALL, False)):
+        params = init_nerf_params(jax.random.PRNGKey(0), JSpec(**spec_kwargs))
+        kp = fr.prepare_kernel_params(_port_tree(params), NerfMLPSpec(**spec_kwargs))
+        with pytest.raises(ValueError, match="built for width/point frequencies"):
+            fr._check_kernel_params(kp, torch.device("cpu"), density_only)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card: K1-K3
+at every network shape the in-repo checkpoints need, K6 and K7, and K4/K5.
 
 Marked `gpu`: each test skips without a CUDA card. This file imports neither
 JAX nor the JAX package, so it runs on a machine without them:
@@ -237,3 +238,135 @@ def test_fused_training_steps_on_the_card(cuda, tmp_path):
     assert ff.LAUNCHES["forward"] - before["forward"] == 10
     assert ff.LAUNCHES["backward"] - before["backward"] == 10
     assert float(trainer.render_test_images(5)) == float(trainer.render_test_images(5))
+
+
+# The slice-3 shapes: the proposal net (2x64, F=6, density-only), the two
+# turbo students (4x128@8f, 6x192@10f) and the 8x256 nets, in every mode.
+NETS = {
+    "proposal-64f6": ("room_proposal.turbo.npz", "proposal"),
+    "student-128f8": ("synth_proposal.turbo.npz", "fine"),
+    "student-192f10": ("room_proposal.turbo.npz", "fine"),
+    "fine-256f10": ("synth_hier.npz", "fine"),
+}
+MODES = ("bf16", "int8-trunk", "int8")
+
+
+def _net_kernel_params(device, net, mode):
+    from nerf_workspaces_explorer_tpu_torch.ops.quantize import calibrate_trunk, spec_from_net_params
+
+    path, key = NETS[net]
+    tree, _, _ = load_checkpoint(os.path.join(ROOT, "assets", "bench", path))
+    params = params_from_numpy(tree[key], device)
+    spec = spec_from_net_params(params)
+    quant = None if mode == "bf16" else calibrate_trunk(params, spec, heads=mode == "int8")
+    return fr.prepare_kernel_params(params, spec, quant=quant)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize(
+    "net,density_only",
+    [(n, True) for n in NETS] + [(n, False) for n in NETS if n != "proposal-64f6"],
+    ids=lambda x: x if isinstance(x, str) else ("density" if x else "full"),
+)
+def test_render_kernel_shapes_and_modes_match_plain(cuda, net, mode, density_only):
+    """K1/K3 at the proposal and student widths and K7 (int8-trunk, int8)
+    against the plain version at eps 0: rgb, acc and weights within 5e-3
+    (int8: integer trunks, equal when the fp32 encodings round alike). The
+    proposal net runs density-only."""
+    kp = _net_kernel_params(cuda, net, mode)
+    o, d = torch.randn(2, 2048, 3, generator=torch.Generator().manual_seed(4))
+    o = o * 0.5
+    z = torch.sort(torch.rand(48, 2048, generator=torch.Generator().manual_seed(5)) * 5.9 + 0.1, dim=0).values
+    o_ph, d_ph = fr.ray_phase_vectors(o, d, kp.pts_freqs)
+    venc = None if density_only else fr.encode_viewdirs_kernel_order(d / d.norm(dim=-1, keepdim=True)).to(cuda)
+    dists = fr._dists_from_z(z, d.norm(dim=-1)[None])
+    args = [t.to(cuda) for t in (o_ph, d_ph, z, dists)]
+    key = ("density_only" if density_only else "full") + {"bf16": "", "int8-trunk": "_int8_trunk", "int8": "_int8"}[mode]
+    before = fr.LAUNCHES[key]
+    out = fr.nerf_render(kp, *args, venc, density_only=density_only, early_stop_eps=0.0)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES[key] == before + 1
+    ref = fr.nerf_render_plain(kp, *args, venc, density_only=density_only)
+    assert torch.isfinite(out).all()
+    rows = slice(None) if density_only else [0, 1, 2, 4]
+    err = (out[rows] - ref[rows]).abs()
+    assert float(err.max()) <= BF16_ATOL, float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_samples,n_importance,n_rays", [(64, 48, 4800), (64, 128, 76_800), (16, 5, 1000)])
+def test_importance_only_kernel_matches_plain(cuda, n_samples, n_importance, n_rays):
+    """K6 (merge=False) against its plain version: ascending, boundary flips
+    on < 0.5% of samples, each within one coarse bin, off the last row: there
+    the u = 1 quantile may sit at either end of the last bin when the CDF's
+    last entry rounds differently (the running sum against torch.cumsum),
+    as on merged rows -3/-2 of K2, so it moves by at most its ray's last
+    bin."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    z = torch.sort(torch.rand(n_samples, n_rays, generator=g) * 5.9 + 0.1, dim=0).values
+    centre = torch.rand(1, n_rays, generator=g) * 4 + 1
+    w = torch.exp(-0.5 * ((z - centre) / 0.4) ** 2) + 1e-4
+    z, w = z.to(cuda), w.to(cuda)
+    before = im.LAUNCHES["importance_only"]
+    out = im.importance_merge(w, z, n_importance, merge=False)
+    torch.cuda.synchronize()
+    assert im.LAUNCHES["importance_only"] == before + 1
+    ref = im.importance_merge_plain(w, z, n_importance, merge=False)
+    assert out.shape == ref.shape == (n_importance, n_rays)
+    assert (torch.diff(out, dim=0) >= 0).all()
+    err = (out - ref).abs()
+    assert float((err[:-1] > 1e-4).float().mean()) < 5e-3
+    assert float(err[:-1].max()) <= float(torch.diff(z, dim=0).max()) + 1e-4
+    mid = 0.5 * (z[1:] + z[:-1])
+    assert float((err[-1] - (mid[-1] - mid[-2])).max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_turbo_int8_frame_launches(cuda):
+    """One turbo int8 frame through the renderer: one proposal density pass,
+    one importance-only placement, one student full pass, all int8."""
+    import dataclasses
+
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+
+    cfg = load_config(office_name="tokyo")
+    cfg = dataclasses.replace(cfg, rendering=dataclasses.replace(cfg.rendering, depth_range=(0.1, 8.0)))
+    r = NeRFRenderer("tokyo", os.path.join(ROOT, "assets", "bench", "room_proposal.npz"), config=cfg,
+                     precision="int8", preset="turbo", device=cuda)
+    r.initialize_models()
+    r.warmup()
+    counters = (fr.LAUNCHES, im.LAUNCHES)
+    before = [dict(c) for c in counters]
+    frame = r.render_pose_uint8(torch.eye(4).numpy())
+    torch.cuda.synchronize()
+    delta = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c if c[k] != b[k]}
+    assert delta == {"density_only_int8": 1, "full_int8": 1, "importance_only": 1}, delta
+    assert frame.shape == (240, 320, 3) and frame.dtype == torch.uint8
+
+
+@pytest.mark.gpu
+def test_fast_preset_frame_at_served_eps(cuda):
+    """synth_hier at the fast preset (importance-only placement, 8x256 nets):
+    the frame at the served early-stop eps against the eps-0 frame, on the
+    office_geneve click where stopping the density pass of a whole 32-ray
+    block at T <= 1e-3 moved the importance samples (SSIM 0.977 against
+    parity). That pass stops at PLACEMENT_EPS; the fine pass stays exact up
+    to eps per ray. Stopping the density pass at 1e-4 or 1e-3 fails both
+    bounds on this click."""
+    from nerf_workspaces_explorer_tpu_torch.app.workspace import OfficeGeneveWorkspace
+    from nerf_workspaces_explorer_tpu_torch.camera.poses import poses_from_coordinates
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+
+    init, coord = OfficeGeneveWorkspace(ckpt_path=CKPT, device=cuda).transform_relative_coordinates(
+        0.4, 0.6, 30, -10)
+    pose = poses_from_coordinates(init, [coord])[0]
+    frames = []
+    for eps in (1e-3, 0.0):
+        r = NeRFRenderer("tokyo", CKPT, precision="fast", preset="fast", device=cuda, early_stop_eps=eps)
+        r.initialize_models()
+        frames.append(r.render_pose(pose))
+    d = (frames[0] - frames[1]).abs()
+    stats = (float(d.mean()), float((d > 1e-2).float().mean()), float(d.max()))
+    assert stats[0] <= 1e-4 and stats[1] <= 1e-3, stats

@@ -58,7 +58,8 @@ def test_port_imports_without_jax():
 @pytest.mark.parametrize(
     "path",
     [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "profile_torch_frame.py"),
-     os.path.join(ROOT, "scripts", "profile_torch_train_step.py")]
+     os.path.join(ROOT, "scripts", "profile_torch_train_step.py"),
+     os.path.join(ROOT, "scripts", "profile_torch_placement_eps.py")]
     + sorted(
         os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")
     ),
@@ -80,12 +81,23 @@ def test_renderer_without_device_raises_without_cuda():
 
 
 def test_unported_options_raise():
+    """Options the JAX renderer has and the port leaves out raise: mesh,
+    nan_debug, a chunk override of the fused path, the strip path; so do
+    unknown precisions and a turbo preset without a checkpoint."""
     from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
 
     with pytest.raises(ValueError, match="precision"):
-        NeRFRenderer("tokyo", precision="int8", device="cpu")
+        NeRFRenderer("tokyo", precision="int4", device="cpu")
     with pytest.raises(ValueError, match="preset"):
         NeRFRenderer("tokyo", preset="turbo", device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        NeRFRenderer("tokyo", mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="nan_debug"):
+        NeRFRenderer("tokyo", nan_debug=True, device="cpu")
+    with pytest.raises(ValueError, match="chunk"):
+        NeRFRenderer("tokyo", precision="int8", chunk=4096, device="cpu")
+    with pytest.raises(NotImplementedError, match="strip"):
+        NeRFRenderer("tokyo", device="cpu").render_pose_uint8_pipelined(None)
 
 
 def test_missing_checkpoint_raises():

@@ -1,5 +1,6 @@
-"""The importance-merge plain version against the JAX package's Pallas
-kernel (interpret mode) and its XLA reference."""
+"""The importance-merge plain version, merged (K2) and importance-only (K6),
+against the JAX package's Pallas kernel (interpret mode) and its XLA
+reference."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -125,3 +126,46 @@ def test_coarse_depths_survive_the_merge(rng):
 def test_rejects_bad_shapes():
     with pytest.raises(ValueError, match="one \\[S, R\\] shape"):
         importance_merge(torch.zeros(8, 4), torch.zeros(8, 5), 4)
+
+
+def assert_importance_only_close(mine, ref, z):
+    """tests/test_pallas.py:572's rule for merge=False: ascending, flips on
+    < 0.5% of samples, each within one coarse bin."""
+    assert mine.shape == ref.shape
+    assert np.all(np.diff(mine, axis=0) >= -1e-6)
+    err = np.abs(mine - ref)
+    flips = float(np.mean(err > 1e-4))
+    assert flips < 5e-3, f"boundary flips on {flips:.2%} of samples"
+    assert err.max() <= float(np.max(np.diff(z, axis=0))) + 1e-4
+
+
+@pytest.mark.parametrize("reference", ["xla", "pallas"])
+def test_importance_only_matches_jax(rng, reference):
+    """merge=False: the I ascending samples alone, against
+    `importance_merge_pallas(merge=False, interpret=True)` and against
+    JAX's `sample_pdf`, at tests/test_pallas.py:572's 64 samples, 96
+    quantiles and 256 rays."""
+    s, r, n_imp = 64, 256, 96
+    w, z = _inputs(rng, s, r)
+    if reference == "pallas":
+        ref = np.asarray(importance_merge_pallas(
+            jnp.asarray(w), jnp.asarray(z), n_imp, ray_tile=128, interpret=True, merge=False))
+    else:
+        zr, wr = jnp.asarray(z.T), jnp.asarray(w.T)
+        ref = np.asarray(sample_pdf(0.5 * (zr[:, 1:] + zr[:, :-1]), wr[:, 1:-1], n_imp, deterministic=True)).T
+    mine = importance_merge(torch.from_numpy(w), torch.from_numpy(z), n_imp, merge=False).numpy()
+    assert mine.shape == (n_imp, r)
+    assert_importance_only_close(mine, ref, z)
+
+
+def test_importance_only_is_the_merge_without_coarse_depths(rng):
+    """Removing the coarse depths from the merged rows leaves the
+    importance-only rows (ties aside)."""
+    w, z = _inputs(rng, 16, 24)
+    merged = importance_merge(torch.from_numpy(w), torch.from_numpy(z), 12).numpy()
+    alone = importance_merge(torch.from_numpy(w), torch.from_numpy(z), 12, merge=False).numpy()
+    for r in range(24):
+        rest = list(merged[:, r])
+        for depth in z[:, r]:
+            rest.remove(depth)
+        np.testing.assert_array_equal(np.sort(rest), alone[:, r])
