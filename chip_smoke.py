@@ -6,7 +6,8 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `nerf_workspaces_explorer_tpu_torch/
-csrc/` and drives the port's two paths.
+csrc/` and drives the port's paths in this order: serving, the strip-
+pipelined frame, the presets, the two profiling scripts' kernels, training.
 
 Serving: holds K1-K3 against their plain PyTorch versions on the card at the
 main path's shapes (one 320x240 frame: 76,800 rays, 8x256 coarse+fine nets
@@ -16,6 +17,11 @@ times them with CUDA events, then serves floor-plan clicks through
 the fp32 parity render (SSIM >= 0.99, the repo's gate for bf16 serving,
 reports/reference_parity_320x240.md) and that every kernel of the path ran
 once per frame.
+
+Strips: serves the main path's first click as a strip-pipelined frame
+(`render_pose_uint8_pipelined`, 6 strips of 40 rows): bytes equal to the
+blocking frame at eps 0, one density pass, placement and fine pass per
+strip, warm ms beside the blocking frame's.
 
 Presets: builds the render kernel for every network shape of the in-repo
 checkpoints (64/F=6, 128/F=8, 192/F=10, 256/F=10) in its bf16, int8-trunk and
@@ -37,6 +43,20 @@ SSIM >= 0.99 at stride 1 against the fp32 parity frame of the same preset
 and pose, and for the stride-4 rows the SSIM against stride 1 and block
 corners equal to stride 1's at eps 0; and times one preview of each kind.
 
+The fast preset's density pass takes the caller's eps (1e-3) and stops a
+32-ray block only at T <= min(eps, 1e-5 / S) (csrc/fused_render.cu); the
+presets phase prints, from each click's eps-0 density weights, how many of
+the JAX kernel's 4,096-ray tiles would stop at 1e-3, and its fast-preset
+row holds SSIM >= 0.99 as every row does.
+
+Ablation (K8): builds the ablation library, holds each ablation mode against
+its plain version on 4,096 rays x 48 samples of the 4x128@8f student
+(`assets/bench/synth_proposal.turbo.npz`, int8 trunk and heads), then runs
+`scripts/profile_torch_fine_ablation.py`'s attribution at 640x480 x 48 and
+prints its table. int4 (K9): both legs of `scripts/probe_int4_torch.py`
+against their plain versions and numpy, timed beside `torch.matmul` of the
+widened matrix, then the probe's verdicts.
+
 Training: on the room scene at 320x240 (60-frame walkthrough, every 5th
 frame a train view, +2 a test view: 12 and 12) with the stock config (8x256
 nets, 1024 rays of 64 + 128 samples), holds K4 (field forward) and K5
@@ -47,11 +67,11 @@ loss falling), renders two test views through K1-K3, trains the same 300
 steps with the plain field (test-view PSNR within 1 dB), and resumes a
 fresh Trainer from the step-150 checkpoint (its next loss equal to 1e-6).
 
-Its last two lines are a JSON object with one entry per kernel (K1-K7; the
-new K1/K3 shapes and each served K7 mode have entries of their own) and the
-result line `{"ok": true, "device": {...}}`. Any failure raises and exits
-nonzero; without a CUDA card, or outside the repository, it exits 2 and
-prints no result.
+Its last two lines are a JSON object with one entry per kernel (K1-K9; the
+new K1/K3 shapes, each served K7 mode, each K8 row and K9 leg have entries
+of their own) and the result line `{"ok": true, "device": {...}}`. Any
+failure raises and exits nonzero; without a CUDA card, or outside the
+repository, it exits 2 and prints no result.
 """
 
 import dataclasses
@@ -621,7 +641,23 @@ def presets_phase(card: str, device: torch.device, main: dict):
         r = renderer(CKPT, cfg, precision, preset)
         frames, ms, launches, samples = serve(r, click_poses)
         scores = [ssim(f / 255.0, p / 255.0) for f, p in zip(frames, hier_parity[preset])]
-        rows.append((f"synth_hier {preset} {precision}", ms, launches, samples, scores, ""))
+        extra = ""
+        if preset == "fast":
+            # The density pass at the caller's eps (csrc/fused_render.cu's
+            # guard-resolved stop); from each click's eps-0 weights, the JAX
+            # kernel's 4,096-ray tiles that would stop at that eps.
+            tiles = []
+            for pose in click_poses:
+                rays = rays_of(pose, cfg)
+                kp_c = r.kernel_params["coarse"]
+                o_c, d_c = fr.ray_phase_vectors(rays.origins, rays.dirs, kp_c.pts_freqs)
+                z_c = coarse_z_vals(rays.near, rays.far, r.settings.n_samples).T.contiguous()
+                dist_c = fr._dists_from_z(z_c, torch.linalg.norm(rays.dirs, dim=-1)[None])
+                w_c = fr.nerf_render(kp_c, o_c, d_c, z_c, dist_c, density_only=True, early_stop_eps=0.0)
+                tiles.append(_script("profile_torch_placement_eps").jax_tile_stops(w_c, EPS))
+            extra = f"; JAX 4096-ray tiles stopping at eps {EPS:g}: " + ", ".join(
+                f"{a} of {b} ({c} rays above the guarded bound)" for a, b, c in tiles)
+        rows.append((f"synth_hier {preset} {precision}", ms, launches, samples, scores, extra))
     room_parity = {p: parity_frames(ROOM_CKPT, room_cfg, p, room_poses, use_proposal=p == "fast")
                    for p in ("fast", "turbo")}
     for precision, preset in (("fast", "fast"), ("fast", "turbo"), ("int8", "turbo")):
@@ -691,6 +727,147 @@ def presets_phase(card: str, device: torch.device, main: dict):
     return entries
 
 
+def _script(name: str):
+    """A module of scripts/ (the ablation and int4 probe scripts drive their
+    kernels' paths; the placement script counts the JAX tiles)."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    return __import__(name)
+
+
+def strips_phase(card: str, device: torch.device, pose) -> None:
+    """The strip-pipelined frame of the main path's first click (module
+    docstring)."""
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_render as fr
+    from nerf_workspaces_explorer_tpu_torch.ops import importance_merge as im
+
+    def renderer(eps):
+        r = NeRFRenderer("tokyo", CKPT, precision="fast", device=device, early_stop_eps=eps)
+        r.initialize_models()
+        return r
+
+    exact = renderer(0.0)
+    n = exact._pick_n_strips()
+    same = np.array_equal(exact.render_pose_uint8_pipelined(pose), exact.render_pose_uint8(pose).cpu().numpy())
+    require(same, "strips at eps 0 differ from the blocking frame")
+    served = renderer(EPS)
+    piped, blocking = served.render_pose_uint8_pipelined(pose), served.render_pose_uint8(pose).cpu().numpy()
+    diff = int(np.abs(piped.astype(int) - blocking.astype(int)).max())
+    torch.cuda.synchronize()
+    counters = (fr.LAUNCHES, im.LAUNCHES)
+    zero_launches(*counters)
+    ms = []
+    for _ in range(SERVE_REPS * 3):
+        t0 = time.perf_counter()
+        served.render_pose_uint8_pipelined(pose)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    want = {k: SERVE_REPS * 3 * n for k in ("density_only", "importance_merge", "full")}
+    require(launches == want, f"strip launches {launches}, expected {want}")
+    blocking_ms = []
+    for _ in range(SERVE_REPS * 3):
+        t0 = time.perf_counter()
+        served.render_pose_uint8(pose).cpu()
+        blocking_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"strips: synth_hier reference bf16, click 0, {n} strips of {served.config.experiment.image_height // n} "
+          f"rows: bytes equal to blocking at eps 0 {same}; at eps {EPS:g} max |diff| {diff} levels; launches in "
+          f"{SERVE_REPS * 3} frames {launches}; warm ms/frame pipelined {float(np.median(ms)):.2f}, blocking "
+          f"{float(np.median(blocking_ms)):.2f} (medians of {SERVE_REPS * 3}); card {card}", flush=True)
+
+
+def ablation_phase(card: str, device: torch.device):
+    """K8 (module docstring); returns the kernels line's K8 entries."""
+    from nerf_workspaces_explorer_tpu_torch.ops import fine_ablation as fa
+
+    pfa = _script("profile_torch_fine_ablation")
+    n_samples, width, height = 48, 640, 480
+    kp, inputs = pfa.student_inputs(pfa.SIDECAR, n_samples, width, height, device)
+    sps = fa._samples_per_step(n_samples, 32)
+    check = [t[:, :4096].contiguous() for t in inputs]
+    errs = {}
+    for label, ablate in pfa.ROWS[1:]:
+        ablate = frozenset(ablate)
+        out = fa.run_ablation(kp, *check, ablate, samples_per_step=sps)
+        torch.cuda.synchronize()
+        ref = fa.run_ablation_plain(kp, *check, ablate, samples_per_step=sps)
+        raw = "heads" in ablate or "epilogue" in ablate
+        scale = max(1.0, float(ref[0:3].abs().max())) if raw else 1.0
+        err = (out[[0, 1, 2, 5]] - ref[[0, 1, 2, 5]]).abs()
+        share = float((err.amax(0) <= 1e-6 * scale).float().mean())
+        require(bool(torch.isfinite(out).all()) and not out[[3, 4, 6, 7]].any(), f"K8 {label}: output rows")
+        require(share >= 0.99 and float(err.max()) <= (2e-2 if raw else 2e-3) * scale,
+                f"K8 {label}: {share:.4%} of rays agree to 1e-6 (x {scale:g}), max |err| {float(err.max())}")
+        errs[label] = (float(err.max()), float(err.max()) / scale, share)
+    zero_launches(fa.LAUNCHES)
+    rows = pfa.attribution(kp, inputs, sps, reps=3)
+    launches = dict(fa.LAUNCHES)
+    print(f"K8 attribution, {os.path.relpath(pfa.SIDECAR, HERE)} int8 at {width}x{height} x {n_samples} "
+          f"(sample groups of {sps}); launches {launches}; card {card}:", flush=True)
+    pfa.print_rows(rows, n_samples, sps)
+    entries = []
+    for row in rows[1:]:
+        ablate = frozenset(row["ablate"])
+        mode = fa.mode_name(ablate)
+        require(launches[mode] >= 1, f"K8 {row['label']} was not launched by the attribution run")
+        plain_ms = time_ms(lambda: fa.run_ablation_plain(kp, *inputs, ablate, samples_per_step=sps), 1, warmup=0)
+        err_abs, err_rel, share = errs[row["label"]]
+        print(f"K8 {row['label']}: ms {row['ms']:.3f} plain_ms {plain_ms:.1f} bound_ms {row['bound_ms']:.4f} "
+              f"max_abs_err {err_abs:.2e} (rel {err_rel:.2e}), rays agreeing {share:.4%}", flush=True)
+        entries.append(dict(
+            name=f"K8 fine-pass ablation {row['label']} (4x128@8f int8, {width}x{height} x {n_samples})",
+            route="cuda", source=f"{PACKAGE}/csrc/fused_render.cu", replaces="scripts/profile_fine_ablation.py:54",
+            launches=launches[mode], max_abs_err=err_abs, max_rel_err=err_rel, rays_agreeing_1e6=share,
+            ms=row["ms"], plain_ms=plain_ms, bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+            removed_ms=row["removed_ms"], full_pass_ms=rows[0]["ms"], held_against_plain=True))
+    return entries
+
+
+def int4_phase(card: str, device: torch.device):
+    """K9 (module docstring); returns the kernels line's K9 entries."""
+    from nerf_workspaces_explorer_tpu_torch.ops import int4_probe as ip
+
+    p4 = _script("probe_int4_torch")
+    np.random.seed(0)
+    entries, legs = [], (("int4-operand", False, "scripts/probe_int4_tpu.py:42"),
+                         ("int4x2-packed-bytes", True, "scripts/probe_int4_tpu.py:72"))
+    res = {}
+    for name, packed, _ in legs:
+        a, b, ref = p4.leg_inputs(packed, device)
+        out = ip.int4_matmul(a, b, packed=packed)
+        torch.cuda.synchronize()
+        plain = ip.int4_matmul_plain(a, b, packed=packed)
+        err_abs = float((out - plain).abs().max())
+        err, err_plain = p4.rel_err(out, ref), err_abs / float(plain.abs().max())
+        require(err < p4.TOL and err_plain < p4.TOL, f"K9 {name}: rel err {err} (numpy), {err_plain} (plain)")
+        widened = ip.unpack_int4_rows(a) if packed else a
+        t = dict(ms=time_ms(lambda: ip.int4_matmul(a, b, packed=packed), 50),
+                 plain=time_ms(lambda: ip.int4_matmul_plain(a, b, packed=packed), 50),
+                 lib=time_ms(lambda: torch.matmul(widened.to(torch.bfloat16), b), 50))
+        m, k = widened.shape
+        n = b.shape[1]
+        bound = bound_ms(2 * m * n * k, a.numel() * a.element_size() + b.numel() * 2 + m * n * 4)
+        res[name] = (err, err_abs, err_plain, t, bound)
+        print(f"K9 {name} ({m}x{k} @ {k}x{n}): ms {t['ms']:.4f} plain_ms {t['plain']:.4f} library_ms (torch.matmul "
+              f"of the widened bf16 matrix) {t['lib']:.4f} bound_ms {bound[0]:.6f} ({bound[1]}); rel err "
+              f"{err:.2e} against numpy, {err_plain:.2e} against plain", flush=True)
+    zero_launches(ip.LAUNCHES)
+    np.random.seed(0)
+    verdicts = p4.run_legs(device)
+    launches = dict(ip.LAUNCHES)
+    require(launches == {"int4_operand": 1, "int4x2_packed": 1}, f"K9 launches {launches}")
+    require(all(err < p4.TOL for _, err in verdicts), f"int4 probe verdicts {verdicts}")
+    print("int4 probe: " + "; ".join(f"[{n}] OK (rel err {e:.3g})" for n, e in verdicts) + "; INT4 VIABLE; card "
+          + card, flush=True)
+    for (name, packed, replaces), key in zip(legs, ("int4_operand", "int4x2_packed")):
+        err, err_abs, err_plain, t, bound = res[name]
+        entries.append(dict(
+            name=f"K9 int4 probe leg {name} (128x128x128, widened to bf16)", route="cuda",
+            source=f"{PACKAGE}/csrc/int4_probe.cu", replaces=replaces, launches=launches[key], max_abs_err=err_abs,
+            max_rel_err=err, rel_err_vs_plain=err_plain, ms=t["ms"], plain_ms=t["plain"], bound_ms=bound[0],
+            bound_by=bound[1], library_ms=t["lib"], held_against_plain=True))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -719,7 +896,7 @@ def main() -> int:
 
     # 1. Build every kernel of the path from the checkout's sources.
     t0 = time.time()
-    names = [*_build.VARIANTS, "importance_merge", "train_field"]
+    names = [*_build.VARIANTS, "importance_merge", "train_field", "int4_probe"]
     _build.build(names)
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name in names:
@@ -845,17 +1022,23 @@ def main() -> int:
           f"parity warm ms/frame {', '.join(f'{x:.1f}' for x in parity_ms)}; launches {launches}; "
           f"card {card}", flush=True)
 
-    # 4. The serving presets and precisions.
+    # 4. The strip-pipelined frame.
+    strips_phase(card, device, pose)
+
+    # 5. The serving presets and precisions.
     preset_kernels = presets_phase(card, device, dict(
         weights=weights, z_c=z_c, o_ph=o_ph, d_ph=d_ph, dist_c=dist_c, z_f=z_f, dist_f=dist_f, venc=venc,
         s_c=s_c, s_f=s_f, coarse_bytes=ray_bytes + 3 * s_c * n_rays * 4,
         fine_bytes=ray_bytes + 2 * s_f * n_rays * 4 + 32 * n_rays * 2 + 8 * n_rays * 4,
         parity_frames=refs, fast_office=offices[CLICKS[0][0]][0], fast_frames=frames))
 
-    # 5. Training.
+    # 6. The fine-pass ablation (K8) and the int4 probe (K9).
+    probe_kernels = ablation_phase(card, device) + int4_phase(card, device)
+
+    # 7. Training.
     train_kernels = train_phase(card, device)
 
-    # 6. The kernels line, then the result line.
+    # 8. The kernels line, then the result line.
     src = f"{PACKAGE}/csrc/"
     kernels = [
         dict(name="K1 fused render, density-only (coarse pass)", route="cuda", source=src + "fused_render.cu",
@@ -871,7 +1054,7 @@ def main() -> int:
              replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598", launches=launches["K3"],
              max_abs_err=k3_err, ms=t["k3"], plain_ms=t["k3_plain"], bound_ms=b3, bound_by=by3,
              library_ms=None, ms_eps0=t["k3_eps0"], dense_bound_ms=b3_dense, held_against_plain=True),
-    ] + preset_kernels + train_kernels
+    ] + preset_kernels + train_kernels + probe_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,27 @@
 //   memory, and a block stops once every ray it owns has transmittance at or
 //   below eps, exact up to eps because samples run front to back. Simple
 //   first: no TMA, no wgmma, one block per SM.
+//
+// The density pass that feeds importance-only placement (`importance_only`
+//   in nerf_render_launch) stops a block only once every ray has T <= min(eps,
+//   PDF_GUARD / S). Why: the sampler's pdf is (w_i + g) / Z over the interior
+//   bins, g = PDF_GUARD = 1e-5 (ops/importance_merge.py). Zeroing a stopped
+//   ray's tail removes a mass t <= T of weight; every CDF entry then moves by
+//   at most t / Z' (Z' the sum left), and since every bin holds at least
+//   g / Z' of the CDF, a quantile moves by at most t / g bins. With
+//   t <= g / S it moves by under 1/S of a bin wherever it sits, so the
+//   placement is the unstopped pass's to that resolution; at the caller's eps
+//   alone (1e-3) a quantile next to a density plateau could jump across it
+//   (up to 100 bins). The merged placement keeps the coarse depths and stops
+//   at eps.
+//
+// K8 (replaces scripts/profile_fine_ablation.py::_ablation_kernel, reached
+//   through run_ablation): built with -DRENDER_ABLATE=1 into a library of its
+//   own, `ablation_kernel<W, F, A>` is the int8 full pass with an ablation
+//   mask A (the A_* bits below) as a template parameter, on the same 32-ray
+//   block and 4-sample steps: no early stop, no depth or acc rows. The served
+//   kernels compile from `render_body` with A = 0, where every ablation branch
+//   is discarded at compile time.
 
 #include <type_traits>
 
@@ -54,6 +75,9 @@
 #endif
 #ifndef RENDER_FREQS
 #define RENDER_FREQS 10
+#endif
+#ifndef RENDER_ABLATE
+#define RENDER_ABLATE 0
 #endif
 
 #define RB 32                 // rays per block
@@ -69,6 +93,22 @@ namespace rk {
 
 typedef signed char s8;
 enum { MODE_BF16 = 0, MODE_INT8_TRUNK = 1, MODE_INT8 = 2 };
+
+// Ablation mask of K8 (scripts/profile_fine_ablation.py's flags): each bit
+// changes one stage of the int8 full pass. Its results are wrong on purpose.
+enum {
+  A_ON = 1,         // an ablation launch: no early stop, depth and acc rows 0
+  A_ENC = 2,        // "enc": a step reuses its sample group's first features
+  A_DIRECT = 4,     // "enc-direct": sin(o_ph + z d_ph) on every live row
+  A_NOBASE = 8,     // "enc-nobase": base sin/cos := p * 0.11, p * 0.12
+  A_NOCONCAT = 16,  // "enc-noconcat": group features + coordinate 0's piece-sum level, int8 wrap
+  A_HEADS = 32,     // "heads": sigma := h[0], rgb := h[1..3]
+  A_EPI = 64,       // "epilogue": rgb_acc += rgb + sigma, T untouched
+};
+
+// The per-bin guard of importance placement's pdf (importance_merge.cu, JAX
+// pallas_sampling.py).
+#define PDF_GUARD 1e-5f
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -192,6 +232,7 @@ enum {
   E_Q_VIEW,      // s8 dst = clip((acc + hvenc_i32) >> k_hv, 0, 127)
   E_Q_ALPHA,     // out32 = f32(acc + b_i32) * s_alpha
   E_Q_RGB,       // out32 = f32(acc) * s_rgb + b_f32
+  E_Q_RAW,       // out32 = f32(acc)                        (K8 "epilogue")
 };
 
 struct Epi {
@@ -254,6 +295,8 @@ __device__ __forceinline__ void epilogue(AccFrag<T> (&acc)[NF], int n0, const vo
       } else if constexpr (KIND == E_Q_RGB) {
         if (col < ncols)
           out32[row * ostride + col] = __fadd_rn(__fmul_rn((float)v, scale), static_cast<const float*>(bias_)[col]);
+      } else if constexpr (KIND == E_Q_RAW) {
+        if (col < ncols) out32[row * ostride + col] = (float)v;
       }
     }
     __syncwarp();
@@ -357,6 +400,94 @@ __device__ __forceinline__ void encode_coord_q(s8* e, int c, float o, float z, f
   }
 }
 
+// K8's encoding stages. Templates and a static function: a library that
+// launches no ablation kernel compiles none of them.
+static __device__ __forceinline__ s8 quantize_rn(float x, float qs) {
+  return (s8)fminf(fmaxf(rintf(__fmul_rn(x, qs)), -127.f), 127.f);
+}
+
+// "enc-nobase": encode_coord_q with the base sin/cos replaced by p * 0.11 and
+// p * 0.12 (the ladder kept).
+template <int F>
+__device__ __forceinline__ void encode_coord_nobase_q(s8* e, int c, float o, float z, float d, float qs) {
+  const float p = __fadd_rn(o, __fmul_rn(z, d));
+  e[c] = quantize_rn(p, qs);
+  float sn = __fmul_rn(p, 0.11f), cs = __fmul_rn(p, 0.12f);
+  for (int k = 0; k < F; ++k) {
+    e[3 + 3 * k + c] = quantize_rn(sn, qs);
+    e[3 + 3 * F + 3 * k + c] = quantize_rn(cs, qs);
+    const float s2 = __fmul_rn(__fmul_rn(2.f, sn), cs);
+    cs = __fsub_rn(1.f, __fmul_rn(__fmul_rn(2.f, sn), sn));
+    sn = s2;
+  }
+}
+
+// The encoding stages of K8 that run after the per-coordinate loop of a step
+// (that loop has encoded the group-start rows for A_ENC / A_NOCONCAT and
+// nothing for A_DIRECT). Rows are s_local * RB + ray_local; `cache` holds the
+// features of each ray's latest group start, for groups longer than a step.
+template <int F, int ABL>
+__device__ __forceinline__ void ablate_encode(s8* E, int lde, s8* cache, const float* __restrict__ o_ph,
+                              const float* __restrict__ d_ph, const float* __restrict__ zv, int R, int S,
+                              int g, int ray0, int sps, float qs) {
+  constexpr int LIVE = 3 + 6 * F;
+  constexpr int SRC = round_up(LIVE, 8);
+  const int tid = threadIdx.x;
+  if constexpr ((ABL & A_DIRECT) != 0) {
+    // sin(o_ph + z d_ph) on every live row of the phase vectors (identity
+    // rows 0-2; the cos rows carry their pi/2 in o_ph), accurate sinf.
+    for (int i = tid; i < MP * LIVE; i += NTHREADS) {
+      const int row = i / LIVE, j = i % LIVE;
+      const int s = g * SG + row / RB;
+      const int ray = min(ray0 + row % RB, R - 1);
+      const float z = s < S ? zv[(size_t)s * R + ray] : 0.f;
+      const float ph = __fadd_rn(o_ph[(size_t)j * R + ray], __fmul_rn(z, d_ph[(size_t)j * R + ray]));
+      E[row * lde + j] = quantize_rn(j < 3 ? ph : sinf(ph), qs);
+    }
+  }
+  if constexpr ((ABL & (A_ENC | A_NOCONCAT)) != 0) {
+    __syncthreads();
+    // Rows past their group's start take its features: from this step's
+    // rows, or from the cache when the group began in an earlier step
+    // (sample groups are powers of two, so a group longer than a step starts
+    // at a step's first row). Copied in 16-byte words, the row's zero pad
+    // included, so the copy costs far less than the encoding it replaces.
+    constexpr int V = round_up(LIVE, 16) / 16;
+    for (int i = tid; i < MP * V; i += NTHREADS) {
+      const int row = i / V, v = i % V, rl = row % RB;
+      const int s = g * SG + row / RB;
+      const int start = s - s % sps;
+      uint4* dst = reinterpret_cast<uint4*>(E + row * lde) + v;
+      uint4* cached = reinterpret_cast<uint4*>(cache + rl * lde) + v;
+      if (start != s)
+        *dst = start >= g * SG ? reinterpret_cast<const uint4*>(E + ((start - g * SG) * RB + rl) * lde)[v] : *cached;
+      else if (sps >= SG)
+        *cached = *dst;
+    }
+  }
+  if constexpr ((ABL & A_NOCONCAT) != 0) {
+    __syncthreads();
+    // The piece-sum p + sin p + cos p + ... of coordinate 0, quantized, added
+    // to every stored row in int32 and narrowed to int8 with wrap-around.
+    for (int row = tid; row < MP; row += NTHREADS) {
+      const int s = g * SG + row / RB;
+      const int ray = min(ray0 + row % RB, R - 1);
+      const float z = s < S ? zv[(size_t)s * R + ray] : 0.f;
+      const float p = __fadd_rn(o_ph[ray], __fmul_rn(z, d_ph[ray]));
+      float sn = sinf(p), cs = cosf(p);
+      float acc = __fadd_rn(__fadd_rn(p, sn), cs);
+      for (int k = 1; k < F; ++k) {
+        const float s2 = __fmul_rn(__fmul_rn(2.f, sn), cs);
+        cs = __fsub_rn(1.f, __fmul_rn(__fmul_rn(2.f, sn), sn));
+        sn = s2;
+        acc = __fadd_rn(__fadd_rn(acc, sn), cs);
+      }
+      const int a = (int)fminf(fmaxf(rintf(__fmul_rn(acc, qs)), -127.f), 127.f);
+      for (int j = 0; j < SRC; ++j) E[row * lde + j] = (s8)((((int)E[row * lde + j] + a + 128) & 255) - 128);
+    }
+  }
+}
+
 // Shared-memory layout of one block (bytes), for width W and F frequencies.
 template <int W, int F>
 struct Smem {
@@ -372,6 +503,7 @@ struct Smem {
   static constexpr int STAGE = NWARPS * 16 * LDST * 4;
   static constexpr int MISC = 3 * MP * 4 + MP * 4 * 4 + RB * 8 * 4 + 32 * 4;
   static constexpr int HV = RB * HALF_ * 4;
+  static constexpr int CACHE = RB * LDE_Q;                // K8: one s8 encoding per ray
   static constexpr size_t bytes(bool density_only) {
     return 2 * BUF + EBYTES + SLAB + STAGE + MISC + (density_only ? 0 : HV);
   }
@@ -400,12 +532,16 @@ __device__ __forceinline__ void trunk_layer(const TT* A, int lda, const TT* E, i
   }
 }
 
-template <int W, int F, int MODE, bool DENSITY_ONLY>
-__global__ void __launch_bounds__(NTHREADS, 1)
-render_kernel(NetPtrs net, Quant qa, const float* __restrict__ o_ph, const float* __restrict__ d_ph,
-              const float* __restrict__ zv, const float* __restrict__ dv,
-              const bf16* __restrict__ venc, float* __restrict__ out, int R, int S,
-              float eps, int* live_groups) {
+// One block's work: the served kernels with ABL = 0, K8 with an ablation
+// mask (then MODE_INT8, the full pass, eps 0 and `sps` the sample group of
+// A_ENC / A_NOCONCAT).
+template <int W, int F, int MODE, bool DENSITY_ONLY, int ABL>
+__device__ __forceinline__ void render_body(const NetPtrs& net, const Quant& qa, const float* __restrict__ o_ph,
+                                            const float* __restrict__ d_ph, const float* __restrict__ zv,
+                                            const float* __restrict__ dv, const bf16* __restrict__ venc,
+                                            float* __restrict__ out, int R, int S, float eps, int* live_groups,
+                                            int sps) {
+  static_assert(ABL == 0 || (MODE == MODE_INT8 && !DENSITY_ONLY), "K8 ablates the int8 full pass");
   typedef Smem<W, F> L;
   constexpr int HALF_ = L::HALF_;
   // The trunk's element type; the heads' is s8 only in full int8 mode.
@@ -487,15 +623,23 @@ render_kernel(NetPtrs net, Quant qa, const float* __restrict__ o_ph, const float
       const bool live = s < S;
       const float z = live ? zv[(size_t)s * R + ray] : 0.f;
       const float o = o_ph[(size_t)c * R + ray], d = d_ph[(size_t)c * R + ray];
-      if constexpr (MODE == MODE_BF16)
+      if constexpr (MODE == MODE_BF16) {
         encode_coord<F>(E + row * LDEN, c, o + z * d);
-      else
+      } else if constexpr ((ABL & (A_ENC | A_NOCONCAT)) != 0) {
+        if (s % sps == 0) encode_coord_q<F>(E + row * LDEN, c, o, z, d, qa.qscale);
+      } else if constexpr ((ABL & A_NOBASE) != 0) {
+        encode_coord_nobase_q<F>(E + row * LDEN, c, o, z, d, qa.qscale);
+      } else if constexpr ((ABL & A_DIRECT) == 0) {
         encode_coord_q<F>(E + row * LDEN, c, o, z, d, qa.qscale);
+      }
       if (c == 0) {
         zs[row] = z;
         ds[row] = live ? dv[(size_t)s * R + ray] : 0.f;  // dist 0: alpha 0
       }
     }
+    if constexpr ((ABL & (A_DIRECT | A_ENC | A_NOCONCAT)) != 0)
+      ablate_encode<F, ABL>(E, LDEN, reinterpret_cast<s8*>(static_cast<unsigned char*>(hvenc) + L::HV), o_ph,
+                            d_ph, zv, R, S, g, ray0, sps, qa.qscale);
     __syncthreads();
 
     // Density trunk.
@@ -511,14 +655,20 @@ render_kernel(NetPtrs net, Quant qa, const float* __restrict__ o_ph, const float
     typedef typename Tr<TH>::AccT HAcc;
     HAcc* hstage = reinterpret_cast<HAcc*>(stage);
     TH* hslab = reinterpret_cast<TH*>(slab);
-    if constexpr (MODE == MODE_INT8) {
+    if constexpr ((ABL & A_HEADS) != 0) {
+      // "heads": the trunk's first four int8 activations read as sigma, rgb.
+      for (int i = tid; i < MP; i += NTHREADS) {
+        sig[i] = (float)h[i * LDH];
+        for (int c = 0; c < 3; ++c) rgbraw[i * 4 + c] = (float)h[i * LDH + 1 + c];
+      }
+    } else if constexpr (MODE == MODE_INT8) {
       dense<TH, E_Q_ALPHA, 16, W, W>(h, LDH, net.w_alpha, nullptr, 0, nullptr, 0,
                                      epi_out(net.b_alpha, sig, 1, 1, qa.s_alpha), hslab, hstage);
     } else {
       dense<TH, E_F32, 16, W, W>(h, LDH, net.w_alpha, nullptr, 0, nullptr, 0, epi_out(net.b_alpha, sig, 1, 1),
                                  hslab, hstage);
     }
-    if constexpr (!DENSITY_ONLY) {
+    if constexpr (!DENSITY_ONLY && (ABL & A_HEADS) == 0) {
       TH* hv = const_cast<TH*>(h);
       Epi ev = epi_act(MODE == MODE_INT8 ? nullptr : (const void*)net.b_view, hv, LDH,
                        MODE == MODE_INT8 ? qa.k_hv : 0);
@@ -528,8 +678,12 @@ render_kernel(NetPtrs net, Quant qa, const float* __restrict__ o_ph, const float
         dense<TH, E_Q_FEAT, W, W, W>(h, LDH, net.w_feat, nullptr, 0, nullptr, 0,
                                      epi_act(net.b_feat, other, LDH, qa.k_feat), hslab, hstage);
         dense<TH, E_Q_VIEW, HALF_, W, W>(other, LDH, net.w_view_h, nullptr, 0, nullptr, 0, ev, hslab, hstage);
-        dense<TH, E_Q_RGB, 16, HALF_, HALF_>(hv, LDH, net.w_rgb, nullptr, 0, nullptr, 0,
-                                             epi_out(net.b_rgb, rgbraw, 4, 3, qa.s_rgb), hslab, hstage);
+        if constexpr ((ABL & A_EPI) != 0)
+          dense<TH, E_Q_RAW, 16, HALF_, HALF_>(hv, LDH, net.w_rgb, nullptr, 0, nullptr, 0,
+                                               epi_out(nullptr, rgbraw, 4, 3), hslab, hstage);
+        else
+          dense<TH, E_Q_RGB, 16, HALF_, HALF_>(hv, LDH, net.w_rgb, nullptr, 0, nullptr, 0,
+                                               epi_out(net.b_rgb, rgbraw, 4, 3, qa.s_rgb), hslab, hstage);
       } else {
         dense<TH, E_BF16_LIN, W, W, W>(h, LDH, net.w_feat, nullptr, 0, nullptr, 0, epi_act(net.b_feat, other, LDH),
                                        hslab, hstage);
@@ -550,10 +704,22 @@ render_kernel(NetPtrs net, Quant qa, const float* __restrict__ o_ph, const float
         const int s = g * SG + sl;
         if (s >= S) break;
         const int row = sl * RB + lane;
+        if constexpr ((ABL & A_EPI) != 0) {
+          // "epilogue": plain adds in the TPU kernel's order, T untouched.
+          for (int c = 0; c < 3; ++c) st[1 + c] = __fadd_rn(__fadd_rn(st[1 + c], rgbraw[row * 4 + c]), sig[row]);
+          continue;
+        }
         const float alpha = 1.f - expf(-fmaxf(sig[row], 0.f) * ds[row]);
         const float w = alpha * T;
         if (DENSITY_ONLY) {
           if (valid) out[(size_t)s * R + ray] = w;
+        } else if constexpr ((ABL & A_ON) != 0) {
+          // K8 composites rgb alone, each product and sum rounded on its own
+          // as in the plain version; "heads" has no sigmoid.
+          for (int c = 0; c < 3; ++c) {
+            const float x = rgbraw[row * 4 + c];
+            st[1 + c] = __fadd_rn(st[1 + c], __fmul_rn(w, (ABL & A_HEADS) != 0 ? x : 1.f / (1.f + expf(-x))));
+          }
         } else {
           for (int c = 0; c < 3; ++c)
             st[1 + c] += w * (1.f / (1.f + expf(-rgbraw[row * 4 + c])));
@@ -585,6 +751,15 @@ render_kernel(NetPtrs net, Quant qa, const float* __restrict__ o_ph, const float
     }
   }
   if (live_groups != nullptr && tid == 0) atomicAdd(live_groups, n_live);
+}
+
+template <int W, int F, int MODE, bool DENSITY_ONLY>
+__global__ void __launch_bounds__(NTHREADS, 1)
+render_kernel(NetPtrs net, Quant qa, const float* __restrict__ o_ph, const float* __restrict__ d_ph,
+              const float* __restrict__ zv, const float* __restrict__ dv,
+              const bf16* __restrict__ venc, float* __restrict__ out, int R, int S,
+              float eps, int* live_groups) {
+  render_body<W, F, MODE, DENSITY_ONLY, 0>(net, qa, o_ph, d_ph, zv, dv, venc, out, R, S, eps, live_groups, 1);
 }
 
 template <int W, int F, int MODE, bool DENSITY_ONLY>
@@ -620,35 +795,32 @@ cudaError_t launch_mode(int mode, const NetPtrs& net, const Quant& qa, const flo
   return cudaErrorInvalidValue;
 }
 
-}  // namespace rk
+#if RENDER_ABLATE
+template <int W, int F, int ABL>
+__global__ void __launch_bounds__(NTHREADS, 1)
+ablation_kernel(NetPtrs net, Quant qa, const float* __restrict__ o_ph, const float* __restrict__ d_ph,
+                const float* __restrict__ zv, const float* __restrict__ dv, const bf16* __restrict__ venc,
+                float* __restrict__ out, int R, int S, int sps) {
+  render_body<W, F, MODE_INT8, false, ABL | A_ON>(net, qa, o_ph, d_ph, zv, dv, venc, out, R, S, 0.f, nullptr, sps);
+}
 
-// RENDER_FULL=0 builds the density-only kernels alone (the proposal shape).
-#ifndef RENDER_FULL
-#define RENDER_FULL 1
+template <int W, int F, int ABL>
+cudaError_t launch_ablation(const NetPtrs& net, const Quant& qa, const float* o_ph, const float* d_ph,
+                            const float* z, const float* dists, const bf16* venc, float* out, int n_rays,
+                            int n_samples, int sps, cudaStream_t st) {
+  const size_t smem = Smem<W, F>::bytes(false) + Smem<W, F>::CACHE;
+  auto kernel = ablation_kernel<W, F, ABL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_rays + RB - 1) / RB);
+  kernel<<<grid, NTHREADS, smem, st>>>(net, qa, o_ph, d_ph, z, dists, venc, out, n_rays, n_samples, sps);
+  return cudaGetLastError();
+}
 #endif
 
-// ptrs: device pointers in this order: w_0, b_0, ..., w_{depth-1}, b_{depth-1},
-// w_skip, w_alpha, b_alpha, w_feat, b_feat, w_view_h, w_view_enc, b_view,
-// w_rgb, b_rgb (the full-mode entries may be null in density-only mode).
-// Weights are bf16 (mode 0) or int8 (trunk in modes 1-2, heads in mode 2);
-// biases fp32 or int32 likewise; w_view_enc, b_view and b_rgb are always
-// bf16/fp32. ishift: depth per-layer shifts, then skip_shift, k_feat, k_hv;
-// fscale: qscale, s_alpha, inv_s_view, s_rgb (host memory; ignored in
-// mode 0). Inputs are ray-minor: o_ph, d_ph [>=3, R] (rows 0-2 read), z and
-// dists [S, R] fp32, venc [32, R] bf16. out: [S, R] weights (density-only)
-// or [8, R] maps (rows 0-2 rgb, 3 depth, 4 acc, 5 transmittance).
-// live_groups, if not null, gains the number of 4-sample steps each block
-// evaluated. Returns the CUDA error code of the launch (0 on success).
-extern "C" int nerf_render_launch(const void* const* ptrs, int width, int pts_freqs, int depth,
-                                  int skip_layer, int mode, const int* ishift, const float* fscale,
-                                  const float* o_ph, const float* d_ph, const float* z,
-                                  const float* dists, const void* venc, float* out, int n_rays,
-                                  int n_samples, int density_only, float eps, int* live_groups,
-                                  void* stream) {
-  if (width != RENDER_WIDTH || pts_freqs != RENDER_FREQS || depth < 1 || depth > MAXD || n_rays < 1 ||
-      n_samples < 1 || mode < 0 || mode > 2 || (!density_only && !RENDER_FULL))
-    return (int)cudaErrorInvalidValue;
-  rk::NetPtrs net;
+// Device pointers and quantization of one launch (the C entries' layout).
+static void unpack_net(const void* const* ptrs, int depth, int skip_layer, int mode, const int* ishift,
+                       const float* fscale, NetPtrs& net, Quant& qa) {
   int k = 0;
   for (int i = 0; i < depth; ++i) {
     net.w[i] = ptrs[k++];
@@ -670,9 +842,8 @@ extern "C" int nerf_render_launch(const void* const* ptrs, int width, int pts_fr
   net.b_rgb = static_cast<const float*>(ptrs[k++]);
   net.depth = depth;
   net.skip_layer = skip_layer;
-
-  rk::Quant qa = {};
-  if (mode != rk::MODE_BF16) {
+  qa = Quant{};
+  if (mode != MODE_BF16) {
     for (int i = 0; i < depth; ++i) qa.shift[i] = ishift[i];
     qa.skip_shift = ishift[depth];
     qa.k_feat = ishift[depth + 1];
@@ -682,6 +853,44 @@ extern "C" int nerf_render_launch(const void* const* ptrs, int width, int pts_fr
     qa.inv_s_view = fscale[2];
     qa.s_rgb = fscale[3];
   }
+}
+
+}  // namespace rk
+
+// RENDER_FULL=0 builds the density-only kernels alone (the proposal shape).
+#ifndef RENDER_FULL
+#define RENDER_FULL 1
+#endif
+
+// ptrs: device pointers in this order: w_0, b_0, ..., w_{depth-1}, b_{depth-1},
+// w_skip, w_alpha, b_alpha, w_feat, b_feat, w_view_h, w_view_enc, b_view,
+// w_rgb, b_rgb (the full-mode entries may be null in density-only mode).
+// Weights are bf16 (mode 0) or int8 (trunk in modes 1-2, heads in mode 2);
+// biases fp32 or int32 likewise; w_view_enc, b_view and b_rgb are always
+// bf16/fp32. ishift: depth per-layer shifts, then skip_shift, k_feat, k_hv;
+// fscale: qscale, s_alpha, inv_s_view, s_rgb (host memory; ignored in
+// mode 0). Inputs are ray-minor: o_ph, d_ph [>=3, R] (rows 0-2 read), z and
+// dists [S, R] fp32, venc [32, R] bf16. out: [S, R] weights (density-only)
+// or [8, R] maps (rows 0-2 rgb, 3 depth, 4 acc, 5 transmittance).
+// importance_only: the density pass's weights feed importance-only
+// placement; its blocks then stop at T <= min(eps, PDF_GUARD / n_samples)
+// (the note at the top). live_groups, if not null, gains the number of
+// 4-sample steps each block evaluated. Returns the CUDA error code of the
+// launch (0 on success).
+#if !RENDER_ABLATE
+extern "C" int nerf_render_launch(const void* const* ptrs, int width, int pts_freqs, int depth,
+                                  int skip_layer, int mode, const int* ishift, const float* fscale,
+                                  const float* o_ph, const float* d_ph, const float* z,
+                                  const float* dists, const void* venc, float* out, int n_rays,
+                                  int n_samples, int density_only, float eps, int importance_only,
+                                  int* live_groups, void* stream) {
+  if (width != RENDER_WIDTH || pts_freqs != RENDER_FREQS || depth < 1 || depth > MAXD || n_rays < 1 ||
+      n_samples < 1 || mode < 0 || mode > 2 || (!density_only && !RENDER_FULL))
+    return (int)cudaErrorInvalidValue;
+  rk::NetPtrs net;
+  rk::Quant qa;
+  rk::unpack_net(ptrs, depth, skip_layer, mode, ishift, fscale, net, qa);
+  if (density_only && importance_only && eps > 0.f) eps = fminf(eps, PDF_GUARD / (float)n_samples);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* v = static_cast<const bf16*>(venc);
   cudaError_t err;
@@ -698,3 +907,44 @@ extern "C" int nerf_render_launch(const void* const* ptrs, int width, int pts_fr
   }
   return (int)err;
 }
+#else
+// K8: one ablation launch of the int8 full pass. ptrs, ishift, fscale, z,
+// dists and venc as nerf_render_launch takes them (mode 2); o_ph and d_ph
+// hold every encoding row, [round_up(3 + 6F, 8), R] ("enc-direct" reads them
+// all); samples_per_step is the sample group of "enc"/"enc-noconcat", a
+// power of two dividing n_samples; mask is 0 (the full mode's code) or one of
+// the A_* combinations the switch lists. out: [8, R], rows 0-2 the rgb sum,
+// row 5 the final T, the rest 0.
+extern "C" int nerf_ablation_launch(const void* const* ptrs, int width, int pts_freqs, int depth,
+                                    int skip_layer, const int* ishift, const float* fscale, const float* o_ph,
+                                    const float* d_ph, const float* z, const float* dists, const void* venc,
+                                    float* out, int n_rays, int n_samples, int samples_per_step, int mask,
+                                    void* stream) {
+  const int sps = samples_per_step;
+  if (width != RENDER_WIDTH || pts_freqs != RENDER_FREQS || depth < 1 || depth > MAXD || n_rays < 1 ||
+      n_samples < 1 || sps < 1 || (sps & (sps - 1)) != 0 || n_samples % sps != 0)
+    return (int)cudaErrorInvalidValue;
+  rk::NetPtrs net;
+  rk::Quant qa;
+  rk::unpack_net(ptrs, depth, skip_layer, rk::MODE_INT8, ishift, fscale, net, qa);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* v = static_cast<const bf16*>(venc);
+  using namespace rk;
+#define ABLATION_CASE(M)                                                                                 \
+  case M:                                                                                                \
+    return (int)launch_ablation<RENDER_WIDTH, RENDER_FREQS, M>(net, qa, o_ph, d_ph, z, dists, v, out, n_rays, \
+                                                               n_samples, sps, st)
+  switch (mask) {
+    ABLATION_CASE(0);
+    ABLATION_CASE(A_ENC);
+    ABLATION_CASE(A_DIRECT);
+    ABLATION_CASE(A_NOBASE);
+    ABLATION_CASE(A_NOCONCAT);
+    ABLATION_CASE(A_HEADS);
+    ABLATION_CASE(A_EPI);
+    ABLATION_CASE(A_ENC | A_HEADS | A_EPI);
+  }
+#undef ABLATION_CASE
+  return (int)cudaErrorInvalidValue;
+}
+#endif

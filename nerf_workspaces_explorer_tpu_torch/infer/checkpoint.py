@@ -1,5 +1,5 @@
 """Checkpoints: the native `.npz` (save and load) and the reference's torch
-`.ckpt` (load).
+`.ckpt` (load and export).
 
 Counterpart of `nerf_workspaces_explorer_tpu/infer/checkpoint.py`. Two
 formats load:
@@ -159,6 +159,53 @@ def torch_state_dict_to_params(state_dict: Mapping[str, Any]) -> Params:
     else:
         params["output"] = linear("output_linear")
     return params
+
+
+def params_to_torch_state_dict(params: Params, *, underscore: bool = True) -> Dict[str, np.ndarray]:
+    """One net's parameter tree (tensors or arrays) -> the reference's state
+    dict layout, numpy values: nn.Linear weights [out, in], keys with the
+    `_` attribute prefix unless `underscore` is False (JAX
+    infer/checkpoint.py:165-188)."""
+    prefix = "_" if underscore else ""
+    out: Dict[str, np.ndarray] = {}
+
+    def put(name: str, layer: Mapping[str, Any]) -> None:
+        w, b = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+                for x in (layer["w"], layer["b"]))
+        out[f"{prefix}{name}.weight"] = w.T.copy()
+        out[f"{prefix}{name}.bias"] = b.copy()
+
+    for i, layer in enumerate(params["pts"]):
+        put(f"pts_linears.{i}", layer)
+    if "alpha" in params:
+        put("alpha_linear", params["alpha"])
+        put("feature_linear", params["feature"])
+        for i, layer in enumerate(params["views"]):
+            put(f"views_linears.{i}", layer)
+        put("rgb_linear", params["rgb"])
+    else:
+        put("output_linear", params["output"])
+    return out
+
+
+def save_torch_checkpoint(path: str, coarse: Params, fine: Params, *, step: int = 0) -> None:
+    """Export a reference-format torch checkpoint (…training_handler.py:
+    404-407), which the reference application and `load_torch_checkpoint`
+    load (JAX infer/checkpoint.py:191-212)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(
+        {
+            "global_step": int(step),
+            "network_coarse_state_dict": {
+                k: torch.from_numpy(v) for k, v in params_to_torch_state_dict(coarse).items()
+            },
+            "network_fine_state_dict": {
+                k: torch.from_numpy(v) for k, v in params_to_torch_state_dict(fine).items()
+            },
+            "optimizer_state_dict": {},
+        },
+        path,
+    )
 
 
 def load_torch_checkpoint(path: str) -> Tuple[Params, Params, int]:

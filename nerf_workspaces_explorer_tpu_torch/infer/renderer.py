@@ -3,7 +3,8 @@
 Counterpart of `nerf_workspaces_explorer_tpu/infer/renderer.py` (reference
 NeRFReplicaInferenceHandler, nerf/inference/nerf_replica_inference_handler.py:
 23-277): config and checkpoint loading, `render_coordinates(init, coord)` ->
-uint8 [H, W, 3], batches, a pipelined stream and a cheap preview frame.
+uint8 [H, W, 3], batches, a pipelined stream, a strip-pipelined frame, a
+cheap preview frame and the reference's NaN/Inf scan (`nan_debug`).
 
 The precision picks the path:
   - "parity": fp32 weights through the plain pipeline
@@ -52,6 +53,7 @@ from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import (
 )
 from nerf_workspaces_explorer_tpu_torch.models.encoding import embedding_output_dim
 from nerf_workspaces_explorer_tpu_torch.models.mlp import NerfMLP, NerfMLPSpec, init_nerf_params
+from nerf_workspaces_explorer_tpu_torch.obs.debug import scan_outputs_finite
 from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
     prepare_kernel_params,
     render_rays_fused,
@@ -142,8 +144,6 @@ class NeRFRenderer:
             raise ValueError(f"unknown preset {preset!r} ({'|'.join(PRESETS)})")
         if mesh is not None:
             raise ValueError("mesh: multi-GPU rendering is not ported yet")
-        if nan_debug:
-            raise ValueError("nan_debug: the NaN/Inf scan of rendered outputs is not ported yet")
         fused = precision != "parity"
         if chunk is not None and fused:
             raise ValueError(
@@ -152,6 +152,10 @@ class NeRFRenderer:
             )
         self._device = resolve_device(device)
         self._ckpt_path = ckpt_path
+        # Scan every rendered output for NaN/Inf, as the reference does
+        # (…inference_handler.py:273-276); opt-in, as it renders the full
+        # float outputs and reads them on the device.
+        self._nan_debug = nan_debug
         self._config = config if config is not None else load_config(office_name=office_name)
         self._precision = precision
         self._chunk = chunk if chunk is not None else self._config.inference.chunk
@@ -311,32 +315,49 @@ class NeRFRenderer:
         if self._kparams is None and self._models is None:
             raise RuntimeError("initialize_models() must be called before rendering")
 
-    def _rays(self, c2ws: Sequence[np.ndarray]):
-        """Rays of one or more poses, frames stacked row-major: [n * H * W]."""
+    def _rays(self, c2ws: Sequence[np.ndarray], height: Optional[int] = None, cy: Optional[float] = None):
+        """Rays of one or more poses, frames stacked row-major: [n * H * W].
+        With `height` and `cy`, the rows [cfg.cy - cy, + height) of each
+        frame: the full frame's pinhole grid with cy shifted (JAX
+        renderer.py:121, `cy_override`)."""
         cfg = self._config
-        h, w = cfg.experiment.image_height, cfg.experiment.image_width
+        h = cfg.experiment.image_height if height is None else height
+        w = cfg.experiment.image_width
         near, far = cfg.rendering.depth_range
         c2w = torch.as_tensor(np.asarray(c2ws, dtype=np.float32), device=self._device)
-        return create_rays(c2w, h, w, cfg.fx, cfg.fy, cfg.cx, cfg.cy, near, far).reshape(len(c2ws) * h * w)
+        cy = cfg.cy if cy is None else cy
+        return create_rays(c2w, h, w, cfg.fx, cfg.fy, cfg.cx, cy, near, far).reshape(len(c2ws) * h * w)
 
     @torch.no_grad()
-    def _render_batch(self, c2ws: Sequence[np.ndarray]) -> torch.Tensor:
-        """float32 [n, H, W, 3] on the renderer's device."""
+    def _render_batch(
+        self, c2ws: Sequence[np.ndarray], height: Optional[int] = None, cy: Optional[float] = None,
+        full: bool = False,
+    ):
+        """float32 [n, H, W, 3] on the renderer's device (`height` rows with
+        `cy` shifted for a strip, as `_rays`). With `full`, the reference's
+        output dict instead: rgb/disp/acc/depth of the fine pass, [n, H, W,
+        ...] (the parity path's coarse maps too when it has no fine pass)."""
         self._require_models()
         cfg = self._config
-        h, w = cfg.experiment.image_height, cfg.experiment.image_width
-        rays = self._rays(c2ws)
+        h = cfg.experiment.image_height if height is None else height
+        w = cfg.experiment.image_width
+        n = len(c2ws)
+        rays = self._rays(c2ws, height, cy)
         if self._kparams is not None:
             # The ray axis is n frames of h rows: an (n * h, w) grid, so the
             # placement lattice's blocks never straddle two frames.
-            rgb = render_rays_fused(
+            fused = render_rays_fused(
                 self._kparams, rays, self._settings, early_stop_eps=self._early_stop_eps,
-                sort_rays=self._sort_rays, grid_hw=(len(c2ws) * h, w),
+                sort_rays=self._sort_rays, grid_hw=(n * h, w), full=full,
             )
+            out = {"rgb_fine": fused.rgb, "disp_fine": fused.disp, "acc_fine": fused.acc,
+                   "depth_fine": fused.depth} if full else {"rgb_fine": fused}
         else:
             out = render_rays_chunked(self._models, rays, self._settings, chunk=self._chunk)
+        if not full:
             rgb = out.get("rgb_fine", out.get("rgb_coarse"))
-        return rgb.to(torch.float32).reshape(len(c2ws), h, w, 3)
+            return rgb.to(torch.float32).reshape(n, h, w, 3)
+        return {k: v.to(torch.float32).reshape(n, h, w, *v.shape[1:]) for k, v in out.items()}
 
     def render_pose(self, c2w: np.ndarray) -> torch.Tensor:
         """Render one camera pose -> float32 [H, W, 3] on the renderer's device."""
@@ -346,16 +367,61 @@ class NeRFRenderer:
         """Render one camera pose straight to uint8 [H, W, 3] on the device."""
         return _to_uint8(self.render_pose(c2w))
 
-    def render_pose_uint8_pipelined(self, c2w: np.ndarray, n_strips: Optional[int] = None):
-        """The JAX package's strip-pipelined frame (renderer.py:585-630)."""
-        raise NotImplementedError(
-            "the strip-pipelined frame path is not ported yet; use render_pose_uint8"
+    def _pick_n_strips(self) -> int:
+        """Largest strip count in 6..2 whose strips divide the image height
+        and keep the placement stride's lattice whole (strip heights a
+        multiple of `proposal_subsample`, so no block straddles two strips);
+        1 when none fits (JAX renderer.py:539-549)."""
+        h = self._config.experiment.image_height
+        stride = max(1, int(self._settings.proposal_subsample or 1))
+        return next((n for n in (6, 5, 4, 3, 2) if h % n == 0 and (h // n) % stride == 0), 1)
+
+    def render_pose_uint8_pipelined(self, c2w: np.ndarray, n_strips: Optional[int] = None) -> np.ndarray:
+        """Blocking uint8 [H, W, 3] numpy frame rendered as row strips, each
+        strip's device-to-host copy overlapping the next strips' compute (the
+        single-frame counterpart of `render_poses_uint8_stream`; JAX
+        renderer.py:585-630). Each strip is the full frame's pinhole grid
+        with cy shifted, rendered on its own (on the card: its own density
+        pass, placement and fine pass); the copies run on a second CUDA
+        stream into pinned host memory. Per-ray arithmetic is the blocking
+        frame's, so frames are byte-identical to `render_pose_uint8` on the
+        parity path and at early-stop eps 0; above 0 the 32-ray stop blocks
+        fall otherwise and the frames agree to eps."""
+        self._require_models()
+        h, w = self._config.experiment.image_height, self._config.experiment.image_width
+        n_strips = self._pick_n_strips() if n_strips is None else int(n_strips)
+        stride = max(1, int(self._settings.proposal_subsample or 1))
+        if n_strips < 1 or h % n_strips or (h // n_strips) % stride:
+            raise ValueError(f"n_strips={n_strips} must divide height {h} into stride-{stride}-aligned strips")
+        if n_strips == 1:
+            return self.render_pose_uint8(c2w).cpu().numpy()
+        strip_h, cy = h // n_strips, self._config.cy
+        strips = (
+            (r0, _to_uint8(self._render_batch([c2w], strip_h, cy - r0)[0])) for r0 in range(0, h, strip_h)
         )
+        if self._device.type != "cuda":
+            return np.concatenate([s.numpy() for _, s in strips], axis=0)
+        frame = torch.empty((h, w, 3), dtype=torch.uint8, pin_memory=True)
+        compute = torch.cuda.current_stream(self._device)
+        copy = torch.cuda.Stream(self._device)
+        for r0, strip in strips:
+            copy.wait_stream(compute)  # this strip's kernels, not the later ones
+            with torch.cuda.stream(copy):
+                frame[r0 : r0 + strip_h].copy_(strip, non_blocking=True)
+            strip.record_stream(copy)
+        copy.synchronize()
+        return frame.numpy()
 
     def render_coordinates(self, init_coordinates: COORD, coordinates: COORD) -> np.ndarray:
         """COORD pair -> uint8 [H, W, 3] numpy frame (reference
-        render_coordinates, …inference_handler.py:166-185)."""
+        render_coordinates, …inference_handler.py:166-185). With `nan_debug`
+        it renders the full outputs (rgb, disp, acc, depth), scans each for
+        NaN/Inf as the reference does and quantizes the rgb."""
         pose = poses_from_coordinates(init_coordinates, [coordinates])[0]
+        if self._nan_debug:
+            out = {k: v[0] for k, v in self._render_batch([pose], full=True).items()}
+            scan_outputs_finite(out)
+            return _to_uint8(out.get("rgb_fine", out.get("rgb_coarse"))).cpu().numpy()
         return self.render_pose_uint8(pose).cpu().numpy()
 
     def render_poses(self, c2ws: Sequence[np.ndarray]) -> np.ndarray:

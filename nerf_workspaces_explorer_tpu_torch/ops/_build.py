@@ -42,8 +42,14 @@ NVCC_FLAGS = (
 # built too (the 2x64 proposal net runs density-only).
 RENDER_SHAPES = {(64, 6): False, (128, 8): True, (192, 10): True, (256, 10): True}
 
+# The shapes the fine-pass ablation (K8, the render kernel's int8 full pass
+# with an ablation mask) is built for: the 4x128@8f student the ablation
+# script profiles.
+ABLATION_SHAPES = ((128, 8),)
+
 # Libraries built from a shared source with extra flags: name -> (source
-# stem in csrc/, flags). The render kernel compiles once per shape.
+# stem in csrc/, flags). The render kernel compiles once per shape, and its
+# ablation into libraries of their own, so the served ones never hold it.
 VARIANTS = {
     f"fused_render_w{w}f{f}": (
         "fused_render",
@@ -51,6 +57,12 @@ VARIANTS = {
     )
     for (w, f), full in RENDER_SHAPES.items()
 }
+VARIANTS.update({
+    f"fused_render_ablate_w{w}f{f}": (
+        "fused_render", (f"-DRENDER_WIDTH={w}", f"-DRENDER_FREQS={f}", "-DRENDER_ABLATE=1"),
+    )
+    for w, f in ABLATION_SHAPES
+})
 
 # A shared library, once loaded, is process-wide; so is this cache of them.
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -48,10 +48,6 @@ LAUNCHES = {
     f"{p}{m}": 0 for p in ("density_only", "full") for m in ("", "_int8_trunk", "_int8")
 }
 
-# Early-stop eps of the density pass that feeds importance-only placement
-# (render_rays_fused): a tenth of the pdf's 1e-5 guard.
-PLACEMENT_EPS = 1e-6
-
 # Rays per step of the plain version (bounds its activations to ~1 GB at
 # 192 samples per ray).
 PLAIN_RAY_CHUNK = 4096
@@ -617,7 +613,8 @@ def _check_kernel_params(kp: KernelParams, device: torch.device, density_only: b
             raise ValueError(f"kernel biases must be contiguous {dtype} on {device}")
 
 
-def _nerf_render_cuda(kp, o_ph, d_ph, z_vals, dists, venc, density_only, early_stop_eps, live_groups):
+def _nerf_render_cuda(kp, o_ph, d_ph, z_vals, dists, venc, density_only, early_stop_eps, importance_only,
+                      live_groups):
     device = z_vals.device
     if device.type != "cuda":
         raise ValueError(f"no fused render kernel for device {device}")
@@ -649,7 +646,7 @@ def _nerf_render_cuda(kp, o_ph, d_ph, z_vals, dists, venc, density_only, early_s
     fn = lib.nerf_render_launch
     fn.argtypes = (
         [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
-        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     out_rows = n_samples if density_only else 8
@@ -659,7 +656,7 @@ def _nerf_render_cuda(kp, o_ph, d_ph, z_vals, dists, venc, density_only, early_s
         ctypes.cast(ishift, ctypes.c_void_p), ctypes.cast(fscale, ctypes.c_void_p),
         o_ph.data_ptr(), d_ph.data_ptr(), z_vals.data_ptr(), dists.data_ptr(),
         None if density_only else venc.data_ptr(), out.data_ptr(),
-        n_rays, n_samples, int(density_only), float(early_stop_eps),
+        n_rays, n_samples, int(density_only), float(early_stop_eps), int(importance_only),
         None if live_groups is None else live_groups.data_ptr(),
         _build.stream_handle(device),
     )
@@ -681,6 +678,7 @@ def nerf_render(
     *,
     density_only: bool = False,
     early_stop_eps: float = 1e-4,
+    importance_only: bool = False,
     live_groups: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Evaluate one network along a flat set of rays and composite.
@@ -694,13 +692,17 @@ def nerf_render(
     On a CUDA tensor this launches the kernel, which stops a block of 32 rays
     once all of them have transmittance <= early_stop_eps (exact up to eps;
     0 disables it) and, with `live_groups` (int32 [1]), adds the number of
-    4-sample steps its blocks evaluated. On a CPU tensor it runs
+    4-sample steps its blocks evaluated. With `importance_only` (the density
+    pass of importance-only placement) the bound is min(early_stop_eps,
+    1e-5 / S): the tail weights a stopped block zeroes then move no
+    importance sample by more than 1/S of a bin, which the pdf's 1e-5 guard
+    ensures (csrc/fused_render.cu). On a CPU tensor it runs
     `nerf_render_plain`, which evaluates every sample.
     """
     if z_vals.device.type == "cpu":
         return nerf_render_plain(kp, o_ph, d_ph, z_vals, dists, venc, density_only=density_only)
     return _nerf_render_cuda(
-        kp, o_ph, d_ph, z_vals, dists, venc, density_only, early_stop_eps, live_groups
+        kp, o_ph, d_ph, z_vals, dists, venc, density_only, early_stop_eps, importance_only, live_groups
     )
 
 
@@ -808,15 +810,10 @@ def render_rays_fused(
     dir_norm_c = torch.linalg.norm(dirs_c, dim=-1)[None, :] if grid is not None else dir_norm
 
     z_coarse = coarse_z_vals(near_c, far_c, s.n_samples).T.contiguous()
-    # Importance-only placement reads the density pass's weights down to the
-    # scale of the pdf's 1e-5-per-bin guard: its last quantiles sit where the
-    # CDF creeps along the guard, so zeroing a saturated block's ~1e-5 tail
-    # weights moves them by whole coarse bins. That pass stops only once
-    # T <= PLACEMENT_EPS, a tenth of the guard.
-    density_eps = early_stop_eps if s.merge_coarse else min(early_stop_eps, PLACEMENT_EPS)
     weights_t = nerf_render(
         kp_coarse, o_ph_c, d_ph_c, z_coarse, _dists_from_z(z_coarse, dir_norm_c),
-        density_only=True, early_stop_eps=density_eps, live_groups=live_groups,
+        density_only=True, early_stop_eps=early_stop_eps, importance_only=not s.merge_coarse,
+        live_groups=live_groups,
     )
     z_fine = importance_merge(weights_t, z_coarse, s.n_importance, merge=s.merge_coarse)
     if grid is not None:

@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card: K1-K3
-at every network shape the in-repo checkpoints need, K6 and K7, and K4/K5.
+at every network shape the in-repo checkpoints need, K6 and K7, K4/K5, the
+fine-pass ablation K8 and the int4 probe K9; and the paths that need the
+card to show their contract (the strip-pipelined frame's bytes, the fast
+preset at its served eps).
 
 Marked `gpu`: each test skips without a CUDA card. This file imports neither
 JAX nor the JAX package, so it runs on a machine without them:
@@ -352,9 +355,11 @@ def test_fast_preset_frame_at_served_eps(cuda):
     the frame at the served early-stop eps against the eps-0 frame, on the
     office_geneve click where stopping the density pass of a whole 32-ray
     block at T <= 1e-3 moved the importance samples (SSIM 0.977 against
-    parity). That pass stops at PLACEMENT_EPS; the fine pass stays exact up
-    to eps per ray. Stopping the density pass at 1e-4 or 1e-3 fails both
-    bounds on this click."""
+    parity). The renderer passes its eps to both passes; the density pass
+    feeding importance-only placement stops a block only once its tail
+    weights are below what the pdf's guard resolves (csrc/fused_render.cu),
+    and the fine pass stays exact up to eps per ray. A plain stop of that
+    pass at 1e-4 or 1e-3 fails both bounds on this click."""
     from nerf_workspaces_explorer_tpu_torch.app.workspace import OfficeGeneveWorkspace
     from nerf_workspaces_explorer_tpu_torch.camera.poses import poses_from_coordinates
     from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
@@ -370,3 +375,108 @@ def test_fast_preset_frame_at_served_eps(cuda):
     d = (frames[0] - frames[1]).abs()
     stats = (float(d.mean()), float((d > 1e-2).float().mean()), float(d.max()))
     assert stats[0] <= 1e-4 and stats[1] <= 1e-3, stats
+
+
+def _student_int8(device):
+    """The 4x128@8f student of the fine-pass ablation, int8 trunk and heads."""
+    from nerf_workspaces_explorer_tpu_torch.ops.quantize import calibrate_trunk, spec_from_net_params
+
+    tree, _, _ = load_checkpoint(os.path.join(ROOT, "assets", "bench", "synth_proposal.turbo.npz"))
+    params = params_from_numpy(tree["fine"], device)
+    spec = spec_from_net_params(params)
+    return fr.prepare_kernel_params(params, spec, quant=calibrate_trunk(params, spec, heads=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["full", "enc", "enc-direct", "enc-nobase", "enc-noconcat", "enc-postq", "enc-stack",
+                                  "enc-duo", "heads", "epilogue", "enc+heads+epilogue"])
+def test_ablation_kernel_matches_plain(cuda, mode):
+    """K8, every mode, against its plain version on the card (4,096 rays x 48
+    samples, sample groups of 16): the same fp32 chains, exact integer
+    products and the same compositing order, so at least 99% of the rays
+    agree to 1e-6 (relative to the largest sum where the sums are raw
+    activations or accumulators: "heads", "epilogue") and every ray within
+    2e-3 of the colours or 2e-2 of the raw scale."""
+    from nerf_workspaces_explorer_tpu_torch.ops import fine_ablation as fa
+
+    kp = _student_int8(cuda)
+    g = torch.Generator().manual_seed(8)
+    o, d = torch.randn(2, 4096, 3, generator=g)
+    z = torch.sort(torch.rand(48, 4096, generator=g) * 5.9 + 0.1, dim=0).values
+    o_ph, d_ph = fr.ray_phase_vectors(o * 0.5, d, kp.pts_freqs)
+    venc = fr.encode_viewdirs_kernel_order(d / d.norm(dim=-1, keepdim=True))
+    args = [t.to(cuda) for t in (o_ph, d_ph, z, fr._dists_from_z(z, d.norm(dim=-1)[None]), venc)]
+    ablate = frozenset() if mode == "full" else frozenset(mode.split("+"))
+    before = fa.LAUNCHES[mode]
+    out = fa.run_ablation(kp, *args, ablate, samples_per_step=16)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[mode] == before + 1
+    ref = fa.run_ablation_plain(kp, *args, ablate, samples_per_step=16)
+    assert out.shape == (8, 4096) and torch.isfinite(out).all()
+    assert not out[[3, 4, 6, 7]].any()
+    raw = "heads" in ablate or "epilogue" in ablate
+    scale = max(1.0, float(ref[0:3].abs().max())) if raw else 1.0
+    err = (out[[0, 1, 2, 5]] - ref[[0, 1, 2, 5]]).abs() / scale
+    assert float((err.amax(0) <= 1e-6).float().mean()) >= 0.99, float((err.amax(0) <= 1e-6).float().mean())
+    assert float(err.max()) <= (2e-2 if raw else 2e-3), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True], ids=["int4-operand", "int4x2-packed-bytes"])
+def test_int4_kernel_matches_plain(cuda, packed):
+    """K9: int4 widened to bf16 on the tensor cores against the plain leg and
+    numpy at the probe's 128^3 (to 1e-6 relative: exact products, fp32
+    sums in another order), and at a ragged 48 x 80 x 32."""
+    from nerf_workspaces_explorer_tpu_torch.ops import int4_probe as ip
+
+    g = torch.Generator().manual_seed(9)
+    for m, n, k in ((128, 128, 128), (48, 80, 32)):
+        w4 = torch.randint(-8, 8, (m, k), generator=g, dtype=torch.int8)
+        b = torch.randn(k, n, generator=g).to(torch.bfloat16)
+        a = ip.pack_int4_rows(w4) if packed else w4
+        key = "int4x2_packed" if packed else "int4_operand"
+        before = ip.LAUNCHES[key]
+        out = ip.int4_matmul(a.to(cuda), b.to(cuda), packed=packed)
+        torch.cuda.synchronize()
+        assert ip.LAUNCHES[key] == before + 1
+        ref = w4.numpy().astype("float32") @ b.float().numpy()
+        plain = ip.int4_matmul_plain(a.to(cuda), b.to(cuda), packed=packed)
+        scale = float(abs(ref).max())
+        assert float((out.cpu() - torch.from_numpy(ref)).abs().max()) / scale <= 1e-6
+        assert float((out - plain).abs().max()) / scale <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["reference", "fast"])
+def test_strip_frame_equals_blocking_at_eps0(cuda, preset):
+    """The strip-pipelined frame through the kernels at eps 0: byte-equal to
+    the blocking frame (per-ray arithmetic), each strip one density pass,
+    one placement and one fine pass. Reference: synth_hier in 6 strips of
+    40 rows; fast: the room's proposal net on its stride-4 lattice."""
+    import dataclasses
+
+    import numpy as np
+
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+
+    cfg = load_config(office_name="tokyo")
+    if preset == "fast":
+        cfg = dataclasses.replace(cfg, rendering=dataclasses.replace(cfg.rendering, depth_range=(0.1, 8.0)))
+        r = NeRFRenderer("tokyo", os.path.join(ROOT, "assets", "bench", "room_proposal.npz"), config=cfg,
+                         precision="fast", preset="fast", use_proposal=True, early_stop_eps=0.0, device=cuda)
+    else:
+        r = NeRFRenderer("tokyo", CKPT, config=cfg, precision="fast", early_stop_eps=0.0, device=cuda)
+    r.initialize_models()
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [1.0, -0.5, 0.5]
+    blocking = r.render_pose_uint8(pose).cpu().numpy()
+    n = r._pick_n_strips()
+    assert n == 6
+    counters = (fr.LAUNCHES, im.LAUNCHES)
+    before = [dict(c) for c in counters]
+    piped = r.render_pose_uint8_pipelined(pose)
+    delta = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c if c[k] != b[k]}
+    assert sorted(delta.values()) == [n] * 3, delta
+    assert piped.dtype == np.uint8 and piped.shape == blocking.shape
+    np.testing.assert_array_equal(piped, blocking)

@@ -59,7 +59,9 @@ def test_port_imports_without_jax():
     "path",
     [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "profile_torch_frame.py"),
      os.path.join(ROOT, "scripts", "profile_torch_train_step.py"),
-     os.path.join(ROOT, "scripts", "profile_torch_placement_eps.py")]
+     os.path.join(ROOT, "scripts", "profile_torch_placement_eps.py"),
+     os.path.join(ROOT, "scripts", "profile_torch_fine_ablation.py"),
+     os.path.join(ROOT, "scripts", "probe_int4_torch.py")]
     + sorted(
         os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")
     ),
@@ -81,9 +83,10 @@ def test_renderer_without_device_raises_without_cuda():
 
 
 def test_unported_options_raise():
-    """Options the JAX renderer has and the port leaves out raise: mesh,
-    nan_debug, a chunk override of the fused path, the strip path; so do
-    unknown precisions and a turbo preset without a checkpoint."""
+    """Options the JAX renderer has and the port leaves out raise: mesh and a
+    chunk override of the fused path; so do unknown precisions and a turbo
+    preset without a checkpoint. nan_debug and the strip path are ported:
+    they build, and the strip path asks for weights first."""
     from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
 
     with pytest.raises(ValueError, match="precision"):
@@ -92,12 +95,11 @@ def test_unported_options_raise():
         NeRFRenderer("tokyo", preset="turbo", device="cpu")
     with pytest.raises(ValueError, match="mesh"):
         NeRFRenderer("tokyo", mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="nan_debug"):
-        NeRFRenderer("tokyo", nan_debug=True, device="cpu")
     with pytest.raises(ValueError, match="chunk"):
         NeRFRenderer("tokyo", precision="int8", chunk=4096, device="cpu")
-    with pytest.raises(NotImplementedError, match="strip"):
-        NeRFRenderer("tokyo", device="cpu").render_pose_uint8_pipelined(None)
+    r = NeRFRenderer("tokyo", nan_debug=True, device="cpu")
+    with pytest.raises(RuntimeError, match="initialize_models"):
+        r.render_pose_uint8_pipelined(None)
 
 
 def test_missing_checkpoint_raises():
