@@ -154,6 +154,88 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def full_pass_stats(kp, samples: int, ms: float, flops: float, bound: float, peak: float) -> dict:
+    """A full pass's achieved rate on the samples it evaluated (TFLOP/s for
+    bf16, TOP/s for int8), its share of the bound, and the weight bytes its
+    blocks streamed from L2: steps evaluated x the stream of one step
+    (`ops/fused_render.py::weight_stream`)."""
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_render as fr
+
+    per_step = sum(e[2] for e in fr.weight_stream(kp).full)
+    steps = samples // fr.STEP_POINTS
+    return dict(achieved_tflops=flops / (ms * 1e-3) / 1e12, bound_share=bound / ms,
+                peak_share=flops / (ms * 1e-3) / peak, stream_bytes_per_step=per_step,
+                stream_bytes_per_frame=steps * per_step)
+
+
+def stats_text(st: dict, unit: str) -> str:
+    return (f"{st['achieved_tflops']:.1f} {unit} on the evaluated samples ({st['peak_share']:.1%} of peak, "
+            f"{st['bound_share']:.1%} of the bound), weight stream {st['stream_bytes_per_step']} B a step, "
+            f"{st['stream_bytes_per_frame'] / 1e9:.2f} GB a frame from L2")
+
+
+def products_matmul_ms(kp, n_points: int, chunk: int = 1 << 18) -> float:
+    """Yardstick of the products alone: the net's layer products (trunk,
+    skip, feature+alpha, view, rgb) as a chain of bf16 `torch.matmul` calls
+    over n_points, in chunks of `chunk` points. The port never calls it."""
+    dev, w = kp.w_layers[0].device, kp.width
+    ws = [t.to(torch.bfloat16) for t in (*kp.w_layers, *kp.w_skip_enc, kp.w_fa[: w + 16], kp.w_view_h, kp.w_rgb)]
+    depth = len(kp.w_layers)
+    skip_layer = kp.skips[0] + 1 if kp.skips else -1
+    x = torch.randn(chunk, ws[0].shape[1], device=dev).to(torch.bfloat16) * 0.1
+    sizes = [chunk] * (n_points // chunk) + ([n_points % chunk] if n_points % chunk else [])
+
+    def chain(e):
+        h = e
+        for i in range(depth):
+            y = torch.matmul(h, ws[i].T)
+            if i == skip_layer:
+                y = y + torch.matmul(e, ws[depth].T)
+            h = y
+        f = torch.matmul(h, ws[-3].T)
+        return torch.matmul(torch.matmul(f[:, :w], ws[-2].T), ws[-1].T)
+
+    return time_ms(lambda: [chain(x[:n]) for n in sizes], 3)
+
+
+def served_render_spills(names) -> list:
+    """(library, kernel, ptxas line) of every served `render_kernel` that
+    ptxas reports with spill stores or loads."""
+    import re
+
+    from nerf_workspaces_explorer_tpu_torch.ops import _build
+
+    bad = []
+    for name in names:
+        if not name.startswith("fused_render_w"):
+            continue
+        entry = ""
+        for line in _build.build_log(name).splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "spill stores" in line and "render_kernel" in entry:
+                if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line):
+                    bad.append((name, entry, line.strip()))
+    return bad
+
+
+def sass_counts(name: str):
+    """Counts of the tensor-core instructions in a library's SASS (cuobjdump):
+    HGMMA/IGMMA (wgmma, bf16/int8) and HMMA/IMMA (mma.sync, which WMMA
+    compiles to); None without cuobjdump."""
+    import re
+
+    from nerf_workspaces_explorer_tpu_torch.ops import _build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", _build.library_path(name)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "IGMMA", "HMMA", "IMMA")}
+
+
 def require(ok: bool, what: str) -> None:
     """A check that holds under `python -O` too."""
     if not ok:
@@ -510,30 +592,33 @@ def presets_phase(card: str, device: torch.device, main: dict):
     require(k3s_err <= BF16_ATOL, f"K3 student (192/F=10) disagrees: {k3s_err}")
 
     def timed_pass(fn, kp, dense_samples, ray_bytes, n_rays_pass, density, peak):
-        """(ms at eps 1e-3, samples evaluated, bound, bound_by, dense bound)."""
+        """(ms at eps 1e-3, samples evaluated, bound, bound_by, dense bound,
+        full_pass_stats or None)."""
         live = torch.zeros(1, dtype=torch.int32, device=device)
         fn(kp, EPS, live)
         torch.cuda.synchronize()
-        samples = int(live) * 4 * 32
+        samples = int(live) * fr.STEP_POINTS
         mac, mac_ray = render_macs(kp, density)
-        b, by = bound_ms(2 * (mac * samples + mac_ray * n_rays_pass), ray_bytes + weight_bytes(kp), peak)
+        flops = 2 * (mac * samples + mac_ray * n_rays_pass)
+        b, by = bound_ms(flops, ray_bytes + weight_bytes(kp), peak)
         dense, _ = bound_ms(2 * (mac * dense_samples + mac_ray * n_rays_pass), 0, peak)
-        return time_ms(lambda: fn(kp, EPS), 5), samples, b, by, dense
+        ms = time_ms(lambda: fn(kp, EPS), 5)
+        return ms, samples, b, by, dense, None if density else full_pass_stats(kp, samples, ms, flops, b, peak)
 
     lat_bytes = 2 * 3 * n_lat * 4 + 3 * s_c * n_lat * 4
     stud_bytes = 2 * 3 * h * w * 4 + 2 * n_imp * h * w * 4 + 32 * h * w * 2 + 8 * h * w * 4
-    ms, samples, b, by, dense = timed_pass(k1p, kp_prop, s_c * n_lat, lat_bytes, n_lat, True, PEAK_BF16_FLOPS)
+    ms, samples, b, by, dense, _ = timed_pass(k1p, kp_prop, s_c * n_lat, lat_bytes, n_lat, True, PEAK_BF16_FLOPS)
     t1p = dict(ms=ms, samples=samples, bound=b, by=by, dense=dense,
                plain=time_ms(lambda: fr.nerf_render_plain(kp_prop, o_ph_l, d_ph_l, z_l, dist_l, density_only=True), 2))
-    ms, samples, b, by, dense = timed_pass(k3s, kp_student, n_imp * h * w, stud_bytes, h * w, False,
-                                           PEAK_BF16_FLOPS)
+    ms, samples, b, by, dense, st3s = timed_pass(k3s, kp_student, n_imp * h * w, stud_bytes, h * w, False,
+                                                 PEAK_BF16_FLOPS)
     t3s = dict(ms=ms, samples=samples, bound=b, by=by, dense=dense, plain=time_ms(lambda: k3s_plain(kp_student), 1))
     print(f"K1 proposal 2x64@6f (density, {n_lat} lattice rays x {s_c}): ms {t1p['ms']:.4f} plain_ms "
           f"{t1p['plain']:.3f} bound_ms {t1p['bound']:.5f} ({t1p['samples']} of {s_c * n_lat} samples evaluated) "
           f"max_abs_err {k1p_err:.2e}", flush=True)
     print(f"K3 student 6x192@10f (full, {h * w} rays x {n_imp}): ms {t3s['ms']:.3f} plain_ms {t3s['plain']:.3f} "
           f"bound_ms {t3s['bound']:.4f} ({t3s['samples']} of {n_imp * h * w} samples evaluated; dense bound "
-          f"{t3s['dense']:.4f}) max_abs_err {k3s_err:.2e}", flush=True)
+          f"{t3s['dense']:.4f}) max_abs_err {k3s_err:.2e}; {stats_text(st3s, 'TFLOP/s')}", flush=True)
     entries += [
         dict(name="K1 fused render, density-only: proposal pass 2x64@6f (turbo/fast presets)", route="cuda",
              source=src + "fused_render.cu", replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598",
@@ -542,7 +627,8 @@ def presets_phase(card: str, device: torch.device, main: dict):
         dict(name="K3 fused render, full: student 6x192@10f (turbo preset, bf16)", route="cuda",
              source=src + "fused_render.cu", replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598",
              max_abs_err=k3s_err, ms=t3s["ms"], plain_ms=t3s["plain"], bound_ms=t3s["bound"], bound_by=t3s["by"],
-             library_ms=None, dense_bound_ms=t3s["dense"], rays=h * w, samples=n_imp, held_against_plain=True),
+             library_ms=None, dense_bound_ms=t3s["dense"], rays=h * w, samples=n_imp, held_against_plain=True,
+             **st3s),
         dict(name="K6 importance-only placement (fast/turbo presets)", route="cuda",
              source=src + "importance_merge.cu", replaces="nerf_workspaces_explorer_tpu/ops/pallas_sampling.py:47",
              max_abs_err=max(k6_turbo[0], k6_hier[0]), ms=t6["ms"], plain_ms=t6["plain"], bound_ms=b6, bound_by=by6,
@@ -589,14 +675,14 @@ def presets_phase(card: str, device: torch.device, main: dict):
             share = k7_share_exact(out, ref, rows)
             require(bool(torch.isfinite(out).all()), f"K7 {mode} {case}: non-finite output")
             require(err <= BF16_ATOL, f"K7 {mode} {case}: max |err| {err} against the plain version")
-            ms, samples, b, by, dense = timed_pass(fn, kp, dense_samples, nbytes, n_rays_pass, density,
-                                                   PEAK_INT8_OPS)
+            ms, samples, b, by, dense, st = timed_pass(fn, kp, dense_samples, nbytes, n_rays_pass, density,
+                                                       PEAK_INT8_OPS)
             plain_ms = time_ms(lambda: plain(kp), 1, warmup=0)
             k7[(mode, case)] = dict(err=err, share=share, ms=ms, samples=samples, bound=b, by=by, dense=dense,
-                                    plain=plain_ms, rays=n_rays_pass, dense_samples=dense_samples)
+                                    plain=plain_ms, rays=n_rays_pass, dense_samples=dense_samples, stats=st or {})
             print(f"K7 {mode} {case}: ms {ms:.3f} plain_ms {plain_ms:.2f} bound_ms {b:.4f} ({samples} of "
                   f"{dense_samples} samples evaluated; dense bound {dense:.4f}) max_abs_err {err:.2e}, rays "
-                  f"agreeing to 1e-6 {share:.4%}", flush=True)
+                  f"agreeing to 1e-6 {share:.4%}" + (f"; {stats_text(st, 'TOP/s')}" if st else ""), flush=True)
 
     # 5. Serve 320x240 frames through the renderer: warm ms per frame (host
     # clock around render_pose_uint8 up to the device-to-host copy, median of
@@ -628,7 +714,7 @@ def presets_phase(card: str, device: torch.device, main: dict):
                              grid_hw=(h, w), live_groups=live)
         for f in frames:
             require(f.dtype == np.uint8 and f.shape == (h, w, 3), f"frame {f.dtype} {f.shape}")
-        return frames, float(np.median(ms)), launches, int(live) * 4 * 32
+        return frames, float(np.median(ms)), launches, int(live) * fr.STEP_POINTS
 
     def parity_frames(ckpt, config, preset, poses, **kw):
         r = renderer(ckpt, config, "parity", preset, **kw)
@@ -723,7 +809,8 @@ def presets_phase(card: str, device: torch.device, main: dict):
             name=f"K7 fused render {mode}, {case} {shape}", route="cuda", source=src + "fused_render.cu",
             replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:544", launches=n, max_abs_err=k["err"],
             ms=k["ms"], plain_ms=k["plain"], bound_ms=k["bound"], bound_by=k["by"], library_ms=None,
-            rays_agreeing_1e6=k["share"], dense_bound_ms=k["dense"], rays=k["rays"], held_against_plain=True))
+            rays_agreeing_1e6=k["share"], dense_bound_ms=k["dense"], rays=k["rays"], held_against_plain=True,
+            **k["stats"]))
     return entries
 
 
@@ -901,8 +988,19 @@ def main() -> int:
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name in names:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line or "(C7" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    spills = served_render_spills(names)
+    require(not spills, f"ptxas reports spills in served render kernels: {spills}")
+    for name in names:
+        if name.startswith("fused_render"):
+            counts = sass_counts(name)
+            print(f"sass {name}: {counts}", flush=True)
+            if counts is not None:
+                # Every served library holds the bf16 and int8 modes; K8's is int8 alone.
+                need = ("IGMMA",) if "ablate" in name else ("HGMMA", "IGMMA")
+                require(counts["HMMA"] == 0 and counts["IMMA"] == 0, f"{name}: mma.sync products remain {counts}")
+                require(all(counts[op] > 0 for op in need), f"{name}: no wgmma {counts}")
 
     # 2. Kernels against their plain versions at the main path's shapes.
     cfg = load_config(office_name="tokyo")
@@ -951,7 +1049,7 @@ def main() -> int:
     live3 = torch.zeros(1, dtype=torch.int32, device=device)
     k1(EPS, live1), k3(EPS, live3)
     torch.cuda.synchronize()
-    samples1, samples3 = int(live1) * 4 * 32, int(live3) * 4 * 32
+    samples1, samples3 = int(live1) * fr.STEP_POINTS, int(live3) * fr.STEP_POINTS
     reps = 5
     t = {
         "k1": time_ms(lambda: k1(EPS), reps), "k1_eps0": time_ms(lambda: k1(0.0), reps),
@@ -970,6 +1068,9 @@ def main() -> int:
     b3, by3 = bound_ms(2 * (mac3 * samples3 + mac3_ray * n_rays),
                        ray_bytes + 2 * s_f * n_rays * 4 + 32 * n_rays * 2 + 8 * n_rays * 4 + weight_bytes(kp["fine"]))
     b3_dense, _ = bound_ms(2 * (mac3 * s_f * n_rays + mac3_ray * n_rays), 0)
+    st3 = full_pass_stats(kp["fine"], samples3, t["k3"], 2 * (mac3 * samples3 + mac3_ray * n_rays), b3,
+                          PEAK_BF16_FLOPS)
+    t["products_matmul"] = products_matmul_ms(kp["fine"], samples3)
     b2, by2 = bound_ms(0, (2 * s_c + s_f) * n_rays * 4)
     print(f"K1 coarse density: ms {t['k1']:.3f} (eps 0: {t['k1_eps0']:.3f}) plain_ms {t['k1_plain']:.3f} "
           f"bound_ms {b1:.3f} ({samples1} of {s_c * n_rays} samples evaluated; dense bound {b1_dense:.3f}) "
@@ -979,7 +1080,8 @@ def main() -> int:
           flush=True)
     print(f"K3 fine full: ms {t['k3']:.3f} (eps 0: {t['k3_eps0']:.3f}) plain_ms {t['k3_plain']:.3f} "
           f"bound_ms {b3:.3f} ({samples3} of {s_f * n_rays} samples evaluated; dense bound {b3_dense:.3f}) "
-          f"max_abs_err {k3_err:.2e}", flush=True)
+          f"max_abs_err {k3_err:.2e}; {stats_text(st3, 'TFLOP/s')}; products_matmul_ms {t['products_matmul']:.3f} "
+          f"(its products as bf16 torch.matmul over the {samples3} evaluated points, a yardstick)", flush=True)
 
     # 3. Serve clicks through the product path; parity renders on the card.
     offices = {}
@@ -1053,7 +1155,8 @@ def main() -> int:
         dict(name="K3 fused render, full (fine pass)", route="cuda", source=src + "fused_render.cu",
              replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598", launches=launches["K3"],
              max_abs_err=k3_err, ms=t["k3"], plain_ms=t["k3_plain"], bound_ms=b3, bound_by=by3,
-             library_ms=None, ms_eps0=t["k3_eps0"], dense_bound_ms=b3_dense, held_against_plain=True),
+             library_ms=None, ms_eps0=t["k3_eps0"], dense_bound_ms=b3_dense, held_against_plain=True,
+             products_matmul_ms=t["products_matmul"], **st3),
     ] + preset_kernels + train_kernels + probe_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -12,38 +12,78 @@
 // One library per network shape: this file compiles with -DRENDER_WIDTH=W
 //   and -DRENDER_FREQS=F (point frequencies) for each shape the in-repo
 //   checkpoints need (ops/_build.py: 64/6 density-only; 128/8, 192/10 and
-//   256/10 in both modes), each holding the bf16, int8-trunk and int8 modes.
+//   256/10 in both passes), each holding the bf16, int8-trunk and int8 modes.
 //   The int8 modes' fp32 chains (phase, sin/cos polynomial, octave ladder,
 //   quantization, the rgb dequantization) are written with __fmul_rn and
 //   __fadd_rn, which the compiler never contracts into FMAs, so they round
-//   as the plain version's separate multiplies and adds do: a one-ulp phase
-//   difference would otherwise flip an int8 level. Everything else compiles
-//   with the default contraction, as the bf16 kernel always has.
+//   as the plain version's separate multiplies and adds do.
 //
-// What bounds it on this card: tensor-core operations. A sample of the 8x256
-//   fine net costs about 1.18 MFLOP against a few dozen bytes of per-ray
-//   input and output, far above the H100's ridge (~295 bf16 FLOP per byte,
-//   twice that for int8 at twice the rate). The weights (1.26 MB bf16 for the
-//   8x256 fine net, half in int8) do not fit one SM's shared memory but stay
-//   resident in the 50 MB L2.
+// The work: a block owns 32 rays and walks their samples front to back, 4 per
+//   step, so a step is a 128-point batch whose activations never leave shared
+//   memory; it stops once every ray has T <= eps, exact up to eps. A point of
+//   the 8x256 fine net costs 1.18 MFLOP of products against a few dozen bytes
+//   of its own input and output.
 //
-// What the design does about it: a block owns 32 rays and walks their
-//   samples front to back, 4 samples per step, so each step is a 128-point
-//   batch whose activations never leave shared memory (two ping-pong tiles).
-//   Every layer is a WMMA 16x16x16 product, bf16 with fp32 accumulation or
-//   s8 with s32 accumulation; each warp owns 16 points and up to 128 output
-//   columns at a time, and the layer's weights are staged through shared
-//   memory in [columns x 64 inputs] slabs, so a weight element is read from
-//   L2 once per block step, not once per warp. Column chunks are 128, 64, 32
-//   or 16 wide, whichever divides the layer (192 = 3 x 64, 96 = 3 x 32); a
-//   slab zero-fills inputs past the stored rows, so the 8-padded encoding
-//   rows of the public layout (40 for F=6) feed WMMA's 16-deep k-steps.
-//   The int8 epilogues are integer-only: clip((acc + b) >> k, 0, 127), the
-//   skip accumulator shifted before the add, and only sigma and rgb
-//   dequantize. Per-ray transmittance and the composite stay in shared
-//   memory, and a block stops once every ray it owns has transmittance at or
-//   below eps, exact up to eps because samples run front to back. Simple
-//   first: no TMA, no wgmma, one block per SM.
+// What bounds it on this card: the tensor cores against the weight bytes a
+//   step streams from L2. Each 128-point step multiplies every weight once:
+//   at 8x256 bf16 that is 151 MFLOP against 1.26 MB of weights (120 FLOP a
+//   byte; half the bytes in int8 at twice the rate), read from the 50 MB L2
+//   by every block, since no SM holds the net. At the tensor cores' peak a
+//   block would need ~60 GB/s of L2 per SM, ~8 TB/s across 132 SMs, more than
+//   an L2 serves: at this step size the weight stream, not the multiplies, is
+//   the expected floor. The smoke prints the bytes streamed per frame.
+//
+// What the design does about it (the product path; the encoding and the
+//   compositing are the earlier kernel's arithmetic):
+//   - A warp-specialised block of 3 warpgroups. Warpgroups 0 and 1 are the
+//     consumers (setmaxnreg 232) and own rows 0-63 and 64-127 of the step,
+//     i.e. samples 0-1 and 2-3 of its 32 rays. Warpgroup 2 is the producer
+//     (setmaxnreg 40): one elected thread keeps a ring of RING weight stages
+//     full with cp.async.bulk and an mbarrier full/empty pair per stage (3
+//     stages at 8x256 full, 4 where they fit), so the L2 latency of the next
+//     slab overlaps the products on this one.
+//   - A weight stream packed once per parameter set (ops/fused_render.py::
+//     pack_weight_stream): every matrix cut into slabs of 128 bytes of depth
+//     (64 bf16 or 128 int8 inputs), each slab [rows x 128 B] in the layout
+//     wgmma's 128-byte-swizzled K-major descriptor reads, zero-padded to the
+//     product's depth (a multiple of 32 bytes), in the order the consumers
+//     take them each step: layer 0's encoding slab; for each later layer the
+//     skip layer's encoding slab (on that layer) and then its hidden slabs;
+//     then alpha (density pass) or feature+alpha, view and rgb (full pass).
+//     The producer walks a table of slab offsets and byte counts; no tensor
+//     map (the s8 encoding rows of F=6, 40 bytes, are no legal TMA stride).
+//     The swizzle, shared with the packer: byte b of row r of a slab sits at
+//         r * 128 + (((b >> 4) ^ r) & 7) * 16 + (b & 15).
+//     The activation and encoding tiles use the same layout, so the A
+//     operands need no other descriptor geometry.
+//   - wgmma for every product: bf16 m64nNk16 with fp32 sums, s8 m64nNk32 with
+//     s32 sums (both 32 bytes of depth a k-step), N the layer's width;
+//     feature and alpha as one pass (N = W + 16) up to width 192, rgb as an
+//     n16. wgmma's N stops at 256, so at width 256 alpha's n16 product runs
+//     first and the features' n256 after it, on slabs of their own
+//     (`fa_split`): a ring stage stays 32 KB and a consumer holds at most
+//     128 accumulators. In the int8 modes
+//     the skip product comes first and is shifted by skip_shift in registers
+//     before the main product adds to it (integer sums are exact in any
+//     order); the bf16 mode takes the same order.
+//   - Registers: setmaxnreg's budgets hold (ptxas spills more at 200 than at
+//     232), but ptxas spilled until no accumulator was written or read on a
+//     branch: zeroing and the skip shift are unconditional, the activation
+//     epilogues visit a compile-time column range, and the fp32 heads copy
+//     their 8-column block out before their per-column test. The smoke fails
+//     on a spill in a served kernel.
+//   - Epilogues in registers and activations in place: a consumer warpgroup
+//     holds all N columns of its 64 rows in registers before it writes any,
+//     so once its products have completed it writes bias/ReLU/requant results
+//     over its own input rows. Each warpgroup owns a 64-row activation region
+//     sized for bf16, so an int8 tile and the int8-trunk's bf16 last layer
+//     stay inside it. Generic-proxy stores that a product reads next are
+//     followed by fence.proxy.async and a named barrier of the warpgroup.
+//   - Drain rule: the producer runs ahead into the next step. A block that
+//     stops early sets a stop flag; the producer, which polls it while it
+//     waits for a free stage, stops issuing and reports how many slabs it
+//     issued; consumer thread 0 then waits on the full barrier of every slab
+//     issued but not consumed, so no copy is in flight when the block exits.
 //
 // The density pass that feeds importance-only placement (`importance_only`
 //   in nerf_render_launch) stops a block only once every ray has T <= min(eps,
@@ -61,14 +101,15 @@
 // K8 (replaces scripts/profile_fine_ablation.py::_ablation_kernel, reached
 //   through run_ablation): built with -DRENDER_ABLATE=1 into a library of its
 //   own, `ablation_kernel<W, F, A>` is the int8 full pass with an ablation
-//   mask A (the A_* bits below) as a template parameter, on the same 32-ray
-//   block and 4-sample steps: no early stop, no depth or acc rows. The served
-//   kernels compile from `render_body` with A = 0, where every ablation branch
-//   is discarded at compile time.
+//   mask A (the A_* bits below) as a template parameter, on the same block
+//   and steps: no early stop, no depth or acc rows. The served kernels
+//   compile from `render_body` with A = 0, where every ablation branch is
+//   discarded at compile time.
 
 #include <type_traits>
 
 #include "nerf_mlp.cuh"
+#include "wgmma.cuh"
 
 #ifndef RENDER_WIDTH
 #define RENDER_WIDTH 256
@@ -80,14 +121,19 @@
 #define RENDER_ABLATE 0
 #endif
 
-#define RB 32                 // rays per block
-#define SG 4                  // samples per step (RB * SG = MP points)
+#define RB 32                  // rays per block
+#define SG 4                   // samples per step (RB * SG = MP points)
 #define MAXD 16
-#define RVENC 32              // view encoding rows of the full pass: 3 + 6 * 4, padded to 32
-#define SLAB_K 64             // inputs per staged weight slab
-#define SLAB_ROWS 128         // most columns per chunk
+#define RVENC 32               // view encoding rows of the full pass: 3 + 6 * 4, padded to 32
+#define WG_ROWS 64             // rows of a step per consumer warpgroup
+#define N_CONSUMERS 256        // threads of the two consumer warpgroups
+#define RK_THREADS 384         // + the producer warpgroup
+#define MAX_SLABS 96           // slabs of one step's weight stream
+#define SMEM_LIMIT 232448      // dynamic shared memory a block may use
+#define RK_CONSUMER_REGS 232   // registers of a consumer / producer thread after setmaxnreg:
+#define RK_PRODUCER_REGS 40    // 2 x 128 x 232 + 128 x 40 <= 65,536
 
-static_assert(RB * SG == MP, "a block step is one MP-point tile");
+static_assert(RB * SG == MP && MP == 2 * WG_ROWS, "a block step is two 64-row warpgroup tiles");
 
 namespace rk {
 
@@ -111,24 +157,19 @@ enum {
 #define PDF_GUARD 1e-5f
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
-// Element type -> WMMA fragment types, row strides of the activation tiles
-// and slabs (bf16: +8 elements; s8: +16 bytes, WMMA's s8 stride unit).
+// Whether the full pass runs alpha and the features as two products (W + 16
+// columns are more than one wgmma takes) or as one.
+__host__ __device__ constexpr bool fa_split(int w) { return w + 16 > 256; }
+
+// Product depth in bytes of the encoding: its stored rows (3 + 6F padded to
+// 8) padded to the 32-byte k-step.
+__host__ __device__ constexpr int enc_kb(int freqs, int elem) { return round_up(round_up(3 + 6 * freqs, 8) * elem, 32); }
+
 template <typename T> struct Tr;
-template <> struct Tr<bf16> {
-  typedef float AccT;
-  static constexpr int PAD = 8;
-  typedef uint4 Vec8;  // 8 elements
-};
-template <> struct Tr<s8> {
-  typedef int AccT;
-  static constexpr int PAD = 16;
-  typedef uint2 Vec8;
-};
-template <typename T> __host__ __device__ constexpr int slab_ld() { return SLAB_K + Tr<T>::PAD; }
-
-template <typename T>
-using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, typename Tr<T>::AccT>;
+template <> struct Tr<bf16> { typedef float AccT; };
+template <> struct Tr<s8> { typedef int AccT; };
 
 struct Quant {
   int shift[MAXD];   // per-layer requant shift
@@ -141,223 +182,294 @@ struct Quant {
   float s_rgb;       // rgb accumulator -> fp32
 };
 
+// Biases and the per-ray view weights; the product weights arrive through
+// the stream.
 struct NetPtrs {
-  const void* w[MAXD];        // layer i: [W, in_i], in_0 = stored encoding rows, else W
   const void* b[MAXD];        // layer i: [W] fp32 (bf16 mode) or int32 (int8 modes)
-  const void* w_skip;         // [W, enc rows]: encoding weights of the skip layer
-  const void* w_alpha;        // [16, W], row 0 live
   const void* b_alpha;        // [16]
-  const void* w_feat;         // [W, W]
   const void* b_feat;         // [W]
-  const void* w_view_h;       // [W / 2, W]
   const bf16* w_view_enc;     // [W / 2, RVENC]
   const float* b_view;        // [W / 2]
-  const void* w_rgb;          // [16, W / 2], rows 0-2 live
   const float* b_rgb;         // [16]
   int depth;
   int skip_layer;             // layer whose input is [encoding, h]; -1 for none
 };
 
-// acc[f] += A[this warp's 16 rows, k0:k0+KC] . slab[16 f + (0..15), 0:KC]^T.
-template <typename T, int NF, int KC>
-__device__ __forceinline__ void mma_slab(AccFrag<T> (&acc)[NF], const T* A, int lda, int k0,
-                                         const T* slab) {
-  using namespace nvcuda;
-  constexpr int LDS_ = slab_ld<T>();
-  const int warp = threadIdx.x >> 5;
+// One step's weight stream: slab j is bytes[j] bytes at base + off[j].
+struct Stream {
+  const unsigned char* base;
+  int n;
+  int off[MAX_SLABS];
+  int bytes[MAX_SLABS];
+};
+
+// ---------------------------------------------------------------------------
+// Hopper primitives.
+
+__device__ __forceinline__ uint32_t saddr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// The spin is inside the asm: a loop in C would be a divergent branch to
+// the compiler, which then serialises the wgmma around it.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\nmbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n@!p bra LAB_WAIT;\n}\n" ::"r"(
+          bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// mbar_arrive by the threads where `pred` holds, predicated, not branched.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+               "r"((int)pred)
+               : "memory");
+}
+
+// One bulk copy of `bytes` from global to shared memory, completing on `bar`
+// (whose phase expects the bytes).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void consumers_sync() { named_sync(1, N_CONSUMERS); }
+__device__ __forceinline__ void warpgroup_sync() { named_sync(2 + (threadIdx.x >> 7), 128); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N> __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < KC; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + warp * 16 * lda + k0 + kk, lda);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> b;
-      wmma::load_matrix_sync(b, slab + f * 16 * LDS_ + kk, LDS_);
-      wmma::mma_sync(acc[f], a, b, acc[f]);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// K-major operand in the 128-byte swizzle: rows of 128 bytes, 8-row groups
+// 1024 bytes apart (stride byte offset), tile bases 1024-aligned; a k-step
+// advances the start address by 32 bytes inside the row.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// Byte b (< 128) of row r of a 128-byte-row swizzled tile.
+__host__ __device__ __forceinline__ int swz(int r, int b) { return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15); }
+
+// Byte b of row r of a warpgroup's activation region: 128-byte column
+// blocks of WG_ROWS rows each.
+__device__ __forceinline__ int act_off(int r, int b) { return (b >> 7) * (WG_ROWS * 128) + swz(r, b & 127); }
+
+struct SwRow {  // one row of a swizzled tile
+  unsigned char* p;
+  int r;
+  __device__ __forceinline__ unsigned char* at(int b) const { return p + ((((b >> 4) ^ r) & 7) << 4) + (b & 15); }
+};
+
+template <typename T, int N>
+__device__ __forceinline__ void mma(typename Tr<T>::AccT (&d)[N / 2], uint64_t a, uint64_t b) {
+  if constexpr (sizeof(T) == 2)
+    wgmma_bf16<N>(d, a, b, 1);
+  else
+    wgmma_s8<N>(d, a, b, 1);
+}
+
+// The consumers' position in the weight ring.
+struct Ring {
+  uint32_t stage0;  // shared address of stage 0
+  uint32_t full0;   // full barriers, 8 bytes apart
+  uint32_t empty0;  // empty barriers
+  int k;            // slabs consumed since the launch
+};
+
+// d1 (+ d2) (+)= A . B^T over KB bytes of depth, B the next ceil(KB / 128)
+// slabs of the stream ([N1 (+ N2) rows x 128 B] each; d2 takes rows N1..),
+// A this warpgroup's 64 rows at shared address `a`, its 128-byte column
+// blocks `a_kbs` bytes apart. Zeroes the accumulators first when ZERO (a
+// template argument: a runtime flag would keep the accumulators live across
+// a whole step, and put the compiler's wgmma fences on a divergent path).
+// Each slab's stage is released once the products reading it completed.
+template <typename T, int N1, int N2, int KB, int RING, int STAGE, bool ZERO = true>
+__device__ __forceinline__ void product(typename Tr<T>::AccT (&d1)[N1 / 2],
+                                        typename Tr<T>::AccT (&d2)[N2 > 0 ? N2 / 2 : 1], uint32_t a, int a_kbs,
+                                        Ring& ring) {
+  constexpr int NS = (KB + 127) / 128;
+  if constexpr (ZERO) {
+#pragma unroll
+    for (int i = 0; i < N1 / 2; ++i) d1[i] = 0;
+    if constexpr (N2 > 0) {
+#pragma unroll
+      for (int i = 0; i < N2 / 2; ++i) d2[i] = 0;
     }
+  }
+  wgmma_fence();
+  int prev = 0;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int s = ring.k % RING;
+    mbar_wait(ring.full0 + 8 * s, (ring.k / RING) & 1);
+    const uint32_t b = ring.stage0 + s * STAGE;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < cmin(4, (KB - 128 * j) / 32)) {
+        const uint64_t da = desc(a + j * a_kbs + 32 * kk);
+        mma<T, N1>(d1, da, desc(b + 32 * kk));
+        if constexpr (N2 > 0) mma<T, N2>(d2, da, desc(b + N1 * 128 + 32 * kk));
+      }
+    }
+    wgmma_commit();
+    if (j > 0) {
+      wgmma_wait<1>();
+      mbar_arrive_if(ring.empty0 + 8 * prev, (threadIdx.x & 127) == 0);
+    }
+    prev = s;
+    ++ring.k;
+  }
+  wgmma_wait<0>();
+  mbar_arrive_if(ring.empty0 + 8 * prev, (threadIdx.x & 127) == 0);
+  fence_acc(d1);
+  if constexpr (N2 > 0) fence_acc(d2);
+}
+
+// f(local row, column, value at column, value at column + 1) over this
+// thread's accumulator pairs of a 64 x N product, in its first NJ blocks of
+// 8 columns.
+template <int N, int NJ, typename AccT, typename Fn>
+__device__ __forceinline__ void for_pairs(const AccT (&d)[N / 2], Fn f) {
+  const int t = threadIdx.x & 127;
+  const int r0 = (t >> 5) * 16 + ((t & 31) >> 2), c0 = 2 * (t & 3);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    f(r0, c0 + 8 * j, d[4 * j], d[4 * j + 1]);
+    f(r0 + 8, c0 + 8 * j, d[4 * j + 2], d[4 * j + 3]);
   }
 }
 
-// acc[f] += A[this warp's 16 rows, 0:K_PAD] . Wt[n0 + 16 f + (0..15), 0:K_PAD]^T.
-// Wt is row-major [*, K_SRC]; inputs K_SRC..K_PAD-1 read as zeros. K_SRC is
-// a multiple of 8 and K_PAD of 16. Weights stored in whole 64-deep slabs
-// (every hidden layer, the F=10 encoding) stage and multiply in 64-deep
-// steps; the rest (the 40- and 56-row encodings, the 96-wide heads) in
-// 16-deep column blocks.
-template <typename T, int NF, int K_SRC, int K_PAD>
-__device__ __forceinline__ void mma_acc(AccFrag<T> (&acc)[NF], const T* A, int lda,
-                                        const T* __restrict__ Wt, int n0, T* slab) {
-  typedef typename Tr<T>::Vec8 V;
-  constexpr int LDS_ = slab_ld<T>();
-  if constexpr (K_SRC == K_PAD && K_PAD % SLAB_K == 0) {
-    constexpr int VPR = SLAB_K / 8;
-    for (int k0 = 0; k0 < K_PAD; k0 += SLAB_K) {
-      for (int v = threadIdx.x; v < NF * 16 * VPR; v += NTHREADS) {
-        const int r = v / VPR, c = (v % VPR) * 8;
-        *reinterpret_cast<V*>(slab + r * LDS_ + c) =
-            *reinterpret_cast<const V*>(Wt + (size_t)(n0 + r) * K_SRC + k0 + c);
-      }
-      __syncthreads();
-      mma_slab<T, NF, SLAB_K>(acc, A, lda, k0, slab);
-      __syncthreads();
-    }
-  } else {
-    for (int k0 = 0; k0 < K_PAD; k0 += SLAB_K) {
-      const int kc = min(SLAB_K, K_PAD - k0);
-      for (int kk = 0; kk < kc; kk += 16) {
-        for (int v = threadIdx.x; v < NF * 16 * 2; v += NTHREADS) {
-          const int r = v >> 1, c = (v & 1) * 8;
-          V val = V{};
-          if (k0 + kk + c < K_SRC)
-            val = *reinterpret_cast<const V*>(Wt + (size_t)(n0 + r) * K_SRC + k0 + kk + c);
-          *reinterpret_cast<V*>(slab + kk + r * LDS_ + c) = val;
-        }
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kc; kk += 16) mma_slab<T, NF, 16>(acc, A, lda, k0 + kk, slab + kk);
-      __syncthreads();
-    }
-  }
-}
-
-// Epilogue kinds: what a layer's accumulators become.
+// Epilogue kinds: what a product's accumulators become.
 enum {
-  E_BF16_RELU,   // bf16 dst = relu(acc + b_f32)
-  E_BF16_LIN,    // bf16 dst = acc + b_f32
-  E_BF16_VIEW,   // bf16 dst = relu(acc + hvenc_f32 + b_f32)
+  E_BF16_RELU,   // bf16 act = relu(acc + b_f32)
+  E_BF16_LIN,    // bf16 act = acc + b_f32
+  E_BF16_VIEW,   // bf16 act = relu(acc + hvenc_f32 + b_f32)
   E_F32,         // out32 = acc + b_f32                      (alpha/rgb heads)
-  E_Q_RELU,      // s8 dst = clip((acc + b_i32) >> k, 0, 127)
-  E_Q_TO_BF16,   // bf16 dst = bf16_rn(max(acc + b_i32, 0)) (int8-trunk last layer)
-  E_Q_FEAT,      // s8 dst = clip((acc + b_i32) >> k_feat, -127, 127)
-  E_Q_VIEW,      // s8 dst = clip((acc + hvenc_i32) >> k_hv, 0, 127)
+  E_Q_RELU,      // s8 act = clip((acc + b_i32) >> k, 0, 127)
+  E_Q_TO_BF16,   // bf16 act = bf16_rn(max(acc + b_i32, 0)) (int8-trunk last layer)
+  E_Q_FEAT,      // s8 act = clip((acc + b_i32) >> k_feat, -127, 127)
+  E_Q_VIEW,      // s8 act = clip((acc + hvenc_i32) >> k_hv, 0, 127)
   E_Q_ALPHA,     // out32 = f32(acc + b_i32) * s_alpha
   E_Q_RGB,       // out32 = f32(acc) * s_rgb + b_f32
   E_Q_RAW,       // out32 = f32(acc)                        (K8 "epilogue")
 };
 
-struct Epi {
-  const void* bias;
-  const void* hvenc;   // [RB][hv_ld] per-ray view term (E_BF16_VIEW, E_Q_VIEW)
-  int hv_ld;
-  int shift;
-  float scale;
-  void* dst;           // activation tile (bf16 or s8)
-  int ldd;
-  float* out32;        // fp32 columns < ncols, row stride ostride
-  int ostride;
-  int ncols;
-};
-
-// The pointers come as __restrict__ parameters: read through `ep`, a bias
-// or view-term load could not move past a store to the activation tile,
-// which the compiler must assume may alias it, and the epilogue's loads
-// and stores would serialise.
-template <typename T, int NF, int KIND>
-__device__ __forceinline__ void epilogue(AccFrag<T> (&acc)[NF], int n0, const void* __restrict__ bias_,
-                                         const void* __restrict__ hvenc_, void* __restrict__ dst_,
-                                         float* __restrict__ out32, const Epi& ep,
-                                         typename Tr<T>::AccT* stage) {
-  using namespace nvcuda;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ldd = ep.ldd, hv_ld = ep.hv_ld, shift = ep.shift, ostride = ep.ostride, ncols = ep.ncols;
-  const float scale = ep.scale;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    wmma::store_matrix_sync(stage, acc[f], LDST, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = e & 15;
-      const int row = warp * 16 + r, col = n0 + f * 16 + c;
-      const auto v = stage[r * LDST + c];
-      if constexpr (KIND == E_BF16_RELU || KIND == E_BF16_LIN || KIND == E_BF16_VIEW || KIND == E_F32) {
-        float x = v;
-        if constexpr (KIND == E_BF16_VIEW) x += static_cast<const float*>(hvenc_)[(row % RB) * hv_ld + col];
-        x += static_cast<const float*>(bias_)[col];
-        if constexpr (KIND == E_BF16_RELU || KIND == E_BF16_VIEW) x = fmaxf(x, 0.f);
-        if constexpr (KIND == E_F32) {
-          if (col < ncols) out32[row * ostride + col] = x;
-        } else {
-          static_cast<bf16*>(dst_)[row * ldd + col] = __float2bfloat16(x);
-        }
-      } else if constexpr (KIND == E_Q_RELU || KIND == E_Q_FEAT) {
-        const int pre = v + static_cast<const int*>(bias_)[col];
-        const int lo = KIND == E_Q_RELU ? 0 : -127;
-        static_cast<s8*>(dst_)[row * ldd + col] = (s8)min(max(pre >> shift, lo), 127);
-      } else if constexpr (KIND == E_Q_TO_BF16) {
-        const int pre = v + static_cast<const int*>(bias_)[col];
-        static_cast<bf16*>(dst_)[row * ldd + col] = __int2bfloat16_rn(max(pre, 0));
-      } else if constexpr (KIND == E_Q_VIEW) {
-        const int pre = v + static_cast<const int*>(hvenc_)[(row % RB) * hv_ld + col];
-        static_cast<s8*>(dst_)[row * ldd + col] = (s8)min(max(pre >> shift, 0), 127);
-      } else if constexpr (KIND == E_Q_ALPHA) {
-        const int pre = v + static_cast<const int*>(bias_)[col];
-        if (col < ncols) out32[row * ostride + col] = (float)pre * scale;
-      } else if constexpr (KIND == E_Q_RGB) {
-        if (col < ncols)
-          out32[row * ostride + col] = __fadd_rn(__fmul_rn((float)v, scale), static_cast<const float*>(bias_)[col]);
-      } else if constexpr (KIND == E_Q_RAW) {
-        if (col < ncols) out32[row * ostride + col] = (float)v;
+// Activation kinds: columns < NACT (a multiple of 8) of a 64 x N product,
+// written to this warpgroup's region `act` (rows local), with no test per
+// element. The view term hvenc is [RB][hv_ld], per ray (a row's ray is its
+// row mod RB).
+template <int KIND, int N, int NACT = N, typename AccT>
+__device__ __forceinline__ void epilogue(const AccT (&d)[N / 2], unsigned char* __restrict__ act,
+                                         const void* __restrict__ bias_, const void* __restrict__ hvenc_, int hv_ld,
+                                         int shift) {
+  for_pairs<N, NACT / 8>(d, [&](int r, int c, AccT v0, AccT v1) {
+    const int ray = r % RB;
+    if constexpr (KIND == E_BF16_RELU || KIND == E_BF16_LIN || KIND == E_BF16_VIEW) {
+      float x0 = v0, x1 = v1;
+      if constexpr (KIND == E_BF16_VIEW) {
+        const float2 hv = *reinterpret_cast<const float2*>(static_cast<const float*>(hvenc_) + ray * hv_ld + c);
+        x0 += hv.x;
+        x1 += hv.y;
       }
+      const float2 b = *reinterpret_cast<const float2*>(static_cast<const float*>(bias_) + c);
+      x0 += b.x;
+      x1 += b.y;
+      if constexpr (KIND != E_BF16_LIN) {
+        x0 = fmaxf(x0, 0.f);
+        x1 = fmaxf(x1, 0.f);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(act + act_off(r, 2 * c)) = __floats2bfloat162_rn(x0, x1);
+    } else if constexpr (KIND == E_Q_TO_BF16) {
+      const int2 b = *reinterpret_cast<const int2*>(static_cast<const int*>(bias_) + c);
+      __nv_bfloat162 o;
+      o.x = __int2bfloat16_rn(max((int)v0 + b.x, 0));
+      o.y = __int2bfloat16_rn(max((int)v1 + b.y, 0));
+      *reinterpret_cast<__nv_bfloat162*>(act + act_off(r, 2 * c)) = o;
+    } else {
+      static_assert(KIND == E_Q_RELU || KIND == E_Q_FEAT || KIND == E_Q_VIEW, "an activation kind");
+      int p0, p1, lo = 0;
+      if constexpr (KIND == E_Q_VIEW) {
+        const int2 hv = *reinterpret_cast<const int2*>(static_cast<const int*>(hvenc_) + ray * hv_ld + c);
+        p0 = (int)v0 + hv.x;
+        p1 = (int)v1 + hv.y;
+      } else {
+        const int2 b = *reinterpret_cast<const int2*>(static_cast<const int*>(bias_) + c);
+        p0 = (int)v0 + b.x;
+        p1 = (int)v1 + b.y;
+        if constexpr (KIND == E_Q_FEAT) lo = -127;
+      }
+      const int q0 = min(max(p0 >> shift, lo), 127), q1 = min(max(p1 >> shift, lo), 127);
+      *reinterpret_cast<unsigned short*>(act + act_off(r, c)) = (unsigned short)((q0 & 255) | ((q1 & 255) << 8));
     }
-    __syncwarp();
+  });
+}
+
+// fp32 kinds: columns [col_base, col_base + ncols) of a 64 x N product, all
+// in its 8-column block J0, to out32[global row * ostride + column -
+// col_base], the bias indexed alike. The block's accumulators are copied
+// out unconditionally first: read under the per-column test, they would
+// put the compiler's wgmma fences on a divergent path.
+template <int KIND, int N, int J0, typename AccT>
+__device__ __forceinline__ void epilogue_out(const AccT (&d)[N / 2], const void* __restrict__ bias_, float scale,
+                                             float* __restrict__ out32, int ostride, int col_base, int ncols) {
+  static_assert(KIND == E_F32 || KIND == E_Q_ALPHA || KIND == E_Q_RGB || KIND == E_Q_RAW, "an fp32 kind");
+  AccT v[4] = {d[4 * J0], d[4 * J0 + 1], d[4 * J0 + 2], d[4 * J0 + 3]};
+  fence_acc(v);
+  const int t = threadIdx.x & 127;
+  const int r0 = (threadIdx.x >> 7) * WG_ROWS + (t >> 5) * 16 + ((t & 31) >> 2);
+  const int o0 = 8 * J0 + 2 * (t & 3) - col_base;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int oc = o0 + (i & 1);
+    if (oc < 0 || oc >= ncols) continue;
+    float* dst = out32 + (r0 + 8 * (i >> 1)) * ostride + oc;
+    if constexpr (KIND == E_F32) *dst = (float)v[i] + static_cast<const float*>(bias_)[oc];
+    if constexpr (KIND == E_Q_ALPHA) *dst = (float)((int)v[i] + static_cast<const int*>(bias_)[oc]) * scale;
+    if constexpr (KIND == E_Q_RGB) *dst = __fadd_rn(__fmul_rn((float)v[i], scale), static_cast<const float*>(bias_)[oc]);
+    if constexpr (KIND == E_Q_RAW) *dst = (float)v[i];
   }
 }
 
-template <int N> __host__ __device__ constexpr int chunk_cols() {
-  return N % 128 == 0 ? 128 : N % 64 == 0 ? 64 : N % 32 == 0 ? 32 : 16;
-}
-
-// One layer: epi(A[:, 0:K_PAD] . Wt^T (+ E[:, 0:KS_PAD] . Wskip^T)) over
-// N_OUT columns, in chunks of chunk_cols<N_OUT>(); KS_PAD = 0 for a layer
-// that never takes the skip. In the int8 modes the skip product comes first
-// and is shifted by skip_shift before the main product adds to it (integer
-// sums are exact in any order).
-template <typename T, int KIND, int N_OUT, int K_SRC, int K_PAD, int KS_SRC = 0, int KS_PAD = 0>
-__device__ void dense(const T* A, int lda, const void* Wt, const T* E, int lde, const void* Wskip,
-                      int skip_shift, const Epi& ep, T* slab, typename Tr<T>::AccT* stage) {
-  constexpr int NCH_ = chunk_cols<N_OUT>();
-  constexpr int NF = NCH_ / 16;
-  constexpr bool INT = sizeof(T) == 1;
-  for (int n0 = 0; n0 < N_OUT; n0 += NCH_) {
-    AccFrag<T> acc[NF];
-#pragma unroll
-    for (int f = 0; f < NF; ++f) nvcuda::wmma::fill_fragment(acc[f], typename Tr<T>::AccT(0));
-    if constexpr (INT && KS_PAD > 0) {
-      if (Wskip != nullptr) {
-        mma_acc<T, NF, KS_SRC, KS_PAD>(acc, E, lde, static_cast<const T*>(Wskip), n0, slab);
-#pragma unroll
-        for (int f = 0; f < NF; ++f)
-          for (int t = 0; t < acc[f].num_elements; ++t)
-            acc[f].x[t] = skip_shift >= 0 ? acc[f].x[t] >> skip_shift : acc[f].x[t] << -skip_shift;
-      }
-    }
-    mma_acc<T, NF, K_SRC, K_PAD>(acc, A, lda, static_cast<const T*>(Wt), n0, slab);
-    if constexpr (!INT && KS_PAD > 0) {
-      if (Wskip != nullptr) mma_acc<T, NF, KS_SRC, KS_PAD>(acc, E, lde, static_cast<const T*>(Wskip), n0, slab);
-    }
-    epilogue<T, NF, KIND>(acc, n0, ep.bias, ep.hvenc, ep.dst, ep.out32, ep, stage);
-  }
-}
-
-__device__ __forceinline__ Epi epi_act(const void* bias, void* dst, int ldd, int shift = 0) {
-  Epi e = {};
-  e.bias = bias;
-  e.dst = dst;
-  e.ldd = ldd;
-  e.shift = shift;
-  return e;
-}
-
-__device__ __forceinline__ Epi epi_out(const void* bias, float* out32, int ostride, int ncols,
-                                       float scale = 1.f) {
-  Epi e = {};
-  e.bias = bias;
-  e.out32 = out32;
-  e.ostride = ostride;
-  e.ncols = ncols;
-  e.scale = scale;
-  return e;
-}
+// ---------------------------------------------------------------------------
+// Encoding (the earlier kernel's arithmetic), into a swizzled tile row.
 
 // sincos_poly (nerf_mlp.cuh) with every product and sum rounded on its own,
 // in the plain version's order of operations (fused_render.py::_sincos_poly).
@@ -381,41 +493,57 @@ __device__ __forceinline__ void sincos_poly_rn(float p, float& s, float& c) {
   c = (swap ? -s0 : c0) * sign;
 }
 
+// encode_coord<F> (nerf_mlp.cuh) into a swizzled bf16 row.
+template <int F>
+__device__ __forceinline__ void encode_coord_sw(SwRow e, int c, float p) {
+  auto put = [&](int k, float x) { *reinterpret_cast<bf16*>(e.at(2 * k)) = __float2bfloat16(x); };
+  put(c, p);
+  float sn, cs;
+  sincos_poly(p, sn, cs);
+  for (int k = 0; k < F; ++k) {
+    put(3 + 3 * k + c, sn);
+    put(3 + 3 * F + 3 * k + c, cs);
+    const float s2 = 2.f * sn * cs;
+    cs = 1.f - 2.f * sn * sn;
+    sn = s2;
+  }
+}
+
+static __device__ __forceinline__ s8 quantize_rn(float x, float qs) {
+  return (s8)fminf(fmaxf(rintf(__fmul_rn(x, qs)), -127.f), 127.f);
+}
+
 // One coordinate's encoding rows from its base phase p = o + z d,
 // int8-quantized: clip(rint(x * qscale), -127, 127) of encode_coord<F>'s
 // values, the whole fp32 chain uncontracted (header note).
 template <int F>
-__device__ __forceinline__ void encode_coord_q(s8* e, int c, float o, float z, float d, float qs) {
-  auto q = [qs](float x) { return (s8)fminf(fmaxf(rintf(__fmul_rn(x, qs)), -127.f), 127.f); };
+__device__ __forceinline__ void encode_coord_q(SwRow e, int c, float o, float z, float d, float qs) {
   const float p = __fadd_rn(o, __fmul_rn(z, d));
-  e[c] = q(p);
+  *e.at(c) = quantize_rn(p, qs);
   float sn, cs;
   sincos_poly_rn(p, sn, cs);
   for (int k = 0; k < F; ++k) {
-    e[3 + 3 * k + c] = q(sn);
-    e[3 + 3 * F + 3 * k + c] = q(cs);
+    *e.at(3 + 3 * k + c) = quantize_rn(sn, qs);
+    *e.at(3 + 3 * F + 3 * k + c) = quantize_rn(cs, qs);
     const float s2 = __fmul_rn(__fmul_rn(2.f, sn), cs);
     cs = __fsub_rn(1.f, __fmul_rn(__fmul_rn(2.f, sn), sn));
     sn = s2;
   }
 }
 
-// K8's encoding stages. Templates and a static function: a library that
-// launches no ablation kernel compiles none of them.
-static __device__ __forceinline__ s8 quantize_rn(float x, float qs) {
-  return (s8)fminf(fmaxf(rintf(__fmul_rn(x, qs)), -127.f), 127.f);
-}
+// K8's encoding stages. Templates: a library that launches no ablation
+// kernel compiles none of them.
 
 // "enc-nobase": encode_coord_q with the base sin/cos replaced by p * 0.11 and
 // p * 0.12 (the ladder kept).
 template <int F>
-__device__ __forceinline__ void encode_coord_nobase_q(s8* e, int c, float o, float z, float d, float qs) {
+__device__ __forceinline__ void encode_coord_nobase_q(SwRow e, int c, float o, float z, float d, float qs) {
   const float p = __fadd_rn(o, __fmul_rn(z, d));
-  e[c] = quantize_rn(p, qs);
+  *e.at(c) = quantize_rn(p, qs);
   float sn = __fmul_rn(p, 0.11f), cs = __fmul_rn(p, 0.12f);
   for (int k = 0; k < F; ++k) {
-    e[3 + 3 * k + c] = quantize_rn(sn, qs);
-    e[3 + 3 * F + 3 * k + c] = quantize_rn(cs, qs);
+    *e.at(3 + 3 * k + c) = quantize_rn(sn, qs);
+    *e.at(3 + 3 * F + 3 * k + c) = quantize_rn(cs, qs);
     const float s2 = __fmul_rn(__fmul_rn(2.f, sn), cs);
     cs = __fsub_rn(1.f, __fmul_rn(__fmul_rn(2.f, sn), sn));
     sn = s2;
@@ -424,52 +552,55 @@ __device__ __forceinline__ void encode_coord_nobase_q(s8* e, int c, float o, flo
 
 // The encoding stages of K8 that run after the per-coordinate loop of a step
 // (that loop has encoded the group-start rows for A_ENC / A_NOCONCAT and
-// nothing for A_DIRECT). Rows are s_local * RB + ray_local; `cache` holds the
-// features of each ray's latest group start, for groups longer than a step.
+// nothing for A_DIRECT), by the consumer threads. Rows are s_local * RB +
+// ray_local of the swizzled s8 tile E; `cache` holds the features of each
+// ray's latest group start in plain order, for groups longer than a step.
 template <int F, int ABL>
-__device__ __forceinline__ void ablate_encode(s8* E, int lde, s8* cache, const float* __restrict__ o_ph,
-                              const float* __restrict__ d_ph, const float* __restrict__ zv, int R, int S,
-                              int g, int ray0, int sps, float qs) {
+__device__ __forceinline__ void ablate_encode(unsigned char* E, unsigned char* cache, const float* __restrict__ o_ph,
+                                              const float* __restrict__ d_ph, const float* __restrict__ zv, int R,
+                                              int S, int g, int ray0, int sps, float qs) {
   constexpr int LIVE = 3 + 6 * F;
   constexpr int SRC = round_up(LIVE, 8);
   const int tid = threadIdx.x;
   if constexpr ((ABL & A_DIRECT) != 0) {
     // sin(o_ph + z d_ph) on every live row of the phase vectors (identity
     // rows 0-2; the cos rows carry their pi/2 in o_ph), accurate sinf.
-    for (int i = tid; i < MP * LIVE; i += NTHREADS) {
+    for (int i = tid; i < MP * LIVE; i += N_CONSUMERS) {
       const int row = i / LIVE, j = i % LIVE;
       const int s = g * SG + row / RB;
       const int ray = min(ray0 + row % RB, R - 1);
       const float z = s < S ? zv[(size_t)s * R + ray] : 0.f;
       const float ph = __fadd_rn(o_ph[(size_t)j * R + ray], __fmul_rn(z, d_ph[(size_t)j * R + ray]));
-      E[row * lde + j] = quantize_rn(j < 3 ? ph : sinf(ph), qs);
+      *SwRow{E + row * 128, row}.at(j) = quantize_rn(j < 3 ? ph : sinf(ph), qs);
     }
   }
   if constexpr ((ABL & (A_ENC | A_NOCONCAT)) != 0) {
-    __syncthreads();
+    consumers_sync();
     // Rows past their group's start take its features: from this step's
     // rows, or from the cache when the group began in an earlier step
     // (sample groups are powers of two, so a group longer than a step starts
     // at a step's first row). Copied in 16-byte words, the row's zero pad
-    // included, so the copy costs far less than the encoding it replaces.
+    // included.
     constexpr int V = round_up(LIVE, 16) / 16;
-    for (int i = tid; i < MP * V; i += NTHREADS) {
+    for (int i = tid; i < MP * V; i += N_CONSUMERS) {
       const int row = i / V, v = i % V, rl = row % RB;
       const int s = g * SG + row / RB;
       const int start = s - s % sps;
-      uint4* dst = reinterpret_cast<uint4*>(E + row * lde) + v;
-      uint4* cached = reinterpret_cast<uint4*>(cache + rl * lde) + v;
-      if (start != s)
-        *dst = start >= g * SG ? reinterpret_cast<const uint4*>(E + ((start - g * SG) * RB + rl) * lde)[v] : *cached;
-      else if (sps >= SG)
+      uint4* dst = reinterpret_cast<uint4*>(SwRow{E + row * 128, row}.at(16 * v));
+      uint4* cached = reinterpret_cast<uint4*>(cache + rl * 128) + v;
+      if (start != s) {
+        const int src = (start - g * SG) * RB + rl;
+        *dst = start >= g * SG ? *reinterpret_cast<const uint4*>(SwRow{E + src * 128, src}.at(16 * v)) : *cached;
+      } else if (sps >= SG) {
         *cached = *dst;
+      }
     }
   }
   if constexpr ((ABL & A_NOCONCAT) != 0) {
-    __syncthreads();
+    consumers_sync();
     // The piece-sum p + sin p + cos p + ... of coordinate 0, quantized, added
     // to every stored row in int32 and narrowed to int8 with wrap-around.
-    for (int row = tid; row < MP; row += NTHREADS) {
+    for (int row = tid; row < MP; row += N_CONSUMERS) {
       const int s = g * SG + row / RB;
       const int ray = min(ray0 + row % RB, R - 1);
       const float z = s < S ? zv[(size_t)s * R + ray] : 0.f;
@@ -483,107 +614,174 @@ __device__ __forceinline__ void ablate_encode(s8* E, int lde, s8* cache, const f
         acc = __fadd_rn(__fadd_rn(acc, sn), cs);
       }
       const int a = (int)fminf(fmaxf(rintf(__fmul_rn(acc, qs)), -127.f), 127.f);
-      for (int j = 0; j < SRC; ++j) E[row * lde + j] = (s8)((((int)E[row * lde + j] + a + 128) & 255) - 128);
+      const SwRow e{E + row * 128, row};
+      for (int j = 0; j < SRC; ++j) {
+        s8* x = reinterpret_cast<s8*>(e.at(j));
+        *x = (s8)((((int)*x + a + 128) & 255) - 128);
+      }
     }
   }
 }
 
-// Shared-memory layout of one block (bytes), for width W and F frequencies.
-template <int W, int F>
-struct Smem {
-  static constexpr int ENC_LIVE = 3 + 6 * F;
-  static constexpr int ENC_SRC = round_up(ENC_LIVE, 8);   // stored encoding rows
-  static constexpr int ENCP = round_up(ENC_LIVE, 16);     // WMMA k-depth of the encoding
+// ---------------------------------------------------------------------------
+// Shared-memory layout of one block (bytes from a 1024-aligned base), for
+// width W, F frequencies, the pass, and K8's per-ray cache.
+template <int W, int F, bool DENSITY_ONLY, bool ABLATE>
+struct Lay {
   static constexpr int HALF_ = W / 2;
-  static constexpr int LDA_B = W + 8, LDA_Q = W + 16;     // activation row strides (elements)
-  static constexpr int LDE_B = ENCP + 8, LDE_Q = ENCP + 16;
-  static constexpr int BUF = round_up(MP * LDA_B * 2, 128);
-  static constexpr int EBYTES = round_up(MP * LDE_B * 2, 128);
-  static constexpr int SLAB = round_up(SLAB_ROWS * (SLAB_K + 8) * 2, 128);
-  static constexpr int STAGE = NWARPS * 16 * LDST * 4;
-  static constexpr int MISC = 3 * MP * 4 + MP * 4 * 4 + RB * 8 * 4 + 32 * 4;
-  static constexpr int HV = RB * HALF_ * 4;
-  static constexpr int CACHE = RB * LDE_Q;                // K8: one s8 encoding per ray
-  static constexpr size_t bytes(bool density_only) {
-    return 2 * BUF + EBYTES + SLAB + STAGE + MISC + (density_only ? 0 : HV);
-  }
+  static constexpr int ACT = WG_ROWS * W * 2;                    // one warpgroup's rows, bf16-sized
+  static constexpr int ENC_BYTES = MP * 128;                           // the step's encoding, one column block
+  static constexpr int STAGE = (DENSITY_ONLY || fa_split(W) ? W : W + 16) * 128;  // largest slab
+  static constexpr int HV = DENSITY_ONLY ? 0 : RB * HALF_ * 4;
+  static constexpr int CACHE = ABLATE ? RB * 128 : 0;
+  static constexpr int MISC = (2 * MP + 2 * MP + MP + 4 * MP + RB * 8) * 4 + 16;  // zs, ds, sig, rgb, rays, flags
+  static constexpr int O_ACT = 0, O_ENC = 2 * ACT, O_STAGES = O_ENC + ENC_BYTES;
+  static constexpr int FIXED = O_STAGES + HV + CACHE + round_up(MISC, 16) + 1024;  // + base alignment
+  static constexpr int RING = cmin(4, (SMEM_LIMIT - FIXED - 9 * 8) / STAGE);
+  static constexpr int O_HV = O_STAGES + RING * STAGE, O_CACHE = O_HV + HV, O_MISC = O_CACHE + CACHE;
+  static constexpr int O_BARS = O_MISC + round_up(MISC, 16);
+  static constexpr int BYTES = O_BARS + (2 * RING + 1) * 8 + 1024;
+  static_assert(RING >= 2, "the weight ring needs two stages");
+  static_assert(BYTES <= SMEM_LIMIT, "shared memory");
+  static_assert(ACT % 1024 == 0 && STAGE % 1024 == 0, "swizzled tiles are 1024-aligned");
 };
 
-// Trunk layer i of the mode's kind, inputs A [MP, K_PAD] (the encoding for
-// layer 0, the previous activations after it) and, on the skip layer, the
-// encoding E through Wskip.
-template <typename TT, int MODE, int W, int F, int K_SRC, int K_PAD, int KS_SRC = 0, int KS_PAD = 0>
-__device__ __forceinline__ void trunk_layer(const TT* A, int lda, const TT* E, int lde, const NetPtrs& net,
-                                            const Quant& qa, int i, void* dst, TT* slab,
-                                            typename Tr<TT>::AccT* stage) {
-  typedef Smem<W, F> L;
-  const void* wskip = i == net.skip_layer ? net.w_skip : nullptr;
-  if constexpr (MODE == MODE_BF16) {
-    dense<TT, E_BF16_RELU, W, K_SRC, K_PAD, KS_SRC, KS_PAD>(A, lda, net.w[i], E, lde, wskip, 0,
-                                                             epi_act(net.b[i], dst, L::LDA_B), slab, stage);
-  } else {
-    if (MODE == MODE_INT8_TRUNK && i == net.depth - 1)
-      dense<TT, E_Q_TO_BF16, W, K_SRC, K_PAD, KS_SRC, KS_PAD>(A, lda, net.w[i], E, lde, wskip, qa.skip_shift,
-                                                               epi_act(net.b[i], dst, L::LDA_B), slab, stage);
-    else
-      dense<TT, E_Q_RELU, W, K_SRC, K_PAD, KS_SRC, KS_PAD>(A, lda, net.w[i], E, lde, wskip, qa.skip_shift,
-                                                            epi_act(net.b[i], dst, L::LDA_Q, qa.shift[i]), slab,
-                                                            stage);
+// Slab rows of one step's weight stream in the consumers' order (the
+// packer's order, ops/fused_render.py::pack_weight_stream), for the launch
+// entries' check of the table they are given. Returns the count; full
+// selects the full pass's heads, heads = false stops after the trunk.
+__host__ inline int stream_rows(int W, int F, int mode, bool full, bool heads, int depth, int skip_layer,
+                                int* rows) {
+  const int et = mode == MODE_BF16 ? 2 : 1, eh = mode == MODE_INT8 ? 1 : 2;
+  int n = 0;
+  auto mat = [&](int nrows, int kb) {
+    for (int j = 0; j < (kb + 127) / 128; ++j)
+      if (n < MAX_SLABS) rows[n++] = nrows;
+      else ++n;
+  };
+  mat(W, enc_kb(F, et));
+  for (int i = 1; i < depth; ++i) {
+    if (i == skip_layer) mat(W, enc_kb(F, et));
+    mat(W, W * et);
   }
+  if (!heads) return n;
+  if (!full) {
+    mat(16, W * eh);
+  } else {
+    if (fa_split(W)) {
+      mat(16, W * eh);
+      mat(W, W * eh);
+    } else {
+      mat(W + 16, W * eh);
+    }
+    mat(W / 2, W * eh);
+    mat(16, W / 2 * eh);
+  }
+  return n;
+}
+
+// The producer: one thread keeps the ring full for n_groups steps of
+// st.n slabs, until the consumers raise `stop` (drain rule, header note).
+template <int RING, int STAGE>
+__device__ __forceinline__ void produce(const Stream& st, int n_groups, uint32_t stage0, uint32_t full0,
+                                        uint32_t empty0, uint32_t done, volatile int* stop, int* n_issued) {
+  const int total = st.n * n_groups;
+  int k = 0;
+  for (int j = 0; k < total; ++k) {
+    const int s = k % RING, u = k / RING;
+    if (u > 0) {
+      bool ok;
+      while (!(ok = mbar_try_wait(empty0 + 8 * s, (u - 1) & 1)) && !*stop) {
+      }
+      if (!ok) break;
+    }
+    if (*stop) break;
+    bulk_load(stage0 + s * STAGE, st.base + st.off[j], st.bytes[j], full0 + 8 * s);
+    if (++j == st.n) j = 0;
+  }
+  *n_issued = k;
+  mbar_arrive(done);
 }
 
 // One block's work: the served kernels with ABL = 0, K8 with an ablation
 // mask (then MODE_INT8, the full pass, eps 0 and `sps` the sample group of
 // A_ENC / A_NOCONCAT).
 template <int W, int F, int MODE, bool DENSITY_ONLY, int ABL>
-__device__ __forceinline__ void render_body(const NetPtrs& net, const Quant& qa, const float* __restrict__ o_ph,
-                                            const float* __restrict__ d_ph, const float* __restrict__ zv,
-                                            const float* __restrict__ dv, const bf16* __restrict__ venc,
-                                            float* __restrict__ out, int R, int S, float eps, int* live_groups,
-                                            int sps) {
+__device__ __forceinline__ void render_body(const NetPtrs& net, const Quant& qa, const Stream& st,
+                                            const float* __restrict__ o_ph, const float* __restrict__ d_ph,
+                                            const float* __restrict__ zv, const float* __restrict__ dv,
+                                            const bf16* __restrict__ venc, float* __restrict__ out, int R, int S,
+                                            float eps, int* live_groups, int sps) {
   static_assert(ABL == 0 || (MODE == MODE_INT8 && !DENSITY_ONLY), "K8 ablates the int8 full pass");
-  typedef Smem<W, F> L;
-  constexpr int HALF_ = L::HALF_;
+  typedef Lay<W, F, DENSITY_ONLY, ABL != 0> L;
+  constexpr int RING = L::RING, STAGE = L::STAGE, HALF_ = L::HALF_;
   // The trunk's element type; the heads' is s8 only in full int8 mode.
   typedef typename std::conditional<MODE == MODE_BF16, bf16, s8>::type TT;
   typedef typename std::conditional<MODE == MODE_INT8, s8, bf16>::type TH;
-  constexpr int LDT = MODE == MODE_BF16 ? L::LDA_B : L::LDA_Q;
-  constexpr int LDH = MODE == MODE_INT8 ? L::LDA_Q : L::LDA_B;
-  constexpr int LDEN = MODE == MODE_BF16 ? L::LDE_B : L::LDE_Q;
+  typedef typename Tr<TT>::AccT TAcc;
+  typedef typename Tr<TH>::AccT HAcc;
+  constexpr int ENC_KB = enc_kb(F, sizeof(TT));
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* bufs[2] = {smem, smem + L::BUF};
-  unsigned char* Eraw = smem + 2 * L::BUF;
-  unsigned char* slab = Eraw + L::EBYTES;
-  float* stage_all = reinterpret_cast<float*>(slab + L::SLAB);
-  float* zs = stage_all + NWARPS * 16 * LDST;
-  float* ds = zs + MP;
-  float* sig = ds + MP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  unsigned char* E = smem + L::O_ENC;
+  float* zs = reinterpret_cast<float*>(smem + L::O_MISC);  // [2][MP], by step parity
+  float* ds = zs + 2 * MP;                                   // [2][MP]
+  float* sig = ds + 2 * MP;
   float* rgbraw = sig + MP;            // [MP][4]
   float* ray_state = rgbraw + MP * 4;  // [RB][8]: T, r, g, b, depth, acc
-  int* alive = reinterpret_cast<int*>(ray_state + RB * 8);
-  void* hvenc = alive + 32;            // [RB][HALF] fp32 (int32 in int8 mode), full mode only
+  int* flags = reinterpret_cast<int*>(ray_state + RB * 8);  // alive, stop, slabs issued
+  void* hvenc = smem + L::O_HV;        // [RB][HALF] fp32 (int32 in int8 mode), full pass only
+  const uint32_t full0 = saddr(smem + L::O_BARS), empty0 = full0 + 8 * RING, done = empty0 + 8 * RING;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int ray0 = blockIdx.x * RB;
-  float* stage = stage_all + warp * 16 * LDST;
-  TT* E = reinterpret_cast<TT*>(Eraw);
+  const int n_groups = (S + SG - 1) / SG;
 
-  // Zero the encoding's pad columns (WMMA reads them against zero weights).
-  for (int r = tid; r < MP; r += NTHREADS)
-    for (int b = L::ENC_LIVE * (int)sizeof(TT); b < LDEN * (int)sizeof(TT); ++b)
-      Eraw[r * LDEN * sizeof(TT) + b] = 0;
+  // Set-up by all three warpgroups: barriers, a zeroed encoding tile (its pad
+  // columns meet zero weights), the ray state.
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    mbar_init(done, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    flags[0] = 1;
+    flags[1] = 0;
+    flags[2] = 0;
+  }
+  for (int i = tid; i < L::ENC_BYTES / 16; i += RK_THREADS) reinterpret_cast<uint4*>(E)[i] = make_uint4(0, 0, 0, 0);
   if (tid < RB) {
     ray_state[tid * 8 + 0] = 1.f;
     for (int k = 1; k < 8; ++k) ray_state[tid * 8 + k] = 0.f;
   }
-  if (tid == 0) alive[0] = 1;
-  if (!DENSITY_ONLY) {
+  __syncthreads();
+
+  // The warpgroup's role, broadcast from lane 0 so that the compiler sees a
+  // warp-uniform branch: ptxas then budgets each side's registers by its
+  // setmaxnreg.
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == 2) {
+    // The producer warpgroup: one elected thread streams the weights.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(RK_PRODUCER_REGS));
+    if (tid == N_CONSUMERS)
+      produce<RING, STAGE>(st, n_groups, saddr(smem + L::O_STAGES), full0, empty0, done, flags + 1, flags + 2);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(RK_CONSUMER_REGS));
+
+  const int wg = tid >> 7, lane = tid & 31, warp = tid >> 5;
+  unsigned char* act = smem + L::O_ACT + wg * L::ACT;
+  const uint32_t act_s = saddr(act), enc_s = saddr(E) + wg * WG_ROWS * 128;
+  Ring ring{saddr(smem + L::O_STAGES), full0, empty0, 0};
+
+  if constexpr (!DENSITY_ONLY) {
     // The view encoding's contribution to the view layer is per ray:
     // W_view_enc . venc, once per ray, not once per sample. In int8 mode it
     // moves to the view accumulator's integer domain with the view bias and
     // the requant rounding offset folded in.
-    for (int i = tid; i < RB * HALF_; i += NTHREADS) {
+    for (int i = tid; i < RB * HALF_; i += N_CONSUMERS) {
       const int r = i / HALF_, n = i % HALF_;
       const int ray = min(ray0 + r, R - 1);
       float acc = 0.f;
@@ -598,118 +796,171 @@ __device__ __forceinline__ void render_body(const NetPtrs& net, const Quant& qa,
       }
     }
   }
-  __syncthreads();
 
-  const int n_groups = (S + SG - 1) / SG;
   int n_live = 0;
   for (int g = 0; g < n_groups; ++g) {
-    if (!alive[0]) {
-      // Every ray of the block is saturated: the remaining samples carry
-      // weight < eps. The density pass still owes their (zero) weights.
-      if (DENSITY_ONLY) {
-        for (int i = tid; i < (S - g * SG) * RB; i += NTHREADS) {
-          const int s = g * SG + i / RB, ray = ray0 + i % RB;
-          if (ray < R) out[(size_t)s * R + ray] = 0.f;
-        }
-      }
-      break;
-    }
-    ++n_live;
-    // Encode the step's points: row = s_local * RB + ray_local.
-    for (int i = tid; i < MP * 3; i += NTHREADS) {
+    // Encode the step's points (row = s_local * RB + ray_local); warp 0 may
+    // still be compositing the previous step, whose depths and intervals sit
+    // in the other half of zs/ds.
+    float* zg = zs + (g & 1) * MP;
+    float* dg = ds + (g & 1) * MP;
+    for (int i = tid; i < MP * 3; i += N_CONSUMERS) {
       const int row = i / 3, c = i % 3;
       const int s = g * SG + row / RB;
       const int ray = min(ray0 + row % RB, R - 1);
       const bool live = s < S;
       const float z = live ? zv[(size_t)s * R + ray] : 0.f;
       const float o = o_ph[(size_t)c * R + ray], d = d_ph[(size_t)c * R + ray];
+      const SwRow e{E + row * 128, row};
       if constexpr (MODE == MODE_BF16) {
-        encode_coord<F>(E + row * LDEN, c, o + z * d);
+        encode_coord_sw<F>(e, c, o + z * d);
       } else if constexpr ((ABL & (A_ENC | A_NOCONCAT)) != 0) {
-        if (s % sps == 0) encode_coord_q<F>(E + row * LDEN, c, o, z, d, qa.qscale);
+        if (s % sps == 0) encode_coord_q<F>(e, c, o, z, d, qa.qscale);
       } else if constexpr ((ABL & A_NOBASE) != 0) {
-        encode_coord_nobase_q<F>(E + row * LDEN, c, o, z, d, qa.qscale);
+        encode_coord_nobase_q<F>(e, c, o, z, d, qa.qscale);
       } else if constexpr ((ABL & A_DIRECT) == 0) {
-        encode_coord_q<F>(E + row * LDEN, c, o, z, d, qa.qscale);
+        encode_coord_q<F>(e, c, o, z, d, qa.qscale);
       }
       if (c == 0) {
-        zs[row] = z;
-        ds[row] = live ? dv[(size_t)s * R + ray] : 0.f;  // dist 0: alpha 0
+        zg[row] = z;
+        dg[row] = live ? dv[(size_t)s * R + ray] : 0.f;  // dist 0: alpha 0
       }
     }
     if constexpr ((ABL & (A_DIRECT | A_ENC | A_NOCONCAT)) != 0)
-      ablate_encode<F, ABL>(E, LDEN, reinterpret_cast<s8*>(static_cast<unsigned char*>(hvenc) + L::HV), o_ph,
-                            d_ph, zv, R, S, g, ray0, sps, qa.qscale);
-    __syncthreads();
+      ablate_encode<F, ABL>(E, smem + L::O_CACHE, o_ph, d_ph, zv, R, S, g, ray0, sps, qa.qscale);
+    fence_proxy_async();
+    consumers_sync();
 
-    // Density trunk.
-    typedef typename Tr<TT>::AccT TAcc;
-    TAcc* tstage = reinterpret_cast<TAcc*>(stage);
-    TT* tslab = reinterpret_cast<TT*>(slab);
-    trunk_layer<TT, MODE, W, F, L::ENC_SRC, L::ENCP>(E, LDEN, E, LDEN, net, qa, 0, bufs[0], tslab, tstage);
-    for (int i = 1; i < net.depth; ++i)
-      trunk_layer<TT, MODE, W, F, W, W, L::ENC_SRC, L::ENCP>(reinterpret_cast<const TT*>(bufs[(i - 1) & 1]), LDT,
-                                                             E, LDEN, net, qa, i, bufs[i & 1], tslab, tstage);
-    const TH* h = reinterpret_cast<const TH*>(bufs[(net.depth - 1) & 1]);
-    TH* other = reinterpret_cast<TH*>(bufs[net.depth & 1]);
-    typedef typename Tr<TH>::AccT HAcc;
-    HAcc* hstage = reinterpret_cast<HAcc*>(stage);
-    TH* hslab = reinterpret_cast<TH*>(slab);
+    // The stop decision, broadcast so that the compiler sees a uniform branch.
+    if (!__shfl_sync(0xffffffffu, flags[0], 0)) {
+      // Every ray of the block is saturated: the remaining samples carry
+      // weight < eps. The density pass still owes their (zero) weights.
+      if (DENSITY_ONLY) {
+        for (int i = tid; i < (S - g * SG) * RB; i += N_CONSUMERS) {
+          const int s = g * SG + i / RB, ray = ray0 + i % RB;
+          if (ray < R) out[(size_t)s * R + ray] = 0.f;
+        }
+      }
+      if (tid == 0) {
+        // Drain: wait for every slab the producer issued past this step.
+        *(volatile int*)(flags + 1) = 1;
+        mbar_wait(done, 0);
+        const int issued = *(volatile int*)(flags + 2);
+        for (int k = ring.k; k < issued; ++k) mbar_wait(full0 + 8 * (k % RING), (k / RING) & 1);
+      }
+      break;
+    }
+    ++n_live;
+
+    // Density trunk, this warpgroup's 64 rows.
+    {
+      TAcc acc[W / 2];
+      TAcc none[1];
+      // One call site per product kind, so that every layer's accumulators
+      // sit in the same registers, and no accumulator is written on a
+      // branch (the compiler would fence the wgmma there): zeros, the
+      // encoding product on layer 0 and the skip layer, the skip product's
+      // shift (by 0 elsewhere), the hidden product.
+      for (int i = 0; i < net.depth; ++i) {
+#pragma unroll
+        for (int t = 0; t < W / 2; ++t) acc[t] = 0;
+        if (i == 0 || i == net.skip_layer)
+          product<TT, W, 0, ENC_KB, RING, STAGE, false>(acc, none, enc_s, 0, ring);
+        if constexpr (MODE != MODE_BF16) {
+          const int j = i > 0 && i == net.skip_layer ? qa.skip_shift : 0;
+          const int lsh = max(-j, 0), rsh = max(j, 0);
+#pragma unroll
+          for (int t = 0; t < W / 2; ++t) acc[t] = (acc[t] << lsh) >> rsh;
+        }
+        if (i > 0) product<TT, W, 0, W * (int)sizeof(TT), RING, STAGE, false>(acc, none, act_s, WG_ROWS * 128, ring);
+        if constexpr (MODE == MODE_BF16) {
+          epilogue<E_BF16_RELU, W>(acc, act, net.b[i], nullptr, 0, 0);
+        } else {
+          if (MODE == MODE_INT8_TRUNK && i == net.depth - 1)
+            epilogue<E_Q_TO_BF16, W>(acc, act, net.b[i], nullptr, 0, 0);
+          else
+            epilogue<E_Q_RELU, W>(acc, act, net.b[i], nullptr, 0, qa.shift[i]);
+        }
+        fence_proxy_async();
+        warpgroup_sync();
+      }
+    }
+
+    // Heads, on the trunk's last activations h (this warpgroup's rows).
+    constexpr int KH = W * (int)sizeof(TH);
     if constexpr ((ABL & A_HEADS) != 0) {
       // "heads": the trunk's first four int8 activations read as sigma, rgb.
-      for (int i = tid; i < MP; i += NTHREADS) {
-        sig[i] = (float)h[i * LDH];
-        for (int c = 0; c < 3; ++c) rgbraw[i * 4 + c] = (float)h[i * LDH + 1 + c];
+      for (int r = tid & 127; r < WG_ROWS; r += 128) {
+        const int row = wg * WG_ROWS + r;
+        sig[row] = (float)*reinterpret_cast<const s8*>(act + act_off(r, 0));
+        for (int c = 0; c < 3; ++c) rgbraw[row * 4 + c] = (float)*reinterpret_cast<const s8*>(act + act_off(r, 1 + c));
       }
-    } else if constexpr (MODE == MODE_INT8) {
-      dense<TH, E_Q_ALPHA, 16, W, W>(h, LDH, net.w_alpha, nullptr, 0, nullptr, 0,
-                                     epi_out(net.b_alpha, sig, 1, 1, qa.s_alpha), hslab, hstage);
+    } else if constexpr (DENSITY_ONLY) {
+      HAcc a16[8], none[1];
+      product<TH, 16, 0, KH, RING, STAGE>(a16, none, act_s, WG_ROWS * 128, ring);
+      if constexpr (MODE == MODE_INT8)
+        epilogue_out<E_Q_ALPHA, 16, 0>(a16, net.b_alpha, qa.s_alpha, sig, 1, 0, 1);
+      else
+        epilogue_out<E_F32, 16, 0>(a16, net.b_alpha, 0.f, sig, 1, 0, 1);
     } else {
-      dense<TH, E_F32, 16, W, W>(h, LDH, net.w_alpha, nullptr, 0, nullptr, 0, epi_out(net.b_alpha, sig, 1, 1),
-                                 hslab, hstage);
-    }
-    if constexpr (!DENSITY_ONLY && (ABL & A_HEADS) == 0) {
-      TH* hv = const_cast<TH*>(h);
-      Epi ev = epi_act(MODE == MODE_INT8 ? nullptr : (const void*)net.b_view, hv, LDH,
-                       MODE == MODE_INT8 ? qa.k_hv : 0);
-      ev.hvenc = hvenc;
-      ev.hv_ld = HALF_;
-      if constexpr (MODE == MODE_INT8) {
-        dense<TH, E_Q_FEAT, W, W, W>(h, LDH, net.w_feat, nullptr, 0, nullptr, 0,
-                                     epi_act(net.b_feat, other, LDH, qa.k_feat), hslab, hstage);
-        dense<TH, E_Q_VIEW, HALF_, W, W>(other, LDH, net.w_view_h, nullptr, 0, nullptr, 0, ev, hslab, hstage);
-        if constexpr ((ABL & A_EPI) != 0)
-          dense<TH, E_Q_RAW, 16, HALF_, HALF_>(hv, LDH, net.w_rgb, nullptr, 0, nullptr, 0,
-                                               epi_out(nullptr, rgbraw, 4, 3), hslab, hstage);
-        else
-          dense<TH, E_Q_RGB, 16, HALF_, HALF_>(hv, LDH, net.w_rgb, nullptr, 0, nullptr, 0,
-                                               epi_out(net.b_rgb, rgbraw, 4, 3, qa.s_rgb), hslab, hstage);
+      constexpr int E_FEAT = MODE == MODE_INT8 ? E_Q_FEAT : E_BF16_LIN;
+      constexpr int E_ALPHA = MODE == MODE_INT8 ? E_Q_ALPHA : E_F32;
+      if constexpr (fa_split(W)) {
+        // Alpha, then the features over h: 128 accumulators at a time.
+        HAcc a16[8], none[1];
+        product<TH, 16, 0, KH, RING, STAGE>(a16, none, act_s, WG_ROWS * 128, ring);
+        epilogue_out<E_ALPHA, 16, 0>(a16, net.b_alpha, qa.s_alpha, sig, 1, 0, 1);
+        HAcc fa[W / 2];
+        product<TH, W, 0, KH, RING, STAGE>(fa, none, act_s, WG_ROWS * 128, ring);
+        epilogue<E_FEAT, W>(fa, act, net.b_feat, nullptr, 0, qa.k_feat);
       } else {
-        dense<TH, E_BF16_LIN, W, W, W>(h, LDH, net.w_feat, nullptr, 0, nullptr, 0, epi_act(net.b_feat, other, LDH),
-                                       hslab, hstage);
-        dense<TH, E_BF16_VIEW, HALF_, W, W>(other, LDH, net.w_view_h, nullptr, 0, nullptr, 0, ev, hslab, hstage);
-        dense<TH, E_F32, 16, HALF_, HALF_>(hv, LDH, net.w_rgb, nullptr, 0, nullptr, 0,
-                                           epi_out(net.b_rgb, rgbraw, 4, 3), hslab, hstage);
+        // Feature and alpha in one pass; features over h, alpha to sig.
+        HAcc fa[(W + 16) / 2], none[1];
+        product<TH, W + 16, 0, KH, RING, STAGE>(fa, none, act_s, WG_ROWS * 128, ring);
+        epilogue<E_FEAT, W + 16, W>(fa, act, net.b_feat, nullptr, 0, qa.k_feat);
+        epilogue_out<E_ALPHA, W + 16, W / 8>(fa, net.b_alpha, qa.s_alpha, sig, 1, W, 1);
+      }
+      fence_proxy_async();
+      warpgroup_sync();
+      {
+        HAcc hv[HALF_ / 2], none[1];
+        product<TH, HALF_, 0, KH, RING, STAGE>(hv, none, act_s, WG_ROWS * 128, ring);
+        if constexpr (MODE == MODE_INT8)
+          epilogue<E_Q_VIEW, HALF_>(hv, act, nullptr, hvenc, HALF_, qa.k_hv);
+        else
+          epilogue<E_BF16_VIEW, HALF_>(hv, act, net.b_view, hvenc, HALF_, 0);
+      }
+      fence_proxy_async();
+      warpgroup_sync();
+      {
+        HAcc rgb[8], none[1];
+        product<TH, 16, 0, HALF_ * (int)sizeof(TH), RING, STAGE>(rgb, none, act_s, WG_ROWS * 128, ring);
+        if constexpr ((ABL & A_EPI) != 0)
+          epilogue_out<E_Q_RAW, 16, 0>(rgb, nullptr, 0.f, rgbraw, 4, 0, 3);
+        else if constexpr (MODE == MODE_INT8)
+          epilogue_out<E_Q_RGB, 16, 0>(rgb, net.b_rgb, qa.s_rgb, rgbraw, 4, 0, 3);
+        else
+          epilogue_out<E_F32, 16, 0>(rgb, net.b_rgb, 0.f, rgbraw, 4, 0, 3);
       }
     }
-    __syncthreads();
+    consumers_sync();
 
     // Composite front to back: one lane per ray.
     if (warp == 0) {
       const int ray = ray0 + lane;
       const bool valid = ray < R;
-      float* st = ray_state + lane * 8;
-      float T = st[0];
+      float* stt = ray_state + lane * 8;
+      float T = stt[0];
       for (int sl = 0; sl < SG; ++sl) {
         const int s = g * SG + sl;
         if (s >= S) break;
         const int row = sl * RB + lane;
         if constexpr ((ABL & A_EPI) != 0) {
           // "epilogue": plain adds in the TPU kernel's order, T untouched.
-          for (int c = 0; c < 3; ++c) st[1 + c] = __fadd_rn(__fadd_rn(st[1 + c], rgbraw[row * 4 + c]), sig[row]);
+          for (int c = 0; c < 3; ++c) stt[1 + c] = __fadd_rn(__fadd_rn(stt[1 + c], rgbraw[row * 4 + c]), sig[row]);
           continue;
         }
-        const float alpha = 1.f - expf(-fmaxf(sig[row], 0.f) * ds[row]);
+        const float alpha = 1.f - expf(-fmaxf(sig[row], 0.f) * dg[row]);
         const float w = alpha * T;
         if (DENSITY_ONLY) {
           if (valid) out[(size_t)s * R + ray] = w;
@@ -718,34 +969,33 @@ __device__ __forceinline__ void render_body(const NetPtrs& net, const Quant& qa,
           // as in the plain version; "heads" has no sigmoid.
           for (int c = 0; c < 3; ++c) {
             const float x = rgbraw[row * 4 + c];
-            st[1 + c] = __fadd_rn(st[1 + c], __fmul_rn(w, (ABL & A_HEADS) != 0 ? x : 1.f / (1.f + expf(-x))));
+            stt[1 + c] = __fadd_rn(stt[1 + c], __fmul_rn(w, (ABL & A_HEADS) != 0 ? x : 1.f / (1.f + expf(-x))));
           }
         } else {
-          for (int c = 0; c < 3; ++c)
-            st[1 + c] += w * (1.f / (1.f + expf(-rgbraw[row * 4 + c])));
-          st[4] += w * zs[row];
-          st[5] += w;
+          for (int c = 0; c < 3; ++c) stt[1 + c] += w * (1.f / (1.f + expf(-rgbraw[row * 4 + c])));
+          stt[4] += w * zg[row];
+          stt[5] += w;
         }
         T = T * (1.f - alpha + 1e-10f);
       }
-      st[0] = T;
+      stt[0] = T;
       float tmax = valid ? T : 0.f;
       for (int off = 16; off > 0; off >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      if (lane == 0) alive[0] = (eps <= 0.f) || (tmax > eps);
+      if (lane == 0) flags[0] = (eps <= 0.f) || (tmax > eps);
     }
-    __syncthreads();
   }
 
   if (!DENSITY_ONLY && warp == 0) {
+    __syncwarp();
     const int ray = ray0 + lane;
     if (ray < R) {
-      const float* st = ray_state + lane * 8;
-      out[0 * (size_t)R + ray] = st[1];
-      out[1 * (size_t)R + ray] = st[2];
-      out[2 * (size_t)R + ray] = st[3];
-      out[3 * (size_t)R + ray] = st[4];
-      out[4 * (size_t)R + ray] = st[5];
-      out[5 * (size_t)R + ray] = st[0];
+      const float* stt = ray_state + lane * 8;
+      out[0 * (size_t)R + ray] = stt[1];
+      out[1 * (size_t)R + ray] = stt[2];
+      out[2 * (size_t)R + ray] = stt[3];
+      out[3 * (size_t)R + ray] = stt[4];
+      out[4 * (size_t)R + ray] = stt[5];
+      out[5 * (size_t)R + ray] = stt[0];
       out[6 * (size_t)R + ray] = 0.f;
       out[7 * (size_t)R + ray] = 0.f;
     }
@@ -754,91 +1004,90 @@ __device__ __forceinline__ void render_body(const NetPtrs& net, const Quant& qa,
 }
 
 template <int W, int F, int MODE, bool DENSITY_ONLY>
-__global__ void __launch_bounds__(NTHREADS, 1)
-render_kernel(NetPtrs net, Quant qa, const float* __restrict__ o_ph, const float* __restrict__ d_ph,
-              const float* __restrict__ zv, const float* __restrict__ dv,
-              const bf16* __restrict__ venc, float* __restrict__ out, int R, int S,
-              float eps, int* live_groups) {
-  render_body<W, F, MODE, DENSITY_ONLY, 0>(net, qa, o_ph, d_ph, zv, dv, venc, out, R, S, eps, live_groups, 1);
+__global__ void __launch_bounds__(RK_THREADS, 1)
+render_kernel(const __grid_constant__ NetPtrs net, const __grid_constant__ Quant qa,
+              const __grid_constant__ Stream st, const float* __restrict__ o_ph, const float* __restrict__ d_ph,
+              const float* __restrict__ zv, const float* __restrict__ dv, const bf16* __restrict__ venc,
+              float* __restrict__ out, int R, int S, float eps, int* live_groups) {
+  render_body<W, F, MODE, DENSITY_ONLY, 0>(net, qa, st, o_ph, d_ph, zv, dv, venc, out, R, S, eps, live_groups, 1);
 }
 
 template <int W, int F, int MODE, bool DENSITY_ONLY>
-cudaError_t launch(const NetPtrs& net, const Quant& qa, const float* o_ph, const float* d_ph,
-                   const float* z, const float* dists, const bf16* venc, float* out, int n_rays,
-                   int n_samples, float eps, int* live_groups, cudaStream_t st) {
-  const size_t smem = Smem<W, F>::bytes(DENSITY_ONLY);
+cudaError_t launch(const NetPtrs& net, const Quant& qa, const Stream& st, const float* o_ph, const float* d_ph,
+                   const float* z, const float* dists, const bf16* venc, float* out, int n_rays, int n_samples,
+                   float eps, int* live_groups, cudaStream_t cs) {
+  const int smem = Lay<W, F, DENSITY_ONLY, false>::BYTES;
   auto kernel = render_kernel<W, F, MODE, DENSITY_ONLY>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_rays + RB - 1) / RB);
-  kernel<<<grid, NTHREADS, smem, st>>>(net, qa, o_ph, d_ph, z, dists, venc, out, n_rays, n_samples, eps,
-                                       live_groups);
+  kernel<<<grid, RK_THREADS, smem, cs>>>(net, qa, st, o_ph, d_ph, z, dists, venc, out, n_rays, n_samples, eps,
+                                         live_groups);
   return cudaGetLastError();
 }
 
 template <int W, int F, bool DENSITY_ONLY>
-cudaError_t launch_mode(int mode, const NetPtrs& net, const Quant& qa, const float* o_ph,
-                        const float* d_ph, const float* z, const float* dists, const bf16* venc,
-                        float* out, int n_rays, int n_samples, float eps, int* live_groups,
-                        cudaStream_t st) {
+cudaError_t launch_mode(int mode, const NetPtrs& net, const Quant& qa, const Stream& st, const float* o_ph,
+                        const float* d_ph, const float* z, const float* dists, const bf16* venc, float* out,
+                        int n_rays, int n_samples, float eps, int* live_groups, cudaStream_t cs) {
   switch (mode) {
     case MODE_BF16:
-      return launch<W, F, MODE_BF16, DENSITY_ONLY>(net, qa, o_ph, d_ph, z, dists, venc, out, n_rays,
-                                                   n_samples, eps, live_groups, st);
+      return launch<W, F, MODE_BF16, DENSITY_ONLY>(net, qa, st, o_ph, d_ph, z, dists, venc, out, n_rays,
+                                                   n_samples, eps, live_groups, cs);
     case MODE_INT8_TRUNK:
-      return launch<W, F, MODE_INT8_TRUNK, DENSITY_ONLY>(net, qa, o_ph, d_ph, z, dists, venc, out, n_rays,
-                                                         n_samples, eps, live_groups, st);
+      return launch<W, F, MODE_INT8_TRUNK, DENSITY_ONLY>(net, qa, st, o_ph, d_ph, z, dists, venc, out, n_rays,
+                                                         n_samples, eps, live_groups, cs);
     case MODE_INT8:
-      return launch<W, F, MODE_INT8, DENSITY_ONLY>(net, qa, o_ph, d_ph, z, dists, venc, out, n_rays,
-                                                   n_samples, eps, live_groups, st);
+      return launch<W, F, MODE_INT8, DENSITY_ONLY>(net, qa, st, o_ph, d_ph, z, dists, venc, out, n_rays,
+                                                   n_samples, eps, live_groups, cs);
   }
   return cudaErrorInvalidValue;
 }
 
 #if RENDER_ABLATE
 template <int W, int F, int ABL>
-__global__ void __launch_bounds__(NTHREADS, 1)
-ablation_kernel(NetPtrs net, Quant qa, const float* __restrict__ o_ph, const float* __restrict__ d_ph,
+__global__ void __launch_bounds__(RK_THREADS, 1)
+ablation_kernel(const __grid_constant__ NetPtrs net, const __grid_constant__ Quant qa,
+                const __grid_constant__ Stream st, const float* __restrict__ o_ph, const float* __restrict__ d_ph,
                 const float* __restrict__ zv, const float* __restrict__ dv, const bf16* __restrict__ venc,
                 float* __restrict__ out, int R, int S, int sps) {
-  render_body<W, F, MODE_INT8, false, ABL | A_ON>(net, qa, o_ph, d_ph, zv, dv, venc, out, R, S, 0.f, nullptr, sps);
+  render_body<W, F, MODE_INT8, false, ABL | A_ON>(net, qa, st, o_ph, d_ph, zv, dv, venc, out, R, S, 0.f, nullptr,
+                                                  sps);
 }
 
 template <int W, int F, int ABL>
-cudaError_t launch_ablation(const NetPtrs& net, const Quant& qa, const float* o_ph, const float* d_ph,
-                            const float* z, const float* dists, const bf16* venc, float* out, int n_rays,
-                            int n_samples, int sps, cudaStream_t st) {
-  const size_t smem = Smem<W, F>::bytes(false) + Smem<W, F>::CACHE;
+cudaError_t launch_ablation(const NetPtrs& net, const Quant& qa, const Stream& st, const float* o_ph,
+                            const float* d_ph, const float* z, const float* dists, const bf16* venc, float* out,
+                            int n_rays, int n_samples, int sps, cudaStream_t cs) {
+  const int smem = Lay<W, F, false, true>::BYTES;
   auto kernel = ablation_kernel<W, F, ABL>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_rays + RB - 1) / RB);
-  kernel<<<grid, NTHREADS, smem, st>>>(net, qa, o_ph, d_ph, z, dists, venc, out, n_rays, n_samples, sps);
+  kernel<<<grid, RK_THREADS, smem, cs>>>(net, qa, st, o_ph, d_ph, z, dists, venc, out, n_rays, n_samples, sps);
   return cudaGetLastError();
 }
 #endif
 
-// Device pointers and quantization of one launch (the C entries' layout).
+// Biases and quantization of one launch (the C entries' layout; the weight
+// pointers of `ptrs` are not read: the weights arrive through the stream).
 static void unpack_net(const void* const* ptrs, int depth, int skip_layer, int mode, const int* ishift,
                        const float* fscale, NetPtrs& net, Quant& qa) {
   int k = 0;
   for (int i = 0; i < depth; ++i) {
-    net.w[i] = ptrs[k++];
+    ++k;  // w_i
     net.b[i] = ptrs[k++];
   }
-  for (int i = depth; i < MAXD; ++i) {
-    net.w[i] = nullptr;
-    net.b[i] = nullptr;
-  }
-  net.w_skip = ptrs[k++];
-  net.w_alpha = ptrs[k++];
+  for (int i = depth; i < MAXD; ++i) net.b[i] = nullptr;
+  ++k;  // w_skip
+  ++k;  // w_alpha
   net.b_alpha = ptrs[k++];
-  net.w_feat = ptrs[k++];
+  ++k;  // w_feat
   net.b_feat = ptrs[k++];
-  net.w_view_h = ptrs[k++];
+  ++k;  // w_view_h
   net.w_view_enc = static_cast<const bf16*>(ptrs[k++]);
   net.b_view = static_cast<const float*>(ptrs[k++]);
-  net.w_rgb = ptrs[k++];
+  ++k;  // w_rgb
   net.b_rgb = static_cast<const float*>(ptrs[k++]);
   net.depth = depth;
   net.skip_layer = skip_layer;
@@ -855,6 +1104,23 @@ static void unpack_net(const void* const* ptrs, int depth, int skip_layer, int m
   }
 }
 
+// The stream table of one launch, held against the slabs the consumers take
+// (stream_rows): false if a count or a size differs.
+static bool unpack_stream(const void* base, const int* off, const int* bytes, int n, int mode, bool full,
+                          bool heads, int depth, int skip_layer, Stream& st) {
+  int rows[MAX_SLABS];
+  const int want = stream_rows(RENDER_WIDTH, RENDER_FREQS, mode, full, heads, depth, skip_layer, rows);
+  if (base == nullptr || n != want || n > MAX_SLABS) return false;
+  st.base = static_cast<const unsigned char*>(base);
+  st.n = n;
+  for (int j = 0; j < n; ++j) {
+    if (bytes[j] != rows[j] * 128 || off[j] % 128 != 0) return false;
+    st.off[j] = off[j];
+    st.bytes[j] = bytes[j];
+  }
+  return true;
+}
+
 }  // namespace rk
 
 // RENDER_FULL=0 builds the density-only kernels alone (the proposal shape).
@@ -864,43 +1130,49 @@ static void unpack_net(const void* const* ptrs, int depth, int skip_layer, int m
 
 // ptrs: device pointers in this order: w_0, b_0, ..., w_{depth-1}, b_{depth-1},
 // w_skip, w_alpha, b_alpha, w_feat, b_feat, w_view_h, w_view_enc, b_view,
-// w_rgb, b_rgb (the full-mode entries may be null in density-only mode).
-// Weights are bf16 (mode 0) or int8 (trunk in modes 1-2, heads in mode 2);
-// biases fp32 or int32 likewise; w_view_enc, b_view and b_rgb are always
-// bf16/fp32. ishift: depth per-layer shifts, then skip_shift, k_feat, k_hv;
-// fscale: qscale, s_alpha, inv_s_view, s_rgb (host memory; ignored in
-// mode 0). Inputs are ray-minor: o_ph, d_ph [>=3, R] (rows 0-2 read), z and
-// dists [S, R] fp32, venc [32, R] bf16. out: [S, R] weights (density-only)
-// or [8, R] maps (rows 0-2 rgb, 3 depth, 4 acc, 5 transmittance).
-// importance_only: the density pass's weights feed importance-only
-// placement; its blocks then stop at T <= min(eps, PDF_GUARD / n_samples)
-// (the note at the top). live_groups, if not null, gains the number of
-// 4-sample steps each block evaluated. Returns the CUDA error code of the
-// launch (0 on success).
+// w_rgb, b_rgb (the full-mode entries may be null in density-only mode; the
+// weights w_* other than w_view_enc are not read). Biases fp32 (mode 0) or
+// int32 (trunk in modes 1-2, feature and alpha in mode 2); w_view_enc,
+// b_view and b_rgb are always bf16/fp32. stream: the packed weights
+// (ops/fused_render.py::pack_weight_stream) on the device; slab_off and
+// slab_bytes (host memory) the n_slabs slabs of one step of this pass. ishift:
+// depth per-layer shifts, then skip_shift, k_feat, k_hv; fscale: qscale,
+// s_alpha, inv_s_view, s_rgb (host memory; ignored in mode 0). Inputs are
+// ray-minor: o_ph, d_ph [>=3, R] (rows 0-2 read), z and dists [S, R] fp32,
+// venc [32, R] bf16. out: [S, R] weights (density-only) or [8, R] maps (rows
+// 0-2 rgb, 3 depth, 4 acc, 5 transmittance). importance_only: the density
+// pass's weights feed importance-only placement; its blocks then stop at T <=
+// min(eps, PDF_GUARD / n_samples) (the note at the top). live_groups, if not
+// null, gains the number of 4-sample steps each block evaluated. Returns the
+// CUDA error code of the launch (0 on success).
 #if !RENDER_ABLATE
 extern "C" int nerf_render_launch(const void* const* ptrs, int width, int pts_freqs, int depth,
                                   int skip_layer, int mode, const int* ishift, const float* fscale,
+                                  const void* stream, const int* slab_off, const int* slab_bytes, int n_slabs,
                                   const float* o_ph, const float* d_ph, const float* z,
                                   const float* dists, const void* venc, float* out, int n_rays,
                                   int n_samples, int density_only, float eps, int importance_only,
-                                  int* live_groups, void* stream) {
+                                  int* live_groups, void* cuda_stream) {
   if (width != RENDER_WIDTH || pts_freqs != RENDER_FREQS || depth < 1 || depth > MAXD || n_rays < 1 ||
       n_samples < 1 || mode < 0 || mode > 2 || (!density_only && !RENDER_FULL))
     return (int)cudaErrorInvalidValue;
   rk::NetPtrs net;
   rk::Quant qa;
+  rk::Stream st;
   rk::unpack_net(ptrs, depth, skip_layer, mode, ishift, fscale, net, qa);
+  if (!rk::unpack_stream(stream, slab_off, slab_bytes, n_slabs, mode, !density_only, true, depth, skip_layer, st))
+    return (int)cudaErrorInvalidValue;
   if (density_only && importance_only && eps > 0.f) eps = fminf(eps, PDF_GUARD / (float)n_samples);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
   const bf16* v = static_cast<const bf16*>(venc);
   cudaError_t err;
   if (density_only) {
-    err = rk::launch_mode<RENDER_WIDTH, RENDER_FREQS, true>(mode, net, qa, o_ph, d_ph, z, dists, v, out,
-                                                           n_rays, n_samples, eps, live_groups, st);
+    err = rk::launch_mode<RENDER_WIDTH, RENDER_FREQS, true>(mode, net, qa, st, o_ph, d_ph, z, dists, v, out,
+                                                           n_rays, n_samples, eps, live_groups, cs);
   } else {
 #if RENDER_FULL
-    err = rk::launch_mode<RENDER_WIDTH, RENDER_FREQS, false>(mode, net, qa, o_ph, d_ph, z, dists, v, out,
-                                                            n_rays, n_samples, eps, live_groups, st);
+    err = rk::launch_mode<RENDER_WIDTH, RENDER_FREQS, false>(mode, net, qa, st, o_ph, d_ph, z, dists, v, out,
+                                                            n_rays, n_samples, eps, live_groups, cs);
 #else
     err = cudaErrorInvalidValue;
 #endif
@@ -908,32 +1180,39 @@ extern "C" int nerf_render_launch(const void* const* ptrs, int width, int pts_fr
   return (int)err;
 }
 #else
-// K8: one ablation launch of the int8 full pass. ptrs, ishift, fscale, z,
-// dists and venc as nerf_render_launch takes them (mode 2); o_ph and d_ph
-// hold every encoding row, [round_up(3 + 6F, 8), R] ("enc-direct" reads them
-// all); samples_per_step is the sample group of "enc"/"enc-noconcat", a
-// power of two dividing n_samples; mask is 0 (the full mode's code) or one of
-// the A_* combinations the switch lists. out: [8, R], rows 0-2 the rgb sum,
-// row 5 the final T, the rest 0.
+// K8: one ablation launch of the int8 full pass. ptrs, ishift, fscale,
+// stream, slab_off, slab_bytes (the full pass's table), z, dists and venc as
+// nerf_render_launch takes them (mode 2); "heads" streams the table's first
+// n_trunk_slabs alone. o_ph and d_ph hold every encoding row, [round_up(3 +
+// 6F, 8), R] ("enc-direct" reads them all); samples_per_step is the sample
+// group of "enc"/"enc-noconcat", a power of two dividing n_samples; mask is
+// 0 (the full mode's code) or one of the A_* combinations the switch lists.
+// out: [8, R], rows 0-2 the rgb sum, row 5 the final T, the rest 0.
 extern "C" int nerf_ablation_launch(const void* const* ptrs, int width, int pts_freqs, int depth,
-                                    int skip_layer, const int* ishift, const float* fscale, const float* o_ph,
-                                    const float* d_ph, const float* z, const float* dists, const void* venc,
-                                    float* out, int n_rays, int n_samples, int samples_per_step, int mask,
-                                    void* stream) {
+                                    int skip_layer, const int* ishift, const float* fscale, const void* stream,
+                                    const int* slab_off, const int* slab_bytes, int n_slabs, int n_trunk_slabs,
+                                    const float* o_ph, const float* d_ph, const float* z, const float* dists,
+                                    const void* venc, float* out, int n_rays, int n_samples, int samples_per_step,
+                                    int mask, void* cuda_stream) {
+  using namespace rk;
   const int sps = samples_per_step;
   if (width != RENDER_WIDTH || pts_freqs != RENDER_FREQS || depth < 1 || depth > MAXD || n_rays < 1 ||
       n_samples < 1 || sps < 1 || (sps & (sps - 1)) != 0 || n_samples % sps != 0)
     return (int)cudaErrorInvalidValue;
-  rk::NetPtrs net;
-  rk::Quant qa;
-  rk::unpack_net(ptrs, depth, skip_layer, rk::MODE_INT8, ishift, fscale, net, qa);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  NetPtrs net;
+  Quant qa;
+  Stream st;
+  unpack_net(ptrs, depth, skip_layer, MODE_INT8, ishift, fscale, net, qa);
+  const bool heads = (mask & A_HEADS) == 0;
+  if (!unpack_stream(stream, slab_off, slab_bytes, heads ? n_slabs : n_trunk_slabs, MODE_INT8, true, heads, depth,
+                     skip_layer, st))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
   const bf16* v = static_cast<const bf16*>(venc);
-  using namespace rk;
-#define ABLATION_CASE(M)                                                                                 \
-  case M:                                                                                                \
-    return (int)launch_ablation<RENDER_WIDTH, RENDER_FREQS, M>(net, qa, o_ph, d_ph, z, dists, v, out, n_rays, \
-                                                               n_samples, sps, st)
+#define ABLATION_CASE(M)                                                                                       \
+  case M:                                                                                                      \
+    return (int)launch_ablation<RENDER_WIDTH, RENDER_FREQS, M>(net, qa, st, o_ph, d_ph, z, dists, v, out, n_rays, \
+                                                               n_samples, sps, cs)
   switch (mask) {
     ABLATION_CASE(0);
     ABLATION_CASE(A_ENC);

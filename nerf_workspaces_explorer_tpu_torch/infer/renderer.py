@@ -58,6 +58,7 @@ from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
     prepare_kernel_params,
     render_rays_fused,
     render_rays_single_pass,
+    weight_stream,
 )
 from nerf_workspaces_explorer_tpu_torch.ops.quantize import (
     calibrate_model_quant,
@@ -310,6 +311,10 @@ class NeRFRenderer:
         self._kparams = {
             k: prepare_kernel_params(p, specs[k], quant=quant.get(k)) for k, p in tree.items()
         }
+        if self._device.type == "cuda":
+            # The kernels' weight streams, packed once per set of weights.
+            for kp in self._kparams.values():
+                weight_stream(kp)
 
     def _require_models(self) -> None:
         if self._kparams is None and self._models is None:

@@ -199,14 +199,16 @@ def _run_ablation_cuda(kp, o_ph, d_ph, z_vals, dists, venc, ablate, samples_per_
     fscale = (ctypes.c_float * 4)(kp.feat_qscale, kp.s_alpha, kp.inv_s_view, kp.s_rgb)
     lib = _build.load(f"fused_render_ablate_w{kp.width}f{kp.pts_freqs}")
     fn = lib.nerf_ablation_launch
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    stream, offs, sizes, n_slabs, n_trunk = fr._stream_args(kp, density_only=False)
     out = torch.empty((8, n_rays), dtype=torch.float32, device=device)
     code = fn(
         ctypes.cast(ptr_array, ctypes.c_void_p), kp.width, kp.pts_freqs, depth,
         kp.skips[0] + 1 if kp.skips else -1, ctypes.cast(ishift, ctypes.c_void_p),
-        ctypes.cast(fscale, ctypes.c_void_p), o_ph.data_ptr(), d_ph.data_ptr(), z_vals.data_ptr(),
+        ctypes.cast(fscale, ctypes.c_void_p), stream, ctypes.cast(offs, ctypes.c_void_p),
+        ctypes.cast(sizes, ctypes.c_void_p), n_slabs, n_trunk, o_ph.data_ptr(), d_ph.data_ptr(), z_vals.data_ptr(),
         dists.data_ptr(), venc.data_ptr(), out.data_ptr(), n_rays, n_samples, samples_per_step,
         _mask(ablate), _build.stream_handle(device),
     )

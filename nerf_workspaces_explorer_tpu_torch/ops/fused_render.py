@@ -48,6 +48,18 @@ LAUNCHES = {
     f"{p}{m}": 0 for p in ("density_only", "full") for m in ("", "_int8_trunk", "_int8")
 }
 
+# The kernel's block geometry: a block owns STEP_RAYS rays and evaluates
+# STEP_SAMPLES samples of each per step; `live_groups` counts such steps, of
+# STEP_POINTS points each.
+STEP_RAYS = 32
+STEP_SAMPLES = 4
+STEP_POINTS = STEP_RAYS * STEP_SAMPLES
+
+# The weight stream's slabs (`pack_weight_stream`): 128 bytes of product depth
+# a row, the k-step 32 bytes.
+SLAB_ROW_BYTES = 128
+K_STEP_BYTES = 32
+
 # Rays per step of the plain version (bounds its activations to ~1 GB at
 # 192 samples per ray).
 PLAIN_RAY_CHUNK = 4096
@@ -584,6 +596,118 @@ def _kernel_pointers(kp: KernelParams, density_only: bool) -> list:
     return ptrs
 
 
+class WeightStream(NamedTuple):
+    """One network's product weights as the kernel's producer streams them
+    (csrc/fused_render.cu, header note): `buffer` uint8 on the weights'
+    device, and per pass the table of one step's slabs as (name, offset,
+    bytes, rows, k_bytes), in the order the kernel's consumers take them.
+    Slab j of a matrix [rows, K] holds its bytes [128 j, 128 j + 128) of
+    each row, the matrix's row bytes zero-padded to k_bytes (a multiple of
+    the 32-byte k-step), in the 128-byte swizzle: byte b of row r at
+    r * 128 + (((b >> 4) ^ r) & 7) * 16 + (b & 15). `n_trunk` is the count
+    of the trunk's slabs, the first of either table."""
+
+    buffer: torch.Tensor
+    density: tuple
+    full: tuple
+    n_trunk: int
+
+
+def _product_matrices(kp: KernelParams):
+    """(trunk, density heads, full-pass heads): lists of (name, [rows, K]
+    weight) in stream order."""
+    w = kp.width
+    skip_layer = kp.skips[0] + 1 if kp.skips else -1
+    trunk = [("layer0", kp.w_layers[0])]
+    for i in range(1, len(kp.w_layers)):
+        if i == skip_layer:
+            trunk.append(("skip", kp.w_skip_enc[0]))
+        trunk.append((f"layer{i}", kp.w_layers[i]))
+    density = [("alpha", kp.w_fa[w : w + 16])]
+    if fa_split(w):
+        heads = [("alpha", kp.w_fa[w : w + 16]), ("feature", kp.w_fa[:w])]
+    else:
+        heads = [("feature+alpha", kp.w_fa[: w + 16])]
+    return trunk, density, heads + [("view", kp.w_view_h), ("rgb", kp.w_rgb)]
+
+
+def fa_split(width: int) -> bool:
+    """Whether the full pass streams and multiplies alpha and the features as
+    two products (csrc/fused_render.cu `fa_split`: width + 16 columns are
+    more than one wgmma takes) or as one."""
+    return width + 16 > 256
+
+
+def _swizzle_slabs(m: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """[rows, K] weight -> ([n_slabs, rows * 128] uint8 slabs, k_bytes)."""
+    rows = m.shape[0]
+    raw = m.contiguous().view(torch.uint8).reshape(rows, -1)
+    k_bytes = _round_up(raw.shape[1], K_STEP_BYTES)
+    n = -(-k_bytes // SLAB_ROW_BYTES)
+    padded = torch.zeros(rows, n * SLAB_ROW_BYTES, dtype=torch.uint8, device=m.device)
+    padded[:, : raw.shape[1]] = raw
+    chunks = padded.reshape(rows, n, 8, 16).permute(1, 0, 2, 3)  # [slab, row, 16-byte chunk, byte]
+    r = torch.arange(rows, device=m.device)[:, None]
+    src = torch.arange(8, device=m.device)[None, :] ^ (r % 8)  # stored chunk p holds chunk p ^ (r % 8)
+    slabs = torch.gather(chunks, 2, src[None, :, :, None].expand(n, rows, 8, 16))
+    return slabs.reshape(n, rows * SLAB_ROW_BYTES), k_bytes
+
+
+@torch.no_grad()
+def pack_weight_stream(kp: KernelParams) -> WeightStream:
+    """Pack one network's product weights into the stream the kernel reads
+    (`WeightStream`): the trunk's slabs, then alpha's, then feature+alpha's,
+    view's and rgb's, each slab 128-byte aligned. Runs once per parameter
+    set (`weight_stream`)."""
+    trunk, density, full = _product_matrices(kp)
+    parts, tables, offset = [], {}, 0
+    for key, mats in (("trunk", trunk), ("density", density), ("full", full)):
+        table = []
+        for name, m in mats:
+            slabs, k_bytes = _swizzle_slabs(m)
+            for s in slabs:
+                table.append((name, offset, s.numel(), m.shape[0], k_bytes))
+                parts.append(s)
+                offset += s.numel()
+        tables[key] = tuple(table)
+    # A view at a 128-byte aligned start (the CPU allocator aligns to 64).
+    raw = torch.empty(offset + SLAB_ROW_BYTES, dtype=torch.uint8, device=parts[0].device)
+    start = -raw.data_ptr() % SLAB_ROW_BYTES
+    buffer = raw[start : start + offset]
+    torch.cat(parts, out=buffer)
+    return WeightStream(buffer, tables["trunk"] + tables["density"], tables["trunk"] + tables["full"],
+                        len(tables["trunk"]))
+
+
+# Streams of recent parameter sets, by identity; each entry holds its
+# KernelParams, so an id is not reused while it is cached.
+_STREAMS: "Dict[int, Tuple[KernelParams, WeightStream]]" = {}
+_STREAMS_KEPT = 32
+
+
+def weight_stream(kp: KernelParams) -> WeightStream:
+    """`pack_weight_stream(kp)`, packed at the first call for this parameter
+    set and reused by every launch after it. The renderer packs its nets
+    when it installs them."""
+    hit = _STREAMS.pop(id(kp), None)
+    if hit is None or hit[0] is not kp:
+        hit = (kp, pack_weight_stream(kp))
+    _STREAMS[id(kp)] = hit  # most recent last
+    while len(_STREAMS) > _STREAMS_KEPT:
+        del _STREAMS[next(iter(_STREAMS))]
+    return hit[1]
+
+
+def _stream_args(kp: KernelParams, density_only: bool):
+    """The stream arguments of the launch entries: (buffer pointer, slab
+    offsets, slab bytes, slab count, trunk slab count)."""
+    ws = weight_stream(kp)
+    table = ws.density if density_only else ws.full
+    offs = (ctypes.c_int * len(table))(*[e[1] for e in table])
+    sizes = (ctypes.c_int * len(table))(*[e[2] for e in table])
+    return ws.buffer.data_ptr(), offs, sizes, len(table), ws.n_trunk
+
+
 def _check_kernel_params(kp: KernelParams, device: torch.device, density_only: bool = True) -> None:
     shape = (kp.width, kp.pts_freqs)
     if shape not in KERNEL_SHAPES or (not density_only and not KERNEL_SHAPES[shape]):
@@ -645,15 +769,17 @@ def _nerf_render_cuda(kp, o_ph, d_ph, z_vals, dists, venc, density_only, early_s
     lib = _build.load(kernel_library(kp.width, kp.pts_freqs))
     fn = lib.nerf_render_launch
     fn.argtypes = (
-        [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
+        [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 6
         + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    stream, offs, sizes, n_slabs, _ = _stream_args(kp, density_only)
     out_rows = n_samples if density_only else 8
     out = torch.empty((out_rows, n_rays), dtype=torch.float32, device=device)
     code = fn(
         ctypes.cast(ptr_array, ctypes.c_void_p), kp.width, kp.pts_freqs, depth, skip_layer, kp.mode,
         ctypes.cast(ishift, ctypes.c_void_p), ctypes.cast(fscale, ctypes.c_void_p),
+        stream, ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(sizes, ctypes.c_void_p), n_slabs,
         o_ph.data_ptr(), d_ph.data_ptr(), z_vals.data_ptr(), dists.data_ptr(),
         None if density_only else venc.data_ptr(), out.data_ptr(),
         n_rays, n_samples, int(density_only), float(early_stop_eps), int(importance_only),
@@ -689,7 +815,9 @@ def nerf_render(
     (density_only) or maps [8, R] fp32: rows 0-2 rgb, 3 depth, 4 acc, 5 the
     final transmittance. `kp.mode` picks bf16, int8-trunk or int8.
 
-    On a CUDA tensor this launches the kernel, which stops a block of 32 rays
+    On a CUDA tensor this launches the kernel on `weight_stream(kp)` (packed
+    at the parameter set's first launch, if the caller did not pack it),
+    which stops a block of 32 rays
     once all of them have transmittance <= early_stop_eps (exact up to eps;
     0 disables it) and, with `live_groups` (int32 [1]), adds the number of
     4-sample steps its blocks evaluated. With `importance_only` (the density

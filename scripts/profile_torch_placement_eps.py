@@ -148,7 +148,7 @@ def main() -> int:
                           f"|d| {float(d.mean()):.3e} max {float(d.max()):.3e} share > 1e-2 "
                           f"{float((d > 1e-2).float().mean()):.5f}; SSIM vs eps 0 {ssim(frame, ref8[i]):.5f} vs "
                           f"parity {ssim(frame, par8[i]):.5f}; samples evaluated (both passes) "
-                          f"{int(live) * 128}; warm ms/frame {ms:.1f}; card {card}", flush=True)
+                          f"{int(live) * fr.STEP_POINTS}; warm ms/frame {ms:.1f}; card {card}", flush=True)
     finally:
         fr.nerf_render = served
     return 0

@@ -480,3 +480,87 @@ def test_strip_frame_equals_blocking_at_eps0(cuda, preset):
     assert sorted(delta.values()) == [n] * 3, delta
     assert piped.dtype == np.uint8 and piped.shape == blocking.shape
     np.testing.assert_array_equal(piped, blocking)
+
+
+def _net_inputs(device, kp, n_rays, n_samples, seed, full=True):
+    g = torch.Generator().manual_seed(seed)
+    o, d = torch.randn(2, n_rays, 3, generator=g)
+    z = torch.sort(torch.rand(n_samples, n_rays, generator=g) * 5.9 + 0.1, dim=0).values
+    o_ph, d_ph = fr.ray_phase_vectors(o * 0.5, d, kp.pts_freqs)
+    dists = fr._dists_from_z(z, d.norm(dim=-1)[None])
+    venc = fr.encode_viewdirs_kernel_order(d / d.norm(dim=-1, keepdim=True)) if full else None
+    return [None if t is None else t.to(device) for t in (o_ph, d_ph, z, dists, venc)]
+
+
+def _assert_maps_close(out, ref, density_only):
+    """rgb, acc (and T) within the bf16 bound, depth within it times the far
+    plane (6); density weights within the bf16 bound."""
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    if density_only:
+        assert float((out - ref).abs().max()) <= BF16_ATOL
+        return
+    err = (out[:6] - ref[:6]).abs().amax(1)
+    assert float(err[[0, 1, 2, 4, 5]].max()) <= BF16_ATOL and float(err[3]) <= 6 * BF16_ATOL, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("density_only", [True, False], ids=["density", "full"])
+def test_render_kernel_drains_its_weight_stream_at_a_first_step_stop(cuda, mode, density_only):
+    """eps 1.0: every block stops after its first 4-sample step (T <= 1
+    always), while the producer has issued the next step's first weight
+    slabs (a step of the 8x256 net is 34-40 slabs, the ring 3). The maps
+    equal the plain version on the first 4 samples, the density pass's
+    later weights are 0, and a launch after it on the same stream is right."""
+    kp = _net_kernel_params(cuda, "fine-256f10", mode)
+    o_ph, d_ph, z, dists, venc = _net_inputs(cuda, kp, 1000, 48, seed=10, full=not density_only)
+    live = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = fr.nerf_render(kp, o_ph, d_ph, z, dists, venc, density_only=density_only, early_stop_eps=1.0,
+                         live_groups=live)
+    after = fr.nerf_render(kp, o_ph, d_ph, z, dists, venc, density_only=density_only, early_stop_eps=0.0)
+    torch.cuda.synchronize()
+    assert int(live) == -(-1000 // fr.STEP_RAYS)
+    first = fr.nerf_render_plain(kp, o_ph, d_ph, z[:4].contiguous(), dists[:4].contiguous(), venc,
+                                 density_only=density_only)
+    if density_only:
+        _assert_maps_close(out[:4], first, True)
+        assert not out[4:].any()
+    else:
+        _assert_maps_close(out, first, False)
+    _assert_maps_close(after, fr.nerf_render_plain(kp, o_ph, d_ph, z, dists, venc, density_only=density_only),
+                       density_only)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("net", ["student-128f8", "student-192f10", "fine-256f10"])
+def test_render_kernel_full_pass_ragged_rays_and_samples(cuda, net, mode):
+    """The full pass at every full-pass shape with R mod 32 != 0 and S mod 4
+    != 0 (1,000 rays of 10 samples) against the plain version, at eps 0 and
+    at 1e-3 (exact up to eps)."""
+    kp = _net_kernel_params(cuda, net, mode)
+    args = _net_inputs(cuda, kp, 1000, 10, seed=11)
+    ref = fr.nerf_render_plain(kp, *args)
+    out = fr.nerf_render(kp, *args, early_stop_eps=0.0)
+    stopped = fr.nerf_render(kp, *args, early_stop_eps=1e-3)
+    torch.cuda.synchronize()
+    _assert_maps_close(out, ref, False)
+    assert float((stopped[[0, 1, 2, 4]] - out[[0, 1, 2, 4]]).abs().max()) <= 1e-3 + 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("density_only", [True, False], ids=["density", "full"])
+def test_render_kernel_launches_are_bit_equal(cuda, mode, density_only):
+    """Two launches on the same inputs at the served eps agree bit for bit,
+    the evaluated steps included: the products sum in a fixed order."""
+    kp = _net_kernel_params(cuda, "fine-256f10", mode)
+    o_ph, d_ph, z, dists, venc = _net_inputs(cuda, kp, 4096, 64, seed=12, full=not density_only)
+    outs, lives = [], []
+    for _ in range(2):
+        live = torch.zeros(1, dtype=torch.int32, device=cuda)
+        outs.append(fr.nerf_render(kp, o_ph, d_ph, z, dists, venc, density_only=density_only, early_stop_eps=1e-3,
+                                   live_groups=live))
+        lives.append(live)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(lives[0], lives[1])
