@@ -61,11 +61,17 @@ Training: on the room scene at 320x240 (60-frame walkthrough, every 5th
 frame a train view, +2 a test view: 12 and 12) with the stock config (8x256
 nets, 1024 rays of 64 + 128 samples), holds K4 (field forward) and K5
 (field backward) against the plain field on one real step's points, checks
-that two K5 launches agree bit for bit, times both, then trains 300 steps
-through `Trainer` with the fused field (two K4 and two K5 calls per step,
-loss falling), renders two test views through K1-K3, trains the same 300
-steps with the plain field (test-view PSNR within 1 dB), and resumes a
-fresh Trainer from the step-150 checkpoint (its next loss equal to 1e-6).
+that two K5 launches agree bit for bit, times both (on the stream packed
+once, beside the pack itself and beside the same products as bf16
+`torch.matmul` calls), then trains 300 steps through `Trainer` with the
+fused field (two K4 and two K5 calls per step, loss falling), renders two
+test views through K1-K3, trains the same 300 steps with the plain field
+(test-view PSNR within 1 dB), resumes a fresh Trainer from the step-150
+checkpoint (its next loss equal to 1e-6), and trains the 300 steps again at
+steps_per_call=10, as 30 replays of a CUDA graph of 10 steps (losses equal
+to the eager run's to 1e-6, the same launch counts, ms/step beside the
+eager run's). The `train_field` library must show no ptxas spill and
+wgmma (HGMMA) with no mma.sync (HMMA) in its SASS.
 
 Its last two lines are a JSON object with one entry per kernel (K1-K9; the
 new K1/K3 shapes, each served K7 mode, each K8 row and K9 leg have entries
@@ -101,6 +107,12 @@ TRAIN_STEPS = 300
 TRAIN_WINDOW = 20  # steps averaged at each end of a run for "loss falls"
 WARM_SKIP = 10  # first steps left out of the warm ms per step
 RESUME_STEP = 150
+GRAPH_K = 10  # steps per CUDA-graph replay in the training phase's graph leg
+GRAPH_PROFILED_CALLS = 3  # the graph leg's last calls, traced to count the kernels they replay
+TRAIN_KERNELS = {  # K4/K5 counter -> the CUDA kernels it counts (csrc/train_field.cu)
+    "forward": ("field_fwd_kernel",), "backward": ("field_bwd_chain_kernel",),
+    "backward_kernels": ("field_bwd_chain_kernel", "field_dw_kernel", "sum_rows_kernel"),
+}
 PSNR_GAP_DB = 1.0  # fused against plain field after TRAIN_STEPS
 SSIM_GATE = 0.99  # bf16 serving vs fp32 (reports/reference_parity_320x240.md)
 EPS = 1e-3  # the renderer's early-stop eps on the main path
@@ -201,21 +213,23 @@ def products_matmul_ms(kp, n_points: int, chunk: int = 1 << 18) -> float:
 def served_render_spills(names) -> list:
     """(library, kernel, ptxas line) of every served `render_kernel` that
     ptxas reports with spill stores or loads."""
+    return [x for name in names if name.startswith("fused_render_w") for x in library_spills(name, "render_kernel")]
+
+
+def library_spills(name: str, kernel: str = "") -> list:
+    """(library, kernel, ptxas line) of every kernel of library `name` whose
+    entry contains `kernel` that ptxas reports with spill stores or loads."""
     import re
 
     from nerf_workspaces_explorer_tpu_torch.ops import _build
 
-    bad = []
-    for name in names:
-        if not name.startswith("fused_render_w"):
-            continue
-        entry = ""
-        for line in _build.build_log(name).splitlines():
-            if "Compiling entry" in line:
-                entry = line.split("'")[1] if "'" in line else line
-            elif "spill stores" in line and "render_kernel" in entry:
-                if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line):
-                    bad.append((name, entry, line.strip()))
+    bad, entry = [], ""
+    for line in _build.build_log(name).splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "spill stores" in line and kernel in entry:
+            if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line):
+                bad.append((name, entry, line.strip()))
     return bad
 
 
@@ -287,6 +301,40 @@ def named_leaves(tree, prefix=""):
     return [(prefix[:-1], tree)]
 
 
+def field_products_matmul_ms(inputs, n: int, backward: bool) -> float:
+    """The training field's products over n points as bf16 `torch.matmul`
+    calls on the card (a yardstick; the port never calls them): the
+    forward's layer products (K4); with `backward`, K5's recomputed forward,
+    its input-gradient products and one dW = G^T H per weight. Same shapes
+    as the kernels' products, random operands."""
+    dev = inputs["w0"].device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = {k: v for k, v in inputs.items() if k.startswith("w")}
+    depth = sum(1 for k in w if k[1:].isdigit())
+    skip = [k for k in w if k.startswith("wskip")]
+    act = {c: torch.randn(n, c, generator=gen, device=dev).to(torch.bfloat16) for c in (16, 32, 64, 128, 256)}
+    mats = [w["w0"]] + [w[f"w{i}"] for i in range(1, depth)] + [w[k] for k in skip]
+    mats += [w["w_feature"], w["w_view_h"], w["w_view_enc"]]
+    if not backward:
+        mats += [w["w_alpha"], w["w_rgb"]]
+    else:
+        mats += [w["w_rgb_t"], w["w_view_h_t"], w["w_feature_t"], w["w_alpha_t"]]
+        mats += [w[f"w{i}_t"] for i in range(1, depth)]
+    grads = [(m.shape[0], m.shape[1]) for m in mats if backward]
+
+    def run():
+        for m in mats:
+            torch.matmul(act[_pow2(m.shape[1])][:, : m.shape[1]], m.T)
+        for rows, cols in grads:  # dW [rows, cols] = G^T H over the points
+            torch.matmul(act[_pow2(rows)][:, :rows].T, act[_pow2(cols)][:, :cols])
+
+    return time_ms(run, 3)
+
+
+def _pow2(c: int) -> int:
+    return next(p for p in (16, 32, 64, 128, 256) if p >= c)
+
+
 def zero_launches(*counters) -> None:
     for d in counters:
         for k in d:
@@ -314,6 +362,8 @@ def train_phase(card: str, device: torch.device):
     from nerf_workspaces_explorer_tpu_torch.data.synthetic import make_room_scene_splits
     from nerf_workspaces_explorer_tpu_torch.infer.renderer import settings_from_config, spec_from_config
     from nerf_workspaces_explorer_tpu_torch.models.mlp import tree_leaves
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import device_kernel_counts
+    from nerf_workspaces_explorer_tpu_torch.ops import _build
     from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
     from nerf_workspaces_explorer_tpu_torch.ops import fused_render as fr
     from nerf_workspaces_explorer_tpu_torch.ops import importance_merge as im
@@ -334,10 +384,10 @@ def train_phase(card: str, device: torch.device):
     out_dir = os.path.join(HERE, "build", "torch_kernels", "smoke_train")
     shutil.rmtree(out_dir, ignore_errors=True)
 
-    def trainer(field_impl: str, name: str) -> Trainer:
+    def trainer(field_impl: str, name: str, steps_per_call: int = 1) -> Trainer:
         tr = Trainer("office_tokyo", cfg, train_data=train, test_data=test, device=device,
                      save_dir=os.path.join(out_dir, name), enable_tensorboard=False,
-                     field_impl=field_impl, eval_max_views=TRAIN_EVAL_VIEWS)
+                     field_impl=field_impl, eval_max_views=TRAIN_EVAL_VIEWS, steps_per_call=steps_per_call)
         tr.setup()
         return tr
 
@@ -377,9 +427,11 @@ def train_phase(card: str, device: torch.device):
         require(k4_err <= BF16_ATOL, f"K4 {net}: max |err| {k4_err} against the fp32 field")
         kg = ff.field_backward(inputs, meta, pts_t, views_t, g_raw)
         kg2 = ff.field_backward(inputs, meta, pts_t, views_t, g_raw)
+        raw2 = ff.field_forward(inputs, meta, pts_t, views_t)
         torch.cuda.synchronize()
         same = all(torch.equal(kg[k], kg2[k]) for k in kg)
         require(same, f"K5 {net}: two launches on the same inputs differ")
+        require(torch.equal(raw, raw2), f"K4 {net}: two launches on the same inputs differ")
         errs = []
         for (name, a), b in zip(named_leaves(ff.grads_to_tree(kg, meta)), ref_grads[net]):
             require(tuple(a.shape) == tuple(b.shape), f"K5 {net} {name}: shape {tuple(a.shape)}")
@@ -387,23 +439,50 @@ def train_phase(card: str, device: torch.device):
             errs.append((abs_err / (float(b.abs().max()) + 1e-30), abs_err, name))
         worst = max(errs)
         require(worst[0] < BF16_GRAD_REL, f"K5 {net} {worst[2]}: rel err {worst[0]} against fp32 autograd")
+        # K4 and K5 as a training step runs them (ops/fused_field.py
+        # `_FusedField`): K4 = the pack of the net's leaves into the weight
+        # stream, then the kernel; K5 = its launches on that stream, then the
+        # gather of the gradients into leaf order. The kernels alone, on a
+        # stream packed once, and the pack alone are timed beside them.
+        leaves_net = tree_leaves(fused.params[net])
+        ws, grad_index = ff._pack_leaves(fused.params[net], leaves_net, spec, meta)
+
+        def k4_step():
+            packed, _ = ff._pack_leaves(fused.params[net], leaves_net, spec, meta)
+            return ff.field_forward_packed(packed, meta, pts_t, views_t)
+
+        def k5_step():
+            flat, _ = ff._field_backward_flat(ws, meta, pts_t, views_t, g_raw)
+            return flat.index_select(0, grad_index)
+
         t = dict(
-            k4=time_ms(lambda: ff.field_forward(inputs, meta, pts_t, views_t), 10),
+            k4=time_ms(k4_step, 10),
+            k4_kernel=time_ms(lambda: ff.field_forward_packed(ws, meta, pts_t, views_t), 10),
             k4_plain=time_ms(lambda: ff.field_forward_plain(inputs, meta, pts_t, views_t), 3),
-            k5=time_ms(lambda: ff.field_backward(inputs, meta, pts_t, views_t, g_raw), 5),
+            k5=time_ms(k5_step, 5),
+            k5_kernel=time_ms(lambda: ff._field_backward_flat(ws, meta, pts_t, views_t, g_raw), 5),
             k5_plain=time_ms(lambda: ff.field_backward_plain(inputs, meta, pts_t, views_t, g_raw), 3),
+            pack=time_ms(lambda: ff._pack_leaves(fused.params[net], leaves_net, spec, meta), 10),
+            k4_matmul=field_products_matmul_ms(inputs, n, backward=False),
+            k5_matmul=field_products_matmul_ms(inputs, n, backward=True),
         )
-        # Bytes: points and view directions in, raw [8, N] out, bf16 weights
-        # read once; the backward reads cotangent rows 0-3, the weights and
-        # their transposes, and writes fp32 gradients.
+        # Bytes: points and view directions in, raw [8, N] out, the fp32
+        # leaves read once (the pack); the backward reads cotangent rows 0-3,
+        # the bf16 weights and their transposes, and writes fp32 gradients.
         w_bytes = sum(x.numel() * 2 for x in leaves[net])
-        b4 = bound_ms(2 * mac_fwd * n, n * (6 * 4 + 8 * 4) + w_bytes)
+        b4 = bound_ms(2 * mac_fwd * n, n * (6 * 4 + 8 * 4) + 2 * w_bytes)
         b5 = bound_ms(2 * mac_bwd * n, n * (6 * 4 + 4 * 4) + 4 * w_bytes)
+        # K5's design also writes its bf16 scratch and reads it back.
+        n_scratch = ff._backward_sizes(_build.load("train_field"), meta, n)[0]
+        b5_design = 2 * n_scratch * 2 / PEAK_BYTES * 1e3
         res[net] = dict(n=n, k4_err=k4_err, k5_rel=worst[0], k5_abs=max(e[1] for e in errs), worst=worst[2],
-                        t=t, b4=b4, b5=b5)
-        print(f"{net} field, {n} points: K4 ms {t['k4']:.3f} plain_ms {t['k4_plain']:.3f} bound_ms {b4[0]:.4f} "
-              f"max_abs_err {k4_err:.2e} (vs fp32); K5 ms {t['k5']:.3f} plain_ms {t['k5_plain']:.3f} "
-              f"bound_ms {b5[0]:.4f} max rel err {worst[0]:.2e} ({worst[2]}), deterministic {same}", flush=True)
+                        t=t, b4=b4, b5=b5, b5_design=b5_design)
+        print(f"{net} field, {n} points: K4 ms {t['k4']:.3f} (pack + kernel; kernel {t['k4_kernel']:.3f}, "
+              f"pack {t['pack']:.4f}) plain_ms {t['k4_plain']:.3f} bound_ms {b4[0]:.4f} max_abs_err "
+              f"{k4_err:.2e} (vs fp32), products as torch.matmul {t['k4_matmul']:.3f}; K5 ms {t['k5']:.3f} "
+              f"(kernels + gradient gather; kernels {t['k5_kernel']:.3f}) plain_ms {t['k5_plain']:.3f} bound_ms "
+              f"{b5[0]:.4f} (design bytes bound {b5_design:.4f}) max rel err {worst[0]:.2e} ({worst[2]}), "
+              f"deterministic {same}, products as torch.matmul {t['k5_matmul']:.3f}", flush=True)
     del out, grads, loss
 
     # 3. Train with the fused field: exactly two K4 and two K5 calls per step.
@@ -429,7 +508,8 @@ def train_phase(card: str, device: torch.device):
     zero_launches(*counters)
     losses, warm_fused, ckpt = run(fused, RESUME_STEP)
     launches = dict(ff.LAUNCHES)
-    want = {"forward": 2 * TRAIN_STEPS, "backward": 2 * TRAIN_STEPS, "backward_kernels": 8 * TRAIN_STEPS}
+    want = {"forward": 2 * TRAIN_STEPS, "backward": 2 * TRAIN_STEPS,
+            "backward_kernels": 2 * ff.BACKWARD_KERNELS * TRAIN_STEPS}
     require(launches == want, f"K4/K5 launches {launches}, expected {want}")
     require(sum(fr.LAUNCHES.values()) + sum(im.LAUNCHES.values()) == 0, "a render kernel ran in a train step")
     print(f"train launches: K4 {launches['forward']}, K5 {launches['backward']} calls "
@@ -467,25 +547,66 @@ def train_phase(card: str, device: torch.device):
     print(f"resume from step {start}: losses {again[0]:.7f}, {again[1]:.7f} against {losses[start]:.7f}, "
           f"{losses[start + 1]:.7f} (|diff| {diffs[0]:.1e}, {diffs[1]:.1e})", flush=True)
     require(max(diffs) <= 1e-6, f"resumed losses differ by {diffs}")
+
+    # 6. The same steps at steps_per_call=GRAPH_K: the first call runs its
+    # steps eagerly and captures a CUDA graph of GRAPH_K steps, every later
+    # call replays it. A replay calls no wrapper, so the K4/K5 kernels it
+    # ran are counted from a profiler trace of the last calls.
+    graphed = trainer("auto", "graphed", steps_per_call=GRAPH_K)
+    g_losses, call_ms = [], []
+    n_calls = TRAIN_STEPS // GRAPH_K
+
+    def graph_calls(calls):
+        for c in calls:
+            t0 = time.perf_counter()
+            m = graphed.step_many(c * GRAPH_K)
+            g_losses.extend(m["total_loss_steps"].tolist())  # waits for the call's device work
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+
+    timed = n_calls - GRAPH_PROFILED_CALLS
+    graph_calls(range(timed))
+    require(graphed.graph_captured, "no CUDA graph was captured")
+    wrapped = dict(ff.LAUNCHES)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        graph_calls(range(timed, n_calls))
+    require(ff.LAUNCHES == wrapped, f"a replay moved the K4/K5 wrappers' counts: {wrapped} -> {ff.LAUNCHES}")
+    ran = device_kernel_counts(prof)
+    g_steps = GRAPH_PROFILED_CALLS * GRAPH_K
+    g_launches = {key: sum(ran.get(k, 0) for k in names) for key, names in TRAIN_KERNELS.items()}
+    g_want = {key: v * g_steps // TRAIN_STEPS for key, v in want.items()}
+    require(g_launches == g_want, f"graph replays ran K4/K5 kernels {g_launches}, expected {g_want}")
+    g_diff = max(abs(a - b) for a, b in zip(g_losses, losses))
+    warm_graph = float(np.median(call_ms[1:timed])) / GRAPH_K
+    print(f"train graph: {TRAIN_STEPS} steps at steps_per_call={GRAPH_K} ({n_calls} calls, the first "
+          f"capturing, {call_ms[0]:.1f} ms): losses against the eager run max |diff| {g_diff:.1e} (limit 1e-6); "
+          f"warm ms/step graph {warm_graph:.2f} (median of calls 2..{timed} / {GRAPH_K}), eager "
+          f"{warm_fused:.2f}; kernels run by the last {GRAPH_PROFILED_CALLS} replays ({g_steps} steps, "
+          f"profiler trace) {g_launches}; card {card}", flush=True)
+    require(g_diff <= 1e-6, f"graph-replayed losses differ from the eager run's by {g_diff}")
     shutil.rmtree(out_dir, ignore_errors=True)
 
     src = f"{PACKAGE}/csrc/train_field.cu"
     c, f = res["coarse"], res["fine"]
     per_step = lambda key: c["t"][key] + f["t"][key]  # noqa: E731
     common = dict(route="cuda", source=src, library_ms=None, held_against_plain=True, calls_per_step=2,
-                  points_coarse=c["n"], points_fine=f["n"])
+                  points_coarse=c["n"], points_fine=f["n"], step_ms_eager=warm_fused, step_ms_graph=warm_graph,
+                  graph_profiled_steps=g_steps, pack_ms=per_step("pack"))
     return [
         dict(name="K4 fused field forward (training, coarse + fine call of one step)",
              replaces="nerf_workspaces_explorer_tpu/ops/pallas_train.py:222", launches=launches["forward"],
-             max_abs_err=max(c["k4_err"], f["k4_err"]), ms=per_step("k4"), plain_ms=per_step("k4_plain"),
-             bound_ms=c["b4"][0] + f["b4"][0], bound_by=f["b4"][1], ms_coarse=c["t"]["k4"],
-             ms_fine=f["t"]["k4"], **common),
+             max_abs_err=max(c["k4_err"], f["k4_err"]), ms=per_step("k4"), kernel_ms=per_step("k4_kernel"),
+             plain_ms=per_step("k4_plain"), bound_ms=c["b4"][0] + f["b4"][0], bound_by=f["b4"][1],
+             graph_launches=g_launches["forward"], ms_coarse=c["t"]["k4"],
+             ms_fine=f["t"]["k4"], products_matmul_ms=per_step("k4_matmul"), **common),
         dict(name="K5 fused field backward (training, coarse + fine call of one step)",
              replaces="nerf_workspaces_explorer_tpu/ops/pallas_train.py:237", launches=launches["backward"],
              kernel_launches=launches["backward_kernels"], max_abs_err=max(c["k5_abs"], f["k5_abs"]),
              max_rel_err=max(c["k5_rel"], f["k5_rel"]), deterministic=True, ms=per_step("k5"),
-             plain_ms=per_step("k5_plain"), bound_ms=c["b5"][0] + f["b5"][0], bound_by=f["b5"][1],
-             ms_coarse=c["t"]["k5"], ms_fine=f["t"]["k5"], **common),
+             kernel_ms=per_step("k5_kernel"), plain_ms=per_step("k5_plain"), graph_launches=g_launches["backward"],
+             graph_kernel_launches=g_launches["backward_kernels"], bound_ms=c["b5"][0] + f["b5"][0], bound_by=f["b5"][1],
+             design_bytes_bound_ms=c["b5_design"] + f["b5_design"], ms_coarse=c["t"]["k5"], ms_fine=f["t"]["k5"],
+             products_matmul_ms=per_step("k5_matmul"), **common),
     ]
 
 
@@ -990,8 +1111,8 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line or "(C7" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    spills = served_render_spills(names)
-    require(not spills, f"ptxas reports spills in served render kernels: {spills}")
+    spills = served_render_spills(names) + library_spills("train_field")
+    require(not spills, f"ptxas reports spills in served render or training field kernels: {spills}")
     for name in names:
         if name.startswith("fused_render"):
             counts = sass_counts(name)
@@ -1001,6 +1122,11 @@ def main() -> int:
                 need = ("IGMMA",) if "ablate" in name else ("HGMMA", "IGMMA")
                 require(counts["HMMA"] == 0 and counts["IMMA"] == 0, f"{name}: mma.sync products remain {counts}")
                 require(all(counts[op] > 0 for op in need), f"{name}: no wgmma {counts}")
+    counts = sass_counts("train_field")
+    print(f"sass train_field: {counts}", flush=True)
+    if counts is not None:
+        require(counts["HMMA"] == 0 and counts["IMMA"] == 0 and counts["HGMMA"] > 0,
+                f"train_field: the products must be wgmma alone {counts}")
 
     # 2. Kernels against their plain versions at the main path's shapes.
     cfg = load_config(office_name="tokyo")

@@ -5,9 +5,14 @@ nerf/train.py:11-56: `--office` whitelist, config load, handler setup, the
 per-step wall-clock print), its `--synthetic` path. Runs on `cuda` (the
 fused K4/K5 field kernels) unless given `--device cpu` (plain PyTorch).
 Options of the JAX CLI that this port does not have yet raise.
+`--steps-per-call K` advances the stretches between cadence boundaries K
+steps a call: on `cuda` a replay of a CUDA graph of K steps, on the CPU K
+eager steps (the same trajectory as one step a call).
 
 Usage:
     python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --scene room
+    python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --scene room \\
+        --steps-per-call 10
     python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --device cpu \\
         --synthetic-size 16 --iterations 40
 """
@@ -23,7 +28,7 @@ AVAILABLE_OFFICES = ("tokyo", "new_york", "geneve", "belgrade")
 # Options of the JAX package's CLI that are not ported, with the value that
 # means "not asked for".
 UNPORTED = {
-    "proposal": False, "fast_preset": False, "mesh": 0, "steps_per_call": 1,
+    "proposal": False, "fast_preset": False, "mesh": 0,
     "profile": None, "nan_debug": False, "export_final": False,
 }
 
@@ -57,13 +62,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--eval-max-views", type=int, default=0, metavar="N",
                         help="evenly subsample the eval renders to at most N views (0 = all)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--steps-per-call", type=int, default=1, metavar="K",
+                        help="steps per call between cadence boundaries: a CUDA-graph replay of K "
+                        "steps on cuda, K eager steps on the CPU (the print cadence is raised to K)")
     # Not ported: each raises when given.
     parser.add_argument("--mesh", type=int, default=0, help=argparse.SUPPRESS)
     parser.add_argument("--profile", type=str, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--export-final", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--proposal", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--fast-preset", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--steps-per-call", type=int, default=1, help=argparse.SUPPRESS)
     parser.add_argument("--nan-debug", action="store_true", help=argparse.SUPPRESS)
     return parser
 
@@ -93,6 +100,14 @@ def main(argv=None) -> None:
 
     device = resolve_device(torch.device(args.device))
     config = load_config(args.config, office_name=office)
+    if args.steps_per_call > 1 and 0 < config.logging.step_log_print < args.steps_per_call:
+        # A print every step would make every step a cadence boundary and
+        # leave no K-step stretch: stretch the print cadence to K.
+        config = dataclasses.replace(
+            config, logging=dataclasses.replace(config.logging, step_log_print=args.steps_per_call)
+        )
+        print(f"(--steps-per-call {args.steps_per_call}: console print cadence raised to every "
+              f"{args.steps_per_call} steps)")
     size = args.synthetic_size
     if args.scene == "room":
         near, far = 0.1, 8.0
@@ -115,8 +130,8 @@ def main(argv=None) -> None:
 
     trainer = Trainer(
         office, config, train_data=train_data, test_data=test_data, seed=args.seed,
-        save_dir=args.save_dir, field_impl=args.field, eval_max_views=args.eval_max_views,
-        device=device,
+        save_dir=args.save_dir, field_impl=args.field, steps_per_call=args.steps_per_call,
+        eval_max_views=args.eval_max_views, device=device,
     )
     trainer.setup()
     start_step = 0
@@ -128,13 +143,26 @@ def main(argv=None) -> None:
     print("#" * 80)
     print("------------------------------- Training loop ---------------------------------")
     print("#" * 80)
-    for i in range(start_step, num_iterations):
-        step_start = time.time()
-        trainer.step(i)
+    if args.steps_per_call > 1:
+        # K-step calls; per-step wall-clock prints only make sense one step
+        # at a time, so fit() owns the loop (JAX cli/train.py:223-236).
+        loop_start = time.time()
+        trainer.fit(num_iterations, start_step=start_step)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        duration = time.time() - step_start
-        print(f"Finished step: {i + 1}/{num_iterations} --> Step duration: {duration} sec")
+        duration = time.time() - loop_start
+        done = num_iterations - start_step
+        if done > 0:
+            print(f"Finished steps {start_step + 1}..{num_iterations} in {duration:.1f} sec "
+                  f"({done / duration:.1f} steps/s, {args.steps_per_call} steps/dispatch)")
+    else:
+        for i in range(start_step, num_iterations):
+            step_start = time.time()
+            trainer.step(i)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            duration = time.time() - step_start
+            print(f"Finished step: {i + 1}/{num_iterations} --> Step duration: {duration} sec")
 
     if args.save_final:
         trainer.save_models_checkpoint(num_iterations)

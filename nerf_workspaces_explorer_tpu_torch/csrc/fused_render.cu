@@ -108,8 +108,7 @@
 
 #include <type_traits>
 
-#include "nerf_mlp.cuh"
-#include "wgmma.cuh"
+#include "hopper.cuh"
 
 #ifndef RENDER_WIDTH
 #define RENDER_WIDTH 256
@@ -125,19 +124,12 @@
 #define SG 4                   // samples per step (RB * SG = MP points)
 #define MAXD 16
 #define RVENC 32               // view encoding rows of the full pass: 3 + 6 * 4, padded to 32
-#define WG_ROWS 64             // rows of a step per consumer warpgroup
-#define N_CONSUMERS 256        // threads of the two consumer warpgroups
-#define RK_THREADS 384         // + the producer warpgroup
 #define MAX_SLABS 96           // slabs of one step's weight stream
-#define SMEM_LIMIT 232448      // dynamic shared memory a block may use
-#define RK_CONSUMER_REGS 232   // registers of a consumer / producer thread after setmaxnreg:
-#define RK_PRODUCER_REGS 40    // 2 x 128 x 232 + 128 x 40 <= 65,536
 
 static_assert(RB * SG == MP && MP == 2 * WG_ROWS, "a block step is two 64-row warpgroup tiles");
 
 namespace rk {
 
-typedef signed char s8;
 enum { MODE_BF16 = 0, MODE_INT8_TRUNK = 1, MODE_INT8 = 2 };
 
 // Ablation mask of K8 (scripts/profile_fine_ablation.py's flags): each bit
@@ -156,9 +148,6 @@ enum {
 // pallas_sampling.py).
 #define PDF_GUARD 1e-5f
 
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
-
 // Whether the full pass runs alpha and the features as two products (W + 16
 // columns are more than one wgmma takes) or as one.
 __host__ __device__ constexpr bool fa_split(int w) { return w + 16 > 256; }
@@ -166,10 +155,6 @@ __host__ __device__ constexpr bool fa_split(int w) { return w + 16 > 256; }
 // Product depth in bytes of the encoding: its stored rows (3 + 6F padded to
 // 8) padded to the 32-byte k-step.
 __host__ __device__ constexpr int enc_kb(int freqs, int elem) { return round_up(round_up(3 + 6 * freqs, 8) * elem, 32); }
-
-template <typename T> struct Tr;
-template <> struct Tr<bf16> { typedef float AccT; };
-template <> struct Tr<s8> { typedef int AccT; };
 
 struct Quant {
   int shift[MAXD];   // per-layer requant shift
@@ -195,187 +180,8 @@ struct NetPtrs {
   int skip_layer;             // layer whose input is [encoding, h]; -1 for none
 };
 
-// One step's weight stream: slab j is bytes[j] bytes at base + off[j].
-struct Stream {
-  const unsigned char* base;
-  int n;
-  int off[MAX_SLABS];
-  int bytes[MAX_SLABS];
-};
+typedef StreamT<MAX_SLABS> Stream;
 
-// ---------------------------------------------------------------------------
-// Hopper primitives.
-
-__device__ __forceinline__ uint32_t saddr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// The spin is inside the asm: a loop in C would be a divergent branch to
-// the compiler, which then serialises the wgmma around it.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nLAB_WAIT:\nmbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n@!p bra LAB_WAIT;\n}\n" ::"r"(
-          bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// mbar_arrive by the threads where `pred` holds, predicated, not branched.
-__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
-               "r"((int)pred)
-               : "memory");
-}
-
-// One bulk copy of `bytes` from global to shared memory, completing on `bar`
-// (whose phase expects the bytes).
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-__device__ __forceinline__ void named_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-__device__ __forceinline__ void consumers_sync() { named_sync(1, N_CONSUMERS); }
-__device__ __forceinline__ void warpgroup_sync() { named_sync(2 + (threadIdx.x >> 7), 128); }
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products.
-template <int N> __device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N> __device__ __forceinline__ void fence_acc(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// K-major operand in the 128-byte swizzle: rows of 128 bytes, 8-row groups
-// 1024 bytes apart (stride byte offset), tile bases 1024-aligned; a k-step
-// advances the start address by 32 bytes inside the row.
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-// Byte b (< 128) of row r of a 128-byte-row swizzled tile.
-__host__ __device__ __forceinline__ int swz(int r, int b) { return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15); }
-
-// Byte b of row r of a warpgroup's activation region: 128-byte column
-// blocks of WG_ROWS rows each.
-__device__ __forceinline__ int act_off(int r, int b) { return (b >> 7) * (WG_ROWS * 128) + swz(r, b & 127); }
-
-struct SwRow {  // one row of a swizzled tile
-  unsigned char* p;
-  int r;
-  __device__ __forceinline__ unsigned char* at(int b) const { return p + ((((b >> 4) ^ r) & 7) << 4) + (b & 15); }
-};
-
-template <typename T, int N>
-__device__ __forceinline__ void mma(typename Tr<T>::AccT (&d)[N / 2], uint64_t a, uint64_t b) {
-  if constexpr (sizeof(T) == 2)
-    wgmma_bf16<N>(d, a, b, 1);
-  else
-    wgmma_s8<N>(d, a, b, 1);
-}
-
-// The consumers' position in the weight ring.
-struct Ring {
-  uint32_t stage0;  // shared address of stage 0
-  uint32_t full0;   // full barriers, 8 bytes apart
-  uint32_t empty0;  // empty barriers
-  int k;            // slabs consumed since the launch
-};
-
-// d1 (+ d2) (+)= A . B^T over KB bytes of depth, B the next ceil(KB / 128)
-// slabs of the stream ([N1 (+ N2) rows x 128 B] each; d2 takes rows N1..),
-// A this warpgroup's 64 rows at shared address `a`, its 128-byte column
-// blocks `a_kbs` bytes apart. Zeroes the accumulators first when ZERO (a
-// template argument: a runtime flag would keep the accumulators live across
-// a whole step, and put the compiler's wgmma fences on a divergent path).
-// Each slab's stage is released once the products reading it completed.
-template <typename T, int N1, int N2, int KB, int RING, int STAGE, bool ZERO = true>
-__device__ __forceinline__ void product(typename Tr<T>::AccT (&d1)[N1 / 2],
-                                        typename Tr<T>::AccT (&d2)[N2 > 0 ? N2 / 2 : 1], uint32_t a, int a_kbs,
-                                        Ring& ring) {
-  constexpr int NS = (KB + 127) / 128;
-  if constexpr (ZERO) {
-#pragma unroll
-    for (int i = 0; i < N1 / 2; ++i) d1[i] = 0;
-    if constexpr (N2 > 0) {
-#pragma unroll
-      for (int i = 0; i < N2 / 2; ++i) d2[i] = 0;
-    }
-  }
-  wgmma_fence();
-  int prev = 0;
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    const int s = ring.k % RING;
-    mbar_wait(ring.full0 + 8 * s, (ring.k / RING) & 1);
-    const uint32_t b = ring.stage0 + s * STAGE;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if (kk < cmin(4, (KB - 128 * j) / 32)) {
-        const uint64_t da = desc(a + j * a_kbs + 32 * kk);
-        mma<T, N1>(d1, da, desc(b + 32 * kk));
-        if constexpr (N2 > 0) mma<T, N2>(d2, da, desc(b + N1 * 128 + 32 * kk));
-      }
-    }
-    wgmma_commit();
-    if (j > 0) {
-      wgmma_wait<1>();
-      mbar_arrive_if(ring.empty0 + 8 * prev, (threadIdx.x & 127) == 0);
-    }
-    prev = s;
-    ++ring.k;
-  }
-  wgmma_wait<0>();
-  mbar_arrive_if(ring.empty0 + 8 * prev, (threadIdx.x & 127) == 0);
-  fence_acc(d1);
-  if constexpr (N2 > 0) fence_acc(d2);
-}
-
-// f(local row, column, value at column, value at column + 1) over this
-// thread's accumulator pairs of a 64 x N product, in its first NJ blocks of
-// 8 columns.
-template <int N, int NJ, typename AccT, typename Fn>
-__device__ __forceinline__ void for_pairs(const AccT (&d)[N / 2], Fn f) {
-  const int t = threadIdx.x & 127;
-  const int r0 = (t >> 5) * 16 + ((t & 31) >> 2), c0 = 2 * (t & 3);
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    f(r0, c0 + 8 * j, d[4 * j], d[4 * j + 1]);
-    f(r0 + 8, c0 + 8 * j, d[4 * j + 2], d[4 * j + 3]);
-  }
-}
 
 // Epilogue kinds: what a product's accumulators become.
 enum {
@@ -471,7 +277,7 @@ __device__ __forceinline__ void epilogue_out(const AccT (&d)[N / 2], const void*
 // ---------------------------------------------------------------------------
 // Encoding (the earlier kernel's arithmetic), into a swizzled tile row.
 
-// sincos_poly (nerf_mlp.cuh) with every product and sum rounded on its own,
+// sincos_poly (hopper.cuh) with every product and sum rounded on its own,
 // in the plain version's order of operations (fused_render.py::_sincos_poly).
 __device__ __forceinline__ void sincos_poly_rn(float p, float& s, float& c) {
   const float PIO2_HI = 1.5707855224609375f;
@@ -491,22 +297,6 @@ __device__ __forceinline__ void sincos_poly_rn(float p, float& s, float& c) {
   const float sign = (qi & 2) == 2 ? -1.f : 1.f;
   s = (swap ? c0 : s0) * sign;
   c = (swap ? -s0 : c0) * sign;
-}
-
-// encode_coord<F> (nerf_mlp.cuh) into a swizzled bf16 row.
-template <int F>
-__device__ __forceinline__ void encode_coord_sw(SwRow e, int c, float p) {
-  auto put = [&](int k, float x) { *reinterpret_cast<bf16*>(e.at(2 * k)) = __float2bfloat16(x); };
-  put(c, p);
-  float sn, cs;
-  sincos_poly(p, sn, cs);
-  for (int k = 0; k < F; ++k) {
-    put(3 + 3 * k + c, sn);
-    put(3 + 3 * F + 3 * k + c, cs);
-    const float s2 = 2.f * sn * cs;
-    cs = 1.f - 2.f * sn * sn;
-    sn = s2;
-  }
 }
 
 static __device__ __forceinline__ s8 quantize_rn(float x, float qs) {
@@ -678,29 +468,6 @@ __host__ inline int stream_rows(int W, int F, int mode, bool full, bool heads, i
     mat(16, W / 2 * eh);
   }
   return n;
-}
-
-// The producer: one thread keeps the ring full for n_groups steps of
-// st.n slabs, until the consumers raise `stop` (drain rule, header note).
-template <int RING, int STAGE>
-__device__ __forceinline__ void produce(const Stream& st, int n_groups, uint32_t stage0, uint32_t full0,
-                                        uint32_t empty0, uint32_t done, volatile int* stop, int* n_issued) {
-  const int total = st.n * n_groups;
-  int k = 0;
-  for (int j = 0; k < total; ++k) {
-    const int s = k % RING, u = k / RING;
-    if (u > 0) {
-      bool ok;
-      while (!(ok = mbar_try_wait(empty0 + 8 * s, (u - 1) & 1)) && !*stop) {
-      }
-      if (!ok) break;
-    }
-    if (*stop) break;
-    bulk_load(stage0 + s * STAGE, st.base + st.off[j], st.bytes[j], full0 + 8 * s);
-    if (++j == st.n) j = 0;
-  }
-  *n_issued = k;
-  mbar_arrive(done);
 }
 
 // One block's work: the served kernels with ABL = 0, K8 with an ablation

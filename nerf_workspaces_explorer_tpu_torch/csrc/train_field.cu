@@ -5,88 +5,96 @@
 //   (via _run_fwd) and ::_bwd_kernel (via _run_bwd), the custom-VJP field
 //   the JAX package trains with on its accelerator.
 //
-// What bounds them on this card: tensor-core operations. The forward costs
-//   about 2 x 593k FLOP per point against 32 bytes of point input and
-//   output; the backward about three times that (recomputed forward,
-//   input-gradient chain, weight-gradient products). Both sit far above the
-//   H100's ~295 bf16 FLOP-per-byte ridge.
+// What bounds them on this card. Operations: the forward costs 2 x 593k
+//   FLOP a point against 32 bytes of point input and output, the backward
+//   about three times that (recomputed forward, input-gradient chain,
+//   weight-gradient products); at a step's 65,536 coarse + 196,608 fine
+//   points that is 0.315 ms (K4) and 0.925 ms (K5) at the bf16 peak. Bytes:
+//   K5's design moves more than its inputs. Its chain kernel writes each
+//   layer's bf16 input and cotangent to a scratch (4,976 bf16, 9.95 KB a
+//   point, 2.6 GB a step) that its weight-gradient kernel reads back, ~1.6
+//   ms a step at 3.35 TB/s, more than its operations bound. chip_smoke.py
+//   prints both bounds.
 //
-// What the design does about it:
-//   K4 (field_fwd_kernel) is the render kernels' MLP without compositing:
-//   a block takes 128 points, encodes them with the octave ladder, and runs
-//   every layer as WMMA bf16 products with fp32 accumulation, activations
-//   ping-ponging in shared memory and weights streamed through [128 x 64]
-//   slabs (nerf_mlp.cuh). The view layer's concat is a second product
-//   against the per-point view encoding.
-//   K5 cannot keep the TPU kernel's weight-gradient accumulators resident:
-//   the TPU sums 2.4 MB of fp32 dW per net over a sequential grid, while a
-//   GPU runs its blocks unordered and no SM holds 2.4 MB. So K5 is three
-//   kernels (recompute plus input-gradient chain, split-K weight-gradient
-//   products, an ordered reduction), deterministic by construction, no
-//   atomics:
-//   - field_bwd_chain_kernel: a block takes 128 points, recomputes the
-//     forward and writes each layer's bf16 input (encodings, h_0..h_7,
-//     feature, hv) to a global scratch; then runs the gradient chain
-//     backward (W^T products of the bf16 cotangent, ReLU masks from the
-//     recomputed bf16 activations compared in fp32) and writes each layer's
-//     bf16 cotangent to the scratch, and its fp32 bias-gradient partial sums
-//     (one row per block) to `dbpart`;
-//   - field_dw_kernel: every dW = G^T H over the points, one 64 x 64 output
-//     tile and one `chunk` of points per block, fp32 partials per chunk;
-//   - sum_rows_kernel: partials summed over chunks (and bias rows over
-//     blocks) in a fixed order.
-//   The scratch costs about 10 KB per point written once and read once
-//   (2 GB at the fine pass's 196,608 points), traded for simple kernels;
-//   fusing the dW products into the chain kernel per tile would remove it.
+// What the design does about it: every product is a bf16 wgmma with fp32
+//   accumulators in registers, on the render kernel's block (hopper.cuh).
+//   - K4 (field_fwd_kernel) and the chain kernel are persistent blocks of
+//     three warpgroups walking 128-point tiles: one producer thread bulk-
+//     copies the net's weights, packed on the device every step into a
+//     stream of 128-byte-swizzled slabs in consumption order
+//     (ops/fused_field.py::pack_field_stream; the forward table, and the
+//     backward table that adds the transposes), through a ring of stages;
+//     two consumer warpgroups own 64 points each and write every epilogue
+//     over their own activation rows. The view layer's concat is a second
+//     product against the view encoding tile.
+//   - K5 is split in three kernels, deterministic by construction, no atomics:
+//     field_bwd_chain_kernel recomputes the forward (saving each layer's
+//     bf16 output and the encodings to the scratch), then runs the input-
+//     gradient chain (W^T products of the bf16 cotangent; ReLU masks from the
+//     recomputed bf16 activations, compared in fp32, kept from the recompute
+//     as one bit per accumulator of the thread), writing each layer's bf16
+//     cotangent to the scratch and, per warpgroup, its fp32 bias-gradient
+//     row (a fixed shuffle tree and warp order) to `dbpart`. The scratch
+//     rows leave as whole 16-byte vectors, copied from the activation region
+//     after each epilogue, and the two warpgroups never wait for each other
+//     inside a tile. field_dw_kernel forms every dW = G^T H over one chunk
+//     of points per block with wgmma, both operands point-major in shared
+//     memory (MN-major: wgmma's transpose bits, no transpose pass), fed by
+//     a cp.async pipeline; sum_rows_kernel sums the chunks' partials (and
+//     the bias rows over tiles) in a fixed order.
+//   Fusing the dW products into the chain would remove the scratch; the
+//   chain would then need every layer's dW accumulators at once.
 
-#include "nerf_mlp.cuh"
+#include "hopper.cuh"
 
-#define MAXD 16
-#define GH 16        // head-cotangent columns: 0-2 rgb, 8 sigma
+#define WIDTH 256
+#define HALF (WIDTH / 2)      // view layer width
+#define PTS_FREQS 10
+#define VIEW_FREQS 4
+#define ENC 64                // point encoding columns: 3 + 6 * 10, padded to 64
+#define VENC 32               // view encoding columns: 3 + 6 * 4, padded to 32
+#define GH 16                 // head-cotangent columns: 0-2 rgb, GH_SIGMA sigma
 #define GH_SIGMA 8
-#define BK 128       // points per staged step of the dW products
-#define LDT 72       // row stride of a staged dW operand tile (64 + 8)
+#define MAXD 16
+#define MAX_FIELD_SLABS 160   // slabs of one tile's weight stream (backward, 16 layers: 139)
+#define FRING 3               // weight ring stages
+#define FSTAGE (WIDTH * 128)  // the largest slab: 256 rows x 128 bytes
+#define DW_BP 64              // points per stage of the dW products
+#define DW_STAGES 4
+#define DW_TILE (DW_BP * 128)  // one 64-column block of a stage: 64 points x 128 bytes
+#define DW_STAGE (6 * DW_TILE)  // G: two column blocks (128 rows of dW), H: four (256 columns)
+#define DW_N 256              // dW columns of a block
 #define MAX_JOBS 24
 
-struct FieldPtrs {
-  const bf16* w[MAXD];        // layer i: [256, in_i], in_0 = ENC, else 256 (h part)
-  const float* b[MAXD];       // [256]
-  const bf16* w_skip;         // [256, ENC] encoding weights of the skip layer
-  const bf16* w_alpha;        // [16, 256], row 0 live
-  const float* b_alpha;       // [16]
-  const bf16* w_feat;         // [256, 256]
-  const float* b_feat;        // [256]
-  const bf16* w_view_h;       // [128, 256]
-  const bf16* w_view_enc;     // [128, 64]: view encoding columns 0-31, then zeros
-  const float* b_view;        // [128]
-  const bf16* w_rgb;          // [16, 128], rows 0-2 live
-  const float* b_rgb;         // [16]
-  // Backward only: transposes [in, out] for the input-gradient products.
-  const bf16* w_t[MAXD];      // layer i >= 1: [256 (in), 256 (out)]
-  const bf16* w_feat_t;       // [256, 256]
-  const bf16* w_alpha_t;      // [256, 64]: column GH_SIGMA live
-  const bf16* w_view_h_t;     // [256, 128]
-  const bf16* w_rgb_t;        // [128, 64]: columns 0-2 live
+using namespace rk;
+typedef StreamT<MAX_FIELD_SLABS> FieldStream;
+
+// Biases; the product weights arrive through the stream.
+struct FieldNet {
+  const float* b[MAXD];  // layer i: [256]
+  const float* b_alpha;  // [>= 1]
+  const float* b_feat;   // [256]
+  const float* b_view;   // [128]
+  const float* b_rgb;    // [>= 3]
   int depth;
-  int skip_layer;             // layer whose input is [encoding, h]; -1 for none
+  int skip_layer;        // layer whose input is [encoding, h]; -1 for none
 };
 
 // The backward's global scratch, point-major bf16 [n, cols] arrays.
 struct Scratch {
-  bf16* feat;                 // [n, 64] point encoding (kernel row order)
-  bf16* venc;                 // [n, 32] view encoding
-  bf16* hs;                   // [depth][n, 256] trunk activations h_i
-  bf16* feature;              // [n, 256]
-  bf16* hv;                   // [n, 128]
-  bf16* gh;                   // [n, 16] head cotangents: 0-2 rgb, 8 sigma
-  bf16* ghv;                  // [n, 128]
-  bf16* gfeat;                // [n, 256]
-  bf16* g;                    // [depth][n, 256] trunk pre-activation cotangents
+  bf16* feat;     // [n, 64] point encoding (kernel row order)
+  bf16* venc;     // [n, 32] view encoding
+  bf16* hs;       // [depth][n, 256] trunk activations h_i
+  bf16* feature;  // [n, 256]
+  bf16* hv;       // [n, 128]
+  bf16* gh;       // [n, 16] head cotangents: 0-2 rgb, 8 sigma
+  bf16* ghv;      // [n, 128]
+  bf16* gfeat;    // [n, 256]
+  bf16* g;        // [depth][n, 256] trunk pre-activation cotangents
 };
 
 static size_t scratch_elems(int depth, size_t n) {
-  return n * (ENC + VENC + (size_t)depth * WIDTH + WIDTH + HALF + GH + HALF + WIDTH +
-              (size_t)depth * WIDTH);
+  return n * (ENC + VENC + (size_t)depth * WIDTH + WIDTH + HALF + GH + HALF + WIDTH + (size_t)depth * WIDTH);
 }
 
 static Scratch scratch_layout(bf16* base, int depth, size_t n) {
@@ -103,268 +111,448 @@ static Scratch scratch_layout(bf16* base, int depth, size_t n) {
   return s;
 }
 
-// Bias-gradient layout (one row of `dbpart` per block, and the result):
+// Bias-gradient layout (one row of `dbpart` per warpgroup of a tile, and the result):
 // db_0 .. db_{depth-1} (256 each), db_feature (256), db_alpha (8, row 0
 // live), db_view (128), db_rgb (8, rows 0-2 live).
 __host__ __device__ inline int db_size(int depth) { return depth * WIDTH + WIDTH + 8 + HALF + 8; }
 
-// rows [0, MP) of a bf16 shared tile -> global [n, ldg] rows p0.., first
-// ncols columns (ncols a multiple of 8).
-__device__ void copy_rows(const bf16* src, int lds, int ncols, bf16* dst, int ldg, int p0,
-                          int n) {
-  const int vpr = ncols / 8;
-  for (int v = threadIdx.x; v < MP * vpr; v += NTHREADS) {
-    const int r = v / vpr, c = (v % vpr) * 8;
-    if (p0 + r < n)
-      *reinterpret_cast<uint4*>(dst + (size_t)(p0 + r) * ldg + c) =
-          *reinterpret_cast<const uint4*>(src + r * lds + c);
+// Slab rows of the field's weight stream in the order the consumers take
+// them (the packer's order, ops/fused_field.py::pack_field_stream): the
+// forward table (K4) or the backward table (the chain kernel). Returns the
+// count.
+__host__ inline int field_stream_rows(bool backward, int depth, int skip_layer, int* rows) {
+  int n = 0;
+  auto mat = [&](int nrows, int k_bytes) {
+    for (int j = 0; j < (k_bytes + 127) / 128; ++j, ++n)
+      if (n < MAX_FIELD_SLABS) rows[n] = nrows;
+  };
+  mat(WIDTH, ENC * 2);
+  for (int i = 1; i < depth; ++i) {
+    if (i == skip_layer) mat(WIDTH, ENC * 2);
+    mat(WIDTH, WIDTH * 2);
+  }
+  if (!backward) mat(16, WIDTH * 2);  // alpha
+  mat(WIDTH, WIDTH * 2);              // feature
+  mat(HALF, WIDTH * 2);               // view: the feature part
+  mat(HALF, VENC * 2);                // view: the view-encoding part
+  if (!backward) {
+    mat(16, HALF * 2);  // rgb
+    return n;
+  }
+  mat(HALF, GH * 2);                                     // rgb^T
+  mat(WIDTH, HALF * 2);                                  // view_h^T
+  mat(WIDTH, WIDTH * 2);                                 // feature^T
+  mat(WIDTH, GH * 2);                                    // alpha^T
+  for (int i = depth - 1; i >= 1; --i) mat(WIDTH, WIDTH * 2);  // w_i^T
+  return n;
+}
+
+// Shared memory of K4 and the chain kernel, bytes from a 1024-aligned base.
+struct FLay {
+  static constexpr int ACT = WG_ROWS * WIDTH * 2;         // one warpgroup's activations
+  static constexpr int O_E = 2 * ACT;                     // point encoding [MP x 128 B]; head cotangents later
+  static constexpr int O_V = O_E + MP * 128;              // view encoding [MP x 128 B], 64 B used
+  static constexpr int O_STAGES = O_V + MP * 128;
+  static constexpr int O_RAW = O_STAGES + FRING * FSTAGE;  // [MP][4] fp32: rgb logits, sigma (K4)
+  static constexpr int O_COL = O_RAW + MP * 4 * 4;         // [2 wg][2][4 warps][256] fp32 column sums (K5)
+  static constexpr int O_FLAGS = O_COL + 2 * 8 * WIDTH * 4;
+  static constexpr int O_BARS = O_FLAGS + 16;
+  static constexpr int BYTES = O_BARS + (2 * FRING + 1) * 8 + 1024;
+  static_assert(BYTES <= SMEM_LIMIT, "shared memory");
+  static_assert(ACT % 1024 == 0 && FSTAGE % 1024 == 0 && O_STAGES % 1024 == 0, "swizzled tiles are 1024-aligned");
+};
+
+// ---------------------------------------------------------------------------
+// Epilogues, over this warpgroup's 64 rows (points p0w + local row).
+
+// bf16 act = acc + bias (relu'd with RELU) into the activation region;
+// with BITS, bit k of bits[] says whether accumulator k's bf16 activation
+// is > 0 (the ReLU mask the backward needs, N / 64 words a thread).
+template <int N, bool RELU, bool BITS>
+__device__ __forceinline__ void epi_fwd(const float (&d)[N / 2], unsigned char* __restrict__ act,
+                                        const float* __restrict__ bias, uint32_t* bits) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  uint32_t w[N / 64] = {};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = c0 + 8 * j;
+    const float2 b = *reinterpret_cast<const float2*>(bias + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 4 * j + 2 * h;  // d[k], d[k + 1]: row r0 + 8 h, columns c, c + 1
+      float x0 = d[k] + b.x, x1 = d[k + 1] + b.y;
+      if constexpr (RELU) {
+        x0 = fmaxf(x0, 0.f);
+        x1 = fmaxf(x1, 0.f);
+      }
+      const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+      *reinterpret_cast<__nv_bfloat162*>(act + act_off(r0 + 8 * h, 2 * c)) = v;
+      if constexpr (BITS)
+        w[k >> 5] |= ((uint32_t)(__low2float(v) > 0.f) << (k & 31)) |
+                     ((uint32_t)(__high2float(v) > 0.f) << ((k + 1) & 31));
+    }
+  }
+  if constexpr (BITS) {
+#pragma unroll
+    for (int q = 0; q < N / 64; ++q) bits[q] = w[q];
   }
 }
 
-// Encode the block's points: E [MP, LDE] rows = point encoding of pts * 0.1
-// (F = 10), V [MP, LDE] = view encoding of views (F = 4), zero-padded to 64
-// columns; points past n encode the origin.
-__device__ void encode_tile(const float* __restrict__ pts, const float* __restrict__ views,
-                            int p0, int n, bf16* E, bf16* V) {
-  const int tid = threadIdx.x;
-  for (int r = tid; r < MP; r += NTHREADS) {
-    for (int c = 3 + 6 * PTS_FREQS; c < ENC; ++c) E[r * LDE + c] = __float2bfloat16(0.f);
-    for (int c = 3 + 6 * VIEW_FREQS; c < ENC; ++c) V[r * LDE + c] = __float2bfloat16(0.f);
+// This warpgroup's activation rows, columns [0, N), to global dst[point *
+// N + column] for points < n, in 16-byte vectors (coalesced rows). After the
+// epilogue's warpgroup barrier.
+template <int N>
+__device__ __forceinline__ void save_act(const unsigned char* __restrict__ act, bf16* __restrict__ dst, int p0w,
+                                         int n) {
+  constexpr int CH = N / 8;  // 16-byte chunks a row
+  for (int v = threadIdx.x & 127; v < WG_ROWS * CH; v += 128) {
+    const int r = v / CH, ch = v % CH;
+    if (p0w + r < n)
+      *reinterpret_cast<uint4*>(dst + (size_t)(p0w + r) * N + ch * 8) =
+          *reinterpret_cast<const uint4*>(act + act_off(r, 16 * ch));
   }
-  for (int i = tid; i < MP * 3; i += NTHREADS) {
+}
+
+// raw[row][col0 + c] = acc[row][c] + bias[c] for c < ncols (a head's first
+// 8-column block; the block is copied out before the per-column test).
+template <int N>
+__device__ __forceinline__ void epi_head(const float (&d)[N / 2], const float* __restrict__ bias, float* raw, int col0,
+                                         int ncols) {
+  float v[4] = {d[0], d[1], d[2], d[3]};
+  fence_acc(v);
+  const int t = threadIdx.x & 127;
+  const int r0 = (threadIdx.x >> 7) * WG_ROWS + (t >> 5) * 16 + ((t & 31) >> 2);
+  const int c0 = 2 * (t & 3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = c0 + (i & 1);
+    if (c < ncols) raw[(r0 + 8 * (i >> 1)) * 4 + col0 + c] = v[i] + bias[c];
+  }
+}
+
+// The cotangent epilogue: g = acc, with MASK zeroed where the forward's bf16
+// activation was not > 0 (bit k of bits[] for accumulator k, `epi_fwd`),
+// and zero for points >= n, to bf16 in the activation region; each
+// column's sum over the warp's 16 rows to colpart[warp of the warpgroup]
+// [column], of the fp32 g, or of its bf16 values with ROUND_DB. The sums run
+// in a fixed shuffle order, so they are the same bits on every launch.
+template <int N, bool MASK, bool ROUND_DB>
+__device__ __forceinline__ void epi_grad(const float (&d)[N / 2], unsigned char* __restrict__ act,
+                                         const uint32_t* bits, float* __restrict__ colpart, int p0w, int n) {
+  const int t = threadIdx.x & 127, lane = threadIdx.x & 31, warp = t >> 5;
+  const int r0 = (t >> 5) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  const bool live0 = p0w + r0 < n, live1 = p0w + r0 + 8 < n;
+  uint32_t w[N / 64];
+#pragma unroll
+  for (int q = 0; q < N / 64; ++q) w[q] = MASK ? bits[q] : 0xffffffffu;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = c0 + 8 * j;
+    float g[4] = {d[4 * j], d[4 * j + 1], d[4 * j + 2], d[4 * j + 3]};
+    fence_acc(g);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * j + i;
+      const bool on = ((w[k >> 5] >> (k & 31)) & 1u) && (i < 2 ? live0 : live1);
+      g[i] = on ? g[i] : 0.f;
+    }
+    const __nv_bfloat162 b0 = __floats2bfloat162_rn(g[0], g[1]), b1 = __floats2bfloat162_rn(g[2], g[3]);
+    *reinterpret_cast<__nv_bfloat162*>(act + act_off(r0, 2 * c)) = b0;
+    *reinterpret_cast<__nv_bfloat162*>(act + act_off(r0 + 8, 2 * c)) = b1;
+    float s0 = ROUND_DB ? __low2float(b0) + __low2float(b1) : g[0] + g[2];
+    float s1 = ROUND_DB ? __high2float(b0) + __high2float(b1) : g[1] + g[3];
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    }
+    if (lane < 4) *reinterpret_cast<float2*>(colpart + warp * WIDTH + c) = make_float2(s0, s1);
+  }
+}
+
+// After a cotangent epilogue and its warpgroup barrier: the warpgroup's
+// copy of the cotangent rows to the scratch (`save_act`), and db[c] = its 4
+// warps' column sums, in warp order, for c < N (this warpgroup's row of the
+// bias-gradient partials).
+template <int N>
+__device__ __forceinline__ void finish_grad(const unsigned char* act, bf16* save, const float* colpart,
+                                            float* __restrict__ db, int p0w, int n) {
+  save_act<N>(act, save, p0w, n);
+  for (int c = threadIdx.x & 127; c < N; c += 128) {
+    float s = 0.f;
+    for (int w = 0; w < 4; ++w) s += colpart[w * WIDTH + c];
+    db[c] = s;
+  }
+}
+
+// Encode the tile's points into rows of the swizzled tiles E (point
+// encoding of pts * 0.1, F = 10) and V (view encoding, F = 4); points past
+// n encode the origin. The pad columns stay as zeroed at the start.
+__device__ __forceinline__ void encode_tile(const float* __restrict__ pts, const float* __restrict__ views, int p0,
+                                            int n, unsigned char* E, unsigned char* V) {
+  for (int i = threadIdx.x; i < MP * 3; i += N_CONSUMERS) {
     const int row = i / 3, c = i % 3, pt = p0 + row;
     const bool live = pt < n;
     const float x = live ? pts[(size_t)c * n + pt] : 0.f;
     const float v = live ? views[(size_t)c * n + pt] : 0.f;
-    encode_coord<PTS_FREQS>(E + row * LDE, c, x * 0.1f);  // x * (1 / scalar_factor)
-    encode_coord<VIEW_FREQS>(V + row * LDE, c, v);
+    encode_coord_sw<PTS_FREQS>(SwRow{E + row * 128, row}, c, x * 0.1f);  // x * (1 / scalar_factor)
+    encode_coord_sw<VIEW_FREQS>(SwRow{V + row * 128, row}, c, v);
   }
-  __syncthreads();
 }
 
-// Every layer of the block's tile. Without SAVE (K4) the alpha and rgb heads
-// write raw32 [MP][4]; with SAVE (K5) the heads are skipped and every
-// layer's bf16 output is copied to the scratch. Returns the buffer that
-// held h_{depth-1} and now holds hv (columns 0-127); the other buffer holds
-// the feature.
+// This warpgroup's rows of a swizzled tile, first `chunks` 16-byte chunks,
+// to global [n, 8 chunks] rows (points < n), unswizzled.
+__device__ __forceinline__ void save_rows(const unsigned char* tile, int chunks, bf16* dst, int p0w, int n) {
+  const int wg = threadIdx.x >> 7;
+  for (int v = threadIdx.x & 127; v < WG_ROWS * chunks; v += 128) {
+    const int r = v / chunks, ch = v % chunks, row = wg * WG_ROWS + r;
+    if (p0w + r < n)
+      *reinterpret_cast<uint4*>(dst + (size_t)(p0w + r) * chunks * 8 + ch * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz(row, 16 * ch));
+  }
+}
+
+// The forward over this warpgroup's rows: trunk, (alpha,) feature, view
+// layer (, rgb). K4 (SAVE = false) writes the heads to raw; the chain's
+// recompute (SAVE) skips the heads and saves every layer's bf16 output.
 template <bool SAVE>
-__device__ bf16* forward_layers(const FieldPtrs& net, bf16* E, bf16* V, bf16* buf0,
-                                bf16* buf1, bf16* slab, float* stage, float* raw32,
-                                const Scratch* sc, int p0, int n) {
-  bf16* bufs[2] = {buf0, buf1};
-  dense<EPI_RELU>(E, LDE, net.w[0], ENC, nullptr, nullptr, net.b[0], WIDTH, bufs[0], slab, stage,
-                  nullptr, 1);
-  if (SAVE) {
-    __syncthreads();
-    copy_rows(bufs[0], LDA, WIDTH, sc->hs, WIDTH, p0, n);
-  }
-  for (int i = 1; i < net.depth; ++i) {
-    const bool skip = i == net.skip_layer;
-    dense<EPI_RELU>(bufs[(i - 1) & 1], LDA, net.w[i], WIDTH, E, skip ? net.w_skip : nullptr,
-                    net.b[i], WIDTH, bufs[i & 1], slab, stage, nullptr, 1);
-    if (SAVE) {
-      __syncthreads();
-      copy_rows(bufs[i & 1], LDA, WIDTH, sc->hs + (size_t)i * n * WIDTH, WIDTH, p0, n);
-    }
-  }
-  bf16* h = bufs[(net.depth - 1) & 1];
-  bf16* other = bufs[net.depth & 1];
-  // Heads: feature and alpha have no activation (reference nerf_model.py:63-64).
-  if (!SAVE) head16(h, net.w_alpha, WIDTH, net.b_alpha, raw32 + 3, 4, 1, slab, stage);
-  dense<EPI_LINEAR>(h, LDA, net.w_feat, WIDTH, nullptr, nullptr, net.b_feat, WIDTH, other, slab,
-                    stage, nullptr, 1);
-  if (SAVE) {
-    __syncthreads();
-    copy_rows(other, LDA, WIDTH, sc->feature, WIDTH, p0, n);
-  }
-  // hv = relu(W_view_h . feature + W_view_enc . venc + b_view), into h.
-  dense<EPI_RELU>(other, LDA, net.w_view_h, WIDTH, V, net.w_view_enc, net.b_view, HALF, h, slab,
-                  stage, nullptr, 1);
-  if (SAVE) {
-    __syncthreads();
-    copy_rows(h, LDA, HALF, sc->hv, HALF, p0, n);
-  } else {
-    head16(h, net.w_rgb, HALF, net.b_rgb, raw32, 4, 3, slab, stage);
-  }
-  return h;
-}
-
-static size_t fwd_smem_bytes() {
-  return 2 * MP * LDA * sizeof(bf16) + 2 * MP * LDE * sizeof(bf16) + NCH * LDS * sizeof(bf16) +
-         NWARPS * 16 * LDST * sizeof(float) + MP * 4 * sizeof(float);
-}
-
-__global__ void __launch_bounds__(NTHREADS, 1)
-field_fwd_kernel(FieldPtrs net, const float* __restrict__ pts, const float* __restrict__ views,
-                 float* __restrict__ out, int n) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* buf0 = reinterpret_cast<bf16*>(smem);
-  bf16* buf1 = buf0 + MP * LDA;
-  bf16* E = buf1 + MP * LDA;
-  bf16* V = E + MP * LDE;
-  bf16* slab = V + MP * LDE;
-  float* stage_all = reinterpret_cast<float*>(slab + NCH * LDS);
-  float* raw32 = stage_all + NWARPS * 16 * LDST;  // [MP][4]: rgb logits, sigma
-  float* stage = stage_all + (threadIdx.x >> 5) * 16 * LDST;
-  const int p0 = blockIdx.x * MP;
-
-  encode_tile(pts, views, p0, n, E, V);
-  forward_layers<false>(net, E, V, buf0, buf1, slab, stage, raw32, nullptr, p0, n);
-  __syncthreads();
-  for (int i = threadIdx.x; i < 8 * MP; i += NTHREADS) {
-    const int r = i / MP, row = i % MP, pt = p0 + row;
-    if (pt < n) out[(size_t)r * n + pt] = r < 4 ? raw32[row * 4 + r] : 0.f;
-  }
-}
-
-// The backward epilogue: this warp's fp32 cotangents (masked by h > 0 from
-// the global bf16 activations `mask`, when given) -> bf16 into dst, and
-// each column's sum over the warp's 16 rows into colpart[warp][col]: of the
-// fp32 values, or of the bf16-rounded ones with round_db.
-template <int NF>
-__device__ __forceinline__ void bwd_epilogue(Acc (&acc)[NF], int n0, const bf16* mask, int ldm,
-                                             int p0, int n, bf16* dst, float* stage,
-                                             float* colpart, bool round_db) {
-  using namespace nvcuda;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ __forceinline__ void forward_tile(const FieldNet& net, unsigned char* act, uint32_t act_s, uint32_t enc_s,
+                                             uint32_t venc_s, Ring& ring, const Scratch& sc, float* raw,
+                                             uint32_t* mbits, int p0w, int n) {
+  float acc[WIDTH / 2];
+  float none[1];
+  // One call site per product kind, so that every layer's accumulators sit
+  // in the same registers: zeros, the encoding product on layer 0 and the
+  // skip layer, the hidden product.
+  for (int i = 0; i < net.depth; ++i) {
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    wmma::store_matrix_sync(stage, acc[f], LDST, wmma::mem_row_major);
-    __syncwarp();
-    float s = 0.f;
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = e & 15;
-      const int row = warp * 16 + r, col = n0 + f * 16 + c;
-      float v = stage[r * LDST + c];
-      if (mask != nullptr) {
-        const int pt = p0 + row;
-        const bool on = pt < n && __bfloat162float(mask[(size_t)pt * ldm + col]) > 0.f;
-        v = on ? v : 0.f;
-      }
-      const bf16 vb = __float2bfloat16(v);
-      dst[row * LDA + col] = vb;
-      s += round_db ? __bfloat162float(vb) : v;
+    for (int t = 0; t < WIDTH / 2; ++t) acc[t] = 0.f;
+    if (i == 0 || i == net.skip_layer)
+      product<bf16, WIDTH, 0, ENC * 2, FRING, FSTAGE, false>(acc, none, enc_s, 0, ring);
+    if (i > 0) product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE, false>(acc, none, act_s, WG_ROWS * 128, ring);
+    epi_fwd<WIDTH, true, SAVE>(acc, act, net.b[i], mbits + i * (WIDTH / 64));
+    fence_proxy_async();
+    warpgroup_sync();
+    if constexpr (SAVE) save_act<WIDTH>(act, sc.hs + (size_t)i * n * WIDTH, p0w, n);
+  }
+  if constexpr (!SAVE) {
+    float a16[8];
+    product<bf16, 16, 0, WIDTH * 2, FRING, FSTAGE>(a16, none, act_s, WG_ROWS * 128, ring);
+    epi_head<16>(a16, net.b_alpha, raw, 3, 1);
+  }
+  // Feature (no activation, reference nerf_model.py:63-64), over h.
+  product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE>(acc, none, act_s, WG_ROWS * 128, ring);
+  epi_fwd<WIDTH, false, false>(acc, act, net.b_feat, nullptr);
+  fence_proxy_async();
+  warpgroup_sync();
+  if constexpr (SAVE) save_act<WIDTH>(act, sc.feature, p0w, n);
+  {
+    // hv = relu(W_view_h . feature + W_view_enc . venc + b_view).
+    float hv[HALF / 2];
+    product<bf16, HALF, 0, WIDTH * 2, FRING, FSTAGE>(hv, none, act_s, WG_ROWS * 128, ring);
+    product<bf16, HALF, 0, VENC * 2, FRING, FSTAGE, false>(hv, none, venc_s, 0, ring);
+    epi_fwd<HALF, true, SAVE>(hv, act, net.b_view, mbits + MAXD * (WIDTH / 64));
+  }
+  fence_proxy_async();
+  warpgroup_sync();
+  if constexpr (SAVE) save_act<HALF>(act, sc.hv, p0w, n);
+  if constexpr (!SAVE) {
+    float rgb[8];
+    product<bf16, 16, 0, HALF * 2, FRING, FSTAGE>(rgb, none, act_s, WG_ROWS * 128, ring);
+    epi_head<16>(rgb, net.b_rgb, raw, 0, 3);
+  }
+}
+
+// Block set-up shared by K4 and the chain kernel; returns false on the
+// producer warpgroup, whose thread has streamed the weights for every tile
+// of the block by then.
+struct FBlock {
+  unsigned char* smem;
+  Ring ring;
+  int n_tiles;
+};
+
+__device__ __forceinline__ bool field_block(const FieldStream& st, int n, FBlock& b) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  int* flags = reinterpret_cast<int*>(smem + FLay::O_FLAGS);  // stop, slabs issued
+  const uint32_t full0 = saddr(smem + FLay::O_BARS), empty0 = full0 + 8 * FRING, done = empty0 + 8 * FRING;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < FRING; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);  // one arrival per consumer warpgroup
     }
-    s += __shfl_xor_sync(0xffffffffu, s, 16);
-    if (lane < 16) colpart[warp * WIDTH + n0 + f * 16 + lane] = s;
-    __syncwarp();
+    mbar_init(done, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    flags[0] = 0;
+    flags[1] = 0;
   }
-}
-
-// After a layer's epilogues: db[col] = sum over the 8 warps, in warp order,
-// into this block's row of dbpart.
-__device__ __forceinline__ void reduce_db(const float* colpart, int ncols, float* db_row) {
+  // Zeroed encoding tiles: their pad columns meet zero weights.
+  for (int i = tid; i < 2 * MP * 128 / 16; i += RK_THREADS)
+    reinterpret_cast<uint4*>(smem + FLay::O_E)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
-  for (int col = threadIdx.x; col < ncols; col += NTHREADS) {
-    float s = 0.f;
-    for (int w = 0; w < NWARPS; ++w) s += colpart[w * WIDTH + col];
-    db_row[col] = s;
+  const int n_tiles = (n + MP - 1) / MP;
+  const int mine = n_tiles > (int)blockIdx.x ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  // The warpgroup's role, broadcast from lane 0 so that the compiler sees a
+  // warp-uniform branch (setmaxnreg budgets each side).
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(RK_PRODUCER_REGS));
+    if (tid == N_CONSUMERS)
+      produce<FRING, FSTAGE>(st, mine, saddr(smem + FLay::O_STAGES), full0, empty0, done, flags, flags + 1);
+    return false;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(RK_CONSUMER_REGS));
+  b.smem = smem;
+  b.ring = Ring{saddr(smem + FLay::O_STAGES), full0, empty0, 0};
+  b.n_tiles = n_tiles;
+  return true;
+}
+
+// K4: pts, views [3, n] -> out [8, n] (rows 0-2 rgb logits, 3 sigma, 4-7 0).
+__global__ void __launch_bounds__(RK_THREADS, 1)
+field_fwd_kernel(const __grid_constant__ FieldNet net, const __grid_constant__ FieldStream st,
+                 const float* __restrict__ pts, const float* __restrict__ views, float* __restrict__ out, int n) {
+  FBlock b;
+  if (!field_block(st, n, b)) return;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  unsigned char* E = b.smem + FLay::O_E;
+  unsigned char* V = b.smem + FLay::O_V;
+  float* raw = reinterpret_cast<float*>(b.smem + FLay::O_RAW);
+  unsigned char* act = b.smem + wg * FLay::ACT;
+  const uint32_t act_s = saddr(act), enc_s = saddr(E) + wg * WG_ROWS * 128, venc_s = saddr(V) + wg * WG_ROWS * 128;
+  const Scratch none = {};
+  for (int tile = blockIdx.x; tile < b.n_tiles; tile += gridDim.x) {
+    const int p0 = tile * MP;
+    consumers_sync();  // the previous tile's reads of E, V and raw are done
+    encode_tile(pts, views, p0, n, E, V);
+    fence_proxy_async();
+    consumers_sync();
+    forward_tile<false>(net, act, act_s, enc_s, venc_s, b.ring, none, raw, nullptr, p0 + wg * WG_ROWS, n);
+    consumers_sync();
+    for (int i = tid; i < 8 * MP; i += N_CONSUMERS) {
+      const int r = i / MP, row = i % MP, pt = p0 + row;
+      if (pt < n) out[(size_t)r * n + pt] = r < 4 ? raw[row * 4 + r] : 0.f;
+    }
   }
 }
 
-// dst[:, 0:n_out] = bwd_epi(A . W^T (+ A2[:, 0:64] . W2^T)), in 128-column
-// chunks; then the bias-gradient row and the copy of dst to the scratch.
-__device__ void bwd_layer(const bf16* A, int lda, const bf16* W, int K, const bf16* A2,
-                          const bf16* W2, int n_out, const bf16* mask, int p0, int n, bf16* dst,
-                          bf16* slab, float* stage, float* colpart, bool round_db, float* db_row,
-                          bf16* gdst) {
-  for (int n0 = 0; n0 < n_out; n0 += NCH) {
-    Acc acc[8];
-    zero_acc(acc);
-    mma_accum<8>(acc, A, lda, W, K, n0, slab);
-    if (W2 != nullptr) mma_accum<8>(acc, A2, LDE, W2, KS, n0, slab);
-    bwd_epilogue<8>(acc, n0, mask, n_out, p0, n, dst, stage, colpart, round_db);
+// K5, first kernel: recompute, input-gradient chain, bias-gradient rows.
+__global__ void __launch_bounds__(RK_THREADS, 1)
+field_bwd_chain_kernel(const __grid_constant__ FieldNet net, const __grid_constant__ FieldStream st,
+                       const float* __restrict__ pts, const float* __restrict__ views,
+                       const float* __restrict__ g_raw, const __grid_constant__ Scratch sc,
+                       float* __restrict__ dbpart, int n) {
+  FBlock b;
+  if (!field_block(st, n, b)) return;
+  const int tid = threadIdx.x, wg = tid >> 7, L = net.depth;
+  unsigned char* E = b.smem + FLay::O_E;
+  unsigned char* V = b.smem + FLay::O_V;
+  float* colpart0 = reinterpret_cast<float*>(b.smem + FLay::O_COL) + wg * 2 * 4 * WIDTH;
+  unsigned char* act = b.smem + wg * FLay::ACT;
+  const uint32_t act_s = saddr(act), enc_s = saddr(E) + wg * WG_ROWS * 128, venc_s = saddr(V) + wg * WG_ROWS * 128;
+  float none[1];
+  // The recompute's ReLU masks, one bit per accumulator of this thread
+  // (`epi_fwd`): WIDTH / 64 words per trunk layer, then the view layer's.
+  uint32_t mbits[MAXD * (WIDTH / 64) + HALF / 64];
+  for (int tile = blockIdx.x; tile < b.n_tiles; tile += gridDim.x) {
+    const int p0 = tile * MP, p0w = p0 + wg * WG_ROWS;
+    // This warpgroup's bias-gradient row: db_0 .. db_{L-1}, feature, alpha,
+    // view, rgb (db_size).
+    float* db_row = dbpart + (size_t)(2 * tile + wg) * db_size(L);
+    int par = 0;  // which of the warpgroup's two column-sum buffers
+
+    // 1. Recompute the forward, saving every layer's input.
+    consumers_sync();
+    encode_tile(pts, views, p0, n, E, V);
+    fence_proxy_async();
+    consumers_sync();
+    save_rows(E, ENC / 8, sc.feat, p0w, n);
+    save_rows(V, VENC / 8, sc.venc, p0w, n);
+    forward_tile<true>(net, act, act_s, enc_s, venc_s, b.ring, sc, nullptr, mbits, p0w, n);
+
+    // 2. Head cotangents, bf16, into this warpgroup's rows of E: columns 0-2
+    // rgb, GH_SIGMA sigma (only rgb rows 0-2 and sigma row 3 of g_raw are
+    // live); the same rows to the scratch.
+    for (int i = tid & 127; i < WG_ROWS * GH; i += 128) {
+      const int r = i / GH, c = i % GH, pt = p0w + r, row = wg * WG_ROWS + r;
+      float v = 0.f;
+      if (pt < n && c < 3) v = g_raw[(size_t)c * n + pt];
+      if (pt < n && c == GH_SIGMA) v = g_raw[(size_t)3 * n + pt];
+      const bf16 vb = __float2bfloat16(v);
+      *reinterpret_cast<bf16*>(SwRow{E + row * 128, row}.at(2 * c)) = vb;
+      if (pt < n) sc.gh[(size_t)pt * GH + c] = vb;
+    }
+    const int t = tid & 127;
+    if (t < 4) {  // db_rgb, db_alpha: fp32 sums of the fp32 cotangent, in point order
+      float s = 0.f;
+      for (int r = 0; r < WG_ROWS && p0w + r < n; ++r) s += g_raw[(size_t)t * n + p0w + r];
+      if (t < 3) db_row[(L + 1) * WIDTH + 8 + HALF + t] = s;  // db_rgb
+      else db_row[(L + 1) * WIDTH] = s;                           // db_alpha
+    } else if (t < 9) {
+      db_row[(L + 1) * WIDTH + 8 + HALF + t - 1] = 0.f;  // db_rgb rows 3-7
+    } else if (t < 16) {
+      db_row[(L + 1) * WIDTH + t - 8] = 0.f;  // db_alpha rows 1-7
+    }
+    fence_proxy_async();
+    warpgroup_sync();
+
+    // 3. g_hv = mask(hv) * (W_rgb^T g_rgb); db_view sums its bf16 values.
+    {
+      float ghv[HALF / 2];
+      product<bf16, HALF, 0, GH * 2, FRING, FSTAGE>(ghv, none, enc_s, 0, b.ring);
+      epi_grad<HALF, true, true>(ghv, act, mbits + MAXD * (WIDTH / 64), colpart0 + par * 4 * WIDTH, p0w, n);
+    }
+    fence_proxy_async();
+    warpgroup_sync();
+    finish_grad<HALF>(act, sc.ghv, colpart0 + par * 4 * WIDTH, db_row + (L + 1) * WIDTH + 8, p0w, n);
+    par ^= 1;
+    // 4. g_feature = W_view_h^T g_hv (no activation on the feature head).
+    float acc[WIDTH / 2];
+    product<bf16, WIDTH, 0, HALF * 2, FRING, FSTAGE>(acc, none, act_s, WG_ROWS * 128, b.ring);
+    epi_grad<WIDTH, false, false>(acc, act, nullptr, colpart0 + par * 4 * WIDTH, p0w, n);
+    fence_proxy_async();
+    warpgroup_sync();
+    finish_grad<WIDTH>(act, sc.gfeat, colpart0 + par * 4 * WIDTH, db_row + L * WIDTH, p0w, n);
+    par ^= 1;
+    // 5. g_{L-1} = mask(h_{L-1}) * (W_feature^T g_feature + W_alpha^T g_sigma).
+#pragma unroll
+    for (int t = 0; t < WIDTH / 2; ++t) acc[t] = 0.f;
+    product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE, false>(acc, none, act_s, WG_ROWS * 128, b.ring);
+    product<bf16, WIDTH, 0, GH * 2, FRING, FSTAGE, false>(acc, none, enc_s, 0, b.ring);
+    epi_grad<WIDTH, true, false>(acc, act, mbits + (L - 1) * (WIDTH / 64), colpart0 + par * 4 * WIDTH, p0w, n);
+    fence_proxy_async();
+    warpgroup_sync();
+    finish_grad<WIDTH>(act, sc.g + (size_t)(L - 1) * n * WIDTH, colpart0 + par * 4 * WIDTH, db_row + (L - 1) * WIDTH,
+        p0w, n);
+    par ^= 1;
+    // 6. The trunk: g_{i-1} = mask(h_{i-1}) * (W_i^T g_i), down to layer 0
+    // (no input gradient into the encoding).
+    for (int i = L - 1; i >= 1; --i) {
+      product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE>(acc, none, act_s, WG_ROWS * 128, b.ring);
+      epi_grad<WIDTH, true, false>(acc, act, mbits + (i - 1) * (WIDTH / 64), colpart0 + par * 4 * WIDTH, p0w, n);
+      fence_proxy_async();
+      warpgroup_sync();
+      finish_grad<WIDTH>(act, sc.g + (size_t)(i - 1) * n * WIDTH, colpart0 + par * 4 * WIDTH,
+          db_row + (i - 1) * WIDTH, p0w, n);
+      par ^= 1;
+    }
   }
-  reduce_db(colpart, n_out, db_row);
-  copy_rows(dst, LDA, n_out, gdst, n_out, p0, n);
 }
 
-static size_t bwd_smem_bytes() {
-  return 2 * MP * LDA * sizeof(bf16) + 2 * MP * LDE * sizeof(bf16) + NCH * LDS * sizeof(bf16) +
-         NWARPS * 16 * LDST * sizeof(float) + NWARPS * WIDTH * sizeof(float);
-}
+// ---------------------------------------------------------------------------
+// K5, second kernel: the weight gradients.
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-field_bwd_chain_kernel(FieldPtrs net, const float* __restrict__ pts,
-                       const float* __restrict__ views, const float* __restrict__ g_raw,
-                       Scratch sc, float* __restrict__ dbpart, int n) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* buf0 = reinterpret_cast<bf16*>(smem);
-  bf16* buf1 = buf0 + MP * LDA;
-  bf16* E = buf1 + MP * LDA;
-  bf16* V = E + MP * LDE;
-  bf16* slab = V + MP * LDE;
-  float* stage_all = reinterpret_cast<float*>(slab + NCH * LDS);
-  float* colpart = stage_all + NWARPS * 16 * LDST;  // [NWARPS][WIDTH]
-  float* stage = stage_all + (threadIdx.x >> 5) * 16 * LDST;
-  const int tid = threadIdx.x, p0 = blockIdx.x * MP, L = net.depth;
-  float* db_row = dbpart + (size_t)blockIdx.x * db_size(L);
-  float* db_feat = db_row + L * WIDTH;
-  float* db_alpha = db_feat + WIDTH;
-  float* db_view = db_alpha + 8;
-  float* db_rgb = db_view + HALF;
-
-  // 1. Recompute the forward, saving every layer's input.
-  encode_tile(pts, views, p0, n, E, V);
-  copy_rows(E, LDE, ENC, sc.feat, ENC, p0, n);
-  copy_rows(V, LDE, VENC, sc.venc, VENC, p0, n);
-  bf16* h = forward_layers<true>(net, E, V, buf0, buf1, slab, stage, nullptr, &sc, p0, n);
-  __syncthreads();
-
-  // 2. Head cotangents, bf16, into E's place: columns 0-2 rgb, GH_SIGMA
-  // sigma (the heads are padded to 8 rows, rows 0-2 rgb and 3 sigma live).
-  bf16* Gh = E;
-  for (int i = tid; i < MP * ENC; i += NTHREADS) {
-    const int row = i / ENC, c = i % ENC, pt = p0 + row;
-    float v = 0.f;
-    if (pt < n && c < 3) v = g_raw[(size_t)c * n + pt];
-    if (pt < n && c == GH_SIGMA) v = g_raw[(size_t)3 * n + pt];
-    Gh[row * LDE + c] = __float2bfloat16(v);
-  }
-  if (tid < 4) {  // db_rgb, db_alpha: fp32 sums of the fp32 cotangent
-    float s = 0.f;
-    for (int row = 0; row < MP && p0 + row < n; ++row) s += g_raw[(size_t)tid * n + p0 + row];
-    if (tid < 3) db_rgb[tid] = s;
-    else db_alpha[0] = s;
-  }
-  if (tid >= 4 && tid < 9) db_rgb[tid - 1] = 0.f;  // rows 3-7
-  if (tid >= 9 && tid < 16) db_alpha[tid - 8] = 0.f;  // rows 1-7
-  __syncthreads();
-  copy_rows(Gh, LDE, GH, sc.gh, GH, p0, n);
-
-  bf16* other = (h == buf0) ? buf1 : buf0;
-  // 3. g_hv = mask(hv) * (W_rgb^T g_rgb); db_view sums its bf16 values.
-  bwd_layer(Gh, LDE, net.w_rgb_t, KS, nullptr, nullptr, HALF, sc.hv, p0, n, other, slab, stage,
-            colpart, true, db_view, sc.ghv);
-  // 4. g_feature = W_view_h^T g_hv (no activation on the feature head).
-  bwd_layer(other, LDA, net.w_view_h_t, HALF, nullptr, nullptr, WIDTH, nullptr, p0, n, h, slab,
-            stage, colpart, false, db_feat, sc.gfeat);
-  // 5. g_{L-1} = mask(h_{L-1}) * (W_feature^T g_feature + W_alpha^T g_sigma).
-  bwd_layer(h, LDA, net.w_feat_t, WIDTH, Gh, net.w_alpha_t, WIDTH,
-            sc.hs + (size_t)(L - 1) * n * WIDTH, p0, n, other, slab, stage, colpart, false,
-            db_row + (L - 1) * WIDTH, sc.g + (size_t)(L - 1) * n * WIDTH);
-  // 6. The trunk: g_{i-1} = mask(h_{i-1}) * (W_i^T g_i), down to layer 0
-  // (no input gradient into the encoding).
-  bf16* cur = other;
-  bf16* nxt = h;
-  for (int i = L - 1; i >= 1; --i) {
-    bwd_layer(cur, LDA, net.w_t[i], WIDTH, nullptr, nullptr, WIDTH,
-              sc.hs + (size_t)(i - 1) * n * WIDTH, p0, n, nxt, slab, stage, colpart, false,
-              db_row + (i - 1) * WIDTH, sc.g + (size_t)(i - 1) * n * WIDTH);
-    bf16* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-}
-
-// One weight gradient dW [m, k] = G[:, 0:m]^T . H[:, 0:k] over the points.
+// One weight gradient dW [m, k] = G[:, 0:m]^T . H[:, 0:k] over the points
+// (k <= 256).
 struct DwJob {
   const bf16* g;
   const bf16* h;
   int ldg, ldh, m, k;
-  int tiles_k;  // 64-column tiles of dW
-  int tile0;    // first tile's index in the launch
-  size_t out0;  // offset of this dW in a partial row
+  int tile0;       // first 128-row tile's index in the launch
+  long long out0;  // offset of this dW in a partial row
 };
 
 struct DwJobs {
@@ -372,119 +560,181 @@ struct DwJobs {
   int n_jobs;
 };
 
-// Block (tile, chunk): one 64 x 64 tile of one dW over points
-// [chunk * blockIdx.y, +chunk), into part[blockIdx.y][out0 + ...].
-// Warp w computes rows 16 (w % 4) and columns 32 (w / 4) .. +32 of the tile.
-__global__ void __launch_bounds__(NTHREADS)
-field_dw_kernel(DwJobs jobs, int n, int chunk, float* __restrict__ part, size_t part_stride) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Gs = reinterpret_cast<bf16*>(smem);  // [BK][LDT]
-  bf16* Hs = Gs + BK * LDT;                  // [BK][LDT]
-  float* stage = reinterpret_cast<float*>(Hs + BK * LDT) + (threadIdx.x >> 5) * 16 * LDST;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// An MN-major operand in the 128-byte swizzle (wgmma's transpose bit): rows
+// are points (the K direction), 8-point groups 1024 bytes apart (stride
+// byte offset); each row holds 64 values of the M or N direction, whose
+// 64-column blocks lie DW_TILE bytes apart (leading byte offset).
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(DW_TILE >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// Block (tile, chunk): rows [128 t, 128 t + 128) of one dW (warpgroup w the
+// 64 rows from 128 t + 64 w), all its columns, over points [chunk *
+// blockIdx.y, +chunk), into part[blockIdx.y][out0 + ...]. Each stage holds
+// 64 points of G (two column blocks) and H (four), point-major rows of 128
+// bytes as the global arrays hold them, loaded by cp.async into the
+// swizzled positions; out-of-range values load as zeros.
+__global__ void __launch_bounds__(N_CONSUMERS, 1)
+field_dw_kernel(const __grid_constant__ DwJobs jobs, int n, int chunk, float* __restrict__ part,
+                long long part_stride) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = saddr(smem_raw) + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
   int j = 0;
   while (j + 1 < jobs.n_jobs && (int)blockIdx.x >= jobs.job[j + 1].tile0) ++j;
-  const DwJob jb = jobs.job[j];
-  const int t = blockIdx.x - jb.tile0;
-  const int m0 = (t / jb.tiles_k) * 64, k0 = (t % jb.tiles_k) * 64;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = warp & 3, cg = warp >> 2;
-  const bool active = m0 + 16 * rg < jb.m && k0 + 32 * cg < jb.k;
+  const DwJob& jb = jobs.job[j];
+  const int m0 = ((int)blockIdx.x - jb.tile0) * 128;
   const int begin = blockIdx.y * chunk, end = min(n, begin + chunk);
+  const int steps = (end - begin + DW_BP - 1) / DW_BP;
+  const int tid = threadIdx.x, wg = tid >> 7;
 
-  Acc acc[2];
-  zero_acc(acc);
-  for (int pb = begin; pb < end; pb += BK) {
-    for (int v = threadIdx.x; v < BK * 8; v += NTHREADS) {
-      const int r = v >> 3, c = (v & 7) * 8, pt = pb + r;
-      uint4 gv = make_uint4(0, 0, 0, 0), hv = make_uint4(0, 0, 0, 0);
-      if (pt < end && m0 + c < jb.m)
-        gv = *reinterpret_cast<const uint4*>(jb.g + (size_t)pt * jb.ldg + m0 + c);
-      if (pt < end && k0 + c < jb.k)
-        hv = *reinterpret_cast<const uint4*>(jb.h + (size_t)pt * jb.ldh + k0 + c);
-      *reinterpret_cast<uint4*>(Gs + r * LDT + c) = gv;
-      *reinterpret_cast<uint4*>(Hs + r * LDT + c) = hv;
+  auto load = [&](int s) {
+    const int pb = begin + s * DW_BP;
+    const uint32_t a0 = base + (s % DW_STAGES) * DW_STAGE, b0 = a0 + 2 * DW_TILE;
+    for (int v = tid; v < DW_BP * 16; v += N_CONSUMERS) {
+      const int pt = v >> 4, cb = (v >> 3) & 1, ch = v & 7;
+      const int col = m0 + 64 * cb + 8 * ch;
+      const bool ok = pb + pt < end && col < jb.m;
+      cp_async16(a0 + cb * DW_TILE + swz(pt, 16 * ch), ok ? jb.g + (size_t)(pb + pt) * jb.ldg + col : jb.g, ok);
     }
-    __syncthreads();
-    if (active) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-        wmma::load_matrix_sync(a, Gs + kk * LDT + 16 * rg, LDT);
-#pragma unroll
-        for (int f = 0; f < 2; ++f) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, Hs + kk * LDT + 32 * cg + 16 * f, LDT);
-          wmma::mma_sync(acc[f], a, b, acc[f]);
-        }
-      }
+    for (int v = tid; v < DW_BP * 32; v += N_CONSUMERS) {
+      const int pt = v >> 5, cb = (v >> 3) & 3, ch = v & 7;
+      const int col = 64 * cb + 8 * ch;
+      const bool ok = pb + pt < end && col < jb.k;
+      cp_async16(b0 + cb * DW_TILE + swz(pt, 16 * ch), ok ? jb.h + (size_t)(pb + pt) * jb.ldh + col : jb.h, ok);
     }
-    __syncthreads();
+  };
+
+  float acc[DW_N / 2];
+#pragma unroll
+  for (int i = 0; i < DW_N / 2; ++i) acc[i] = 0.f;
+  for (int s = 0; s < DW_STAGES - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
   }
-  if (!active) return;
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<DW_STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();  // stage s arrived for all; stage s - 1's products completed
+    if (s + DW_STAGES - 1 < steps) load(s + DW_STAGES - 1);
+    cp_async_commit();
+    const uint32_t a0 = base + (s % DW_STAGES) * DW_STAGE, b0 = a0 + 2 * DW_TILE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DW_BP / 16; ++kk)
+      wgmma_bf16_mn<DW_N>(acc, desc_mn(a0 + wg * DW_TILE + kk * 2048), desc_mn(b0 + kk * 2048), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+  }
+
   float* out = part + blockIdx.y * part_stride + jb.out0;
-  for (int f = 0; f < 2; ++f) {
-    wmma::store_matrix_sync(stage, acc[f], LDST, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = e & 15;
-      const int row = m0 + 16 * rg + r, col = k0 + 32 * cg + 16 * f + c;
-      if (row < jb.m) out[(size_t)row * jb.k + col] = stage[r * LDST + c];
+  const int t = tid & 127, lane = tid & 31;
+  const int r0 = m0 + wg * WG_ROWS + (t >> 5) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int jj = 0; jj < DW_N / 8; ++jj) {
+    float v[4] = {acc[4 * jj], acc[4 * jj + 1], acc[4 * jj + 2], acc[4 * jj + 3]};
+    fence_acc(v);
+    const int c = c0 + 8 * jj;
+    if (c < jb.k) {
+      if (r0 < jb.m) *reinterpret_cast<float2*>(out + (size_t)r0 * jb.k + c) = make_float2(v[0], v[1]);
+      if (r0 + 8 < jb.m) *reinterpret_cast<float2*>(out + (size_t)(r0 + 8) * jb.k + c) = make_float2(v[2], v[3]);
     }
-    __syncwarp();
   }
 }
 
-// dst[c] = sum_r src[r][c], r in order: the deterministic reduction of
-// partial sums over chunks or blocks.
-__global__ void sum_rows_kernel(const float* __restrict__ src, int rows, size_t cols,
-                                float* __restrict__ dst) {
-  for (size_t c = blockIdx.x * (size_t)blockDim.x + threadIdx.x; c < cols;
-       c += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += src[(size_t)r * cols + c];
-    dst[c] = s;
+// dst[c] = sum_r src[r][c] in a fixed order, the deterministic reduction of
+// partial sums over chunks or tiles: a block takes 32 columns; each of its 8
+// warps sums one slice of consecutive rows in row order, then the slices
+// are added in order.
+__global__ void __launch_bounds__(256) sum_rows_kernel(const float* __restrict__ src, int rows, size_t cols,
+                                                       float* __restrict__ dst) {
+  __shared__ float slices[8][32];
+  const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
+  const size_t c = blockIdx.x * (size_t)32 + lane;
+  const int per = (rows + 7) / 8, r0 = slice * per, r1 = min(rows, r0 + per);
+  float s = 0.f;
+  if (c < cols)
+    for (int r = r0; r < r1; ++r) s += src[(size_t)r * cols + c];
+  slices[slice][lane] = s;
+  __syncthreads();
+  if (slice == 0 && c < cols) {
+    float total = 0.f;
+    for (int k = 0; k < 8; ++k) total += slices[k][lane];
+    dst[c] = total;
   }
 }
 
-// Pointers in `field_*_launch`'s `ptrs` array: w_0, b_0, ..., w_{depth-1},
-// b_{depth-1}, w_skip, w_alpha, b_alpha, w_feat, b_feat, w_view_h,
-// w_view_enc, b_view, w_rgb, b_rgb; then, read by the backward only,
-// w_t_1, ..., w_t_{depth-1}, w_feat_t, w_alpha_t, w_view_h_t, w_rgb_t.
-static FieldPtrs unpack(const void* const* ptrs, int depth, int skip_layer, bool backward) {
-  FieldPtrs net = {};
-  int k = 0;
-  for (int i = 0; i < depth; ++i) {
-    net.w[i] = static_cast<const bf16*>(ptrs[k++]);
-    net.b[i] = static_cast<const float*>(ptrs[k++]);
-  }
-  net.w_skip = static_cast<const bf16*>(ptrs[k++]);
-  net.w_alpha = static_cast<const bf16*>(ptrs[k++]);
-  net.b_alpha = static_cast<const float*>(ptrs[k++]);
-  net.w_feat = static_cast<const bf16*>(ptrs[k++]);
-  net.b_feat = static_cast<const float*>(ptrs[k++]);
-  net.w_view_h = static_cast<const bf16*>(ptrs[k++]);
-  net.w_view_enc = static_cast<const bf16*>(ptrs[k++]);
-  net.b_view = static_cast<const float*>(ptrs[k++]);
-  net.w_rgb = static_cast<const bf16*>(ptrs[k++]);
-  net.b_rgb = static_cast<const float*>(ptrs[k++]);
-  if (backward) {
-    for (int i = 1; i < depth; ++i) net.w_t[i] = static_cast<const bf16*>(ptrs[k++]);
-    net.w_feat_t = static_cast<const bf16*>(ptrs[k++]);
-    net.w_alpha_t = static_cast<const bf16*>(ptrs[k++]);
-    net.w_view_h_t = static_cast<const bf16*>(ptrs[k++]);
-    net.w_rgb_t = static_cast<const bf16*>(ptrs[k++]);
-  }
+// ---------------------------------------------------------------------------
+// Host side.
+
+// Biases in `field_*_launch`'s `biases` array: b_0, ..., b_{depth-1},
+// b_alpha, b_feat, b_view, b_rgb, fp32.
+static FieldNet unpack_net(const void* const* biases, int depth, int skip_layer) {
+  FieldNet net = {};
+  for (int i = 0; i < depth; ++i) net.b[i] = static_cast<const float*>(biases[i]);
+  net.b_alpha = static_cast<const float*>(biases[depth]);
+  net.b_feat = static_cast<const float*>(biases[depth + 1]);
+  net.b_view = static_cast<const float*>(biases[depth + 2]);
+  net.b_rgb = static_cast<const float*>(biases[depth + 3]);
   net.depth = depth;
   net.skip_layer = skip_layer;
   return net;
 }
 
+// The stream table of one launch, held against the slabs the consumers take
+// (field_stream_rows): false if a count or a size differs.
+static bool unpack_stream(const void* base, const int* off, const int* bytes, int n_slabs, bool backward, int depth,
+                          int skip_layer, FieldStream& st) {
+  int rows[MAX_FIELD_SLABS];
+  const int want = field_stream_rows(backward, depth, skip_layer, rows);
+  if (base == nullptr || n_slabs != want || want > MAX_FIELD_SLABS) return false;
+  st.base = static_cast<const unsigned char*>(base);
+  st.n = n_slabs;
+  for (int j = 0; j < n_slabs; ++j) {
+    if (bytes[j] != rows[j] * 128 || off[j] % 128 != 0) return false;
+    st.off[j] = off[j];
+    st.bytes[j] = bytes[j];
+  }
+  return true;
+}
+
+// Blocks of the persistent kernels: one per SM, at most one per tile.
+static int field_grid(int n) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int tiles = (n + MP - 1) / MP;
+  return tiles < sms ? tiles : sms;
+}
+
+// The shared-memory opt-in of a kernel, once per process (never inside a
+// CUDA-graph capture after the first launch).
+template <typename K>
+static cudaError_t allow_smem(K kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
 // Sizes of the backward's buffers for `depth` layers and n points: the bf16
 // scratch (elements), the dW values (P, in `field_backward_launch`'s order)
 // and the bias values (D). Returns 0.
-extern "C" int field_backward_sizes(int depth, int skip_layer, long long n,
-                                    long long* scratch, long long* n_dw, long long* n_db) {
+extern "C" int field_backward_sizes(int depth, int skip_layer, long long n, long long* scratch, long long* n_dw,
+                                    long long* n_db) {
   *scratch = (long long)scratch_elems(depth, (size_t)n);
   long long p = (long long)WIDTH * ENC;
   for (int i = 1; i < depth; ++i) p += (long long)WIDTH * WIDTH + (i == skip_layer ? WIDTH * ENC : 0);
@@ -495,18 +745,22 @@ extern "C" int field_backward_sizes(int depth, int skip_layer, long long n,
 }
 
 // K4: pts, views [3, n] fp32 -> out [8, n] fp32 (rows 0-2 rgb logits, 3
-// sigma, 4-7 zero). Returns the CUDA error code of the launch.
-extern "C" int field_forward_launch(const void* const* ptrs, int depth, int skip_layer,
-                                    const float* pts, const float* views, float* out, int n,
-                                    void* stream) {
+// sigma, 4-7 zero). stream: the packed weights on the device; slab_off and
+// slab_bytes (host memory) its forward table of n_slabs slabs. Returns the
+// CUDA error code of the launch.
+extern "C" int field_forward_launch(const void* const* biases, int depth, int skip_layer, const void* stream,
+                                    const int* slab_off, const int* slab_bytes, int n_slabs, const float* pts,
+                                    const float* views, float* out, int n, void* cuda_stream) {
   if (depth < 1 || depth > MAXD || n < 1) return (int)cudaErrorInvalidValue;
-  const FieldPtrs net = unpack(ptrs, depth, skip_layer, false);
-  const size_t smem = fwd_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(field_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  FieldStream st;
+  if (!unpack_stream(stream, slab_off, slab_bytes, n_slabs, false, depth, skip_layer, st))
+    return (int)cudaErrorInvalidValue;
+  const FieldNet net = unpack_net(biases, depth, skip_layer);
+  static bool ready = false;
+  cudaError_t err = allow_smem(field_fwd_kernel, FLay::BYTES, ready);
   if (err != cudaSuccess) return (int)err;
-  field_fwd_kernel<<<(n + MP - 1) / MP, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      net, pts, views, out, n);
+  field_fwd_kernel<<<field_grid(n), RK_THREADS, FLay::BYTES, static_cast<cudaStream_t>(cuda_stream)>>>(
+      net, st, pts, views, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -514,30 +768,33 @@ extern "C" int field_forward_launch(const void* const* ptrs, int depth, int skip
 // (`field_backward_sizes`). dW order: for each layer i, dw_i [256, in_i]
 // then, for the skip layer, dwskip_i [256, 64]; then dw_feature [256, 256],
 // dw_alpha [8, 256], dw_view_h [128, 256], dw_view_enc [128, 32], dw_rgb
-// [8, 128]; each [out, in] row-major, heads padded to 8 rows. Buffers the
-// caller allocates: scratch (bf16), dbpart [ceil(n / 128), D], part
-// [ceil(n / chunk), P]. Four launches. Returns the first CUDA error code.
-extern "C" int field_backward_launch(const void* const* ptrs, int depth, int skip_layer,
-                                     const float* pts, const float* views, const float* g_raw,
-                                     void* scratch, float* dbpart, float* part, float* dw,
-                                     float* db, int n, int chunk, void* stream) {
-  if (depth < 1 || depth > MAXD || n < 1 || chunk < BK || chunk % BK) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const FieldPtrs net = unpack(ptrs, depth, skip_layer, true);
+// [8, 128]; each [out, in] row-major, heads padded to 8 rows. stream and
+// its backward table as for K4. Buffers the caller allocates: scratch
+// (bf16), dbpart [2 ceil(n / 128), D], part [ceil(n / chunk), P]. Four
+// launches. Returns the first CUDA error code.
+extern "C" int field_backward_launch(const void* const* biases, int depth, int skip_layer, const void* stream,
+                                     const int* slab_off, const int* slab_bytes, int n_slabs, const float* pts,
+                                     const float* views, const float* g_raw, void* scratch, float* dbpart,
+                                     float* part, float* dw, float* db, int n, int chunk, void* cuda_stream) {
+  if (depth < 1 || depth > MAXD || n < 1 || chunk < DW_BP || chunk % DW_BP) return (int)cudaErrorInvalidValue;
+  FieldStream st;
+  if (!unpack_stream(stream, slab_off, slab_bytes, n_slabs, true, depth, skip_layer, st))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
+  const FieldNet net = unpack_net(biases, depth, skip_layer);
   const Scratch sc = scratch_layout(static_cast<bf16*>(scratch), depth, (size_t)n);
   const int n_tiles = (n + MP - 1) / MP;
-  const size_t smem = bwd_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(field_bwd_chain_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static bool chain_ready = false, dw_ready = false;
+  cudaError_t err = allow_smem(field_bwd_chain_kernel, FLay::BYTES, chain_ready);
   if (err != cudaSuccess) return (int)err;
-  field_bwd_chain_kernel<<<n_tiles, NTHREADS, smem, st>>>(net, pts, views, g_raw, sc, dbpart, n);
+  field_bwd_chain_kernel<<<field_grid(n), RK_THREADS, FLay::BYTES, cs>>>(net, st, pts, views, g_raw, sc, dbpart, n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   // The dW jobs, in the order of `dw`.
   DwJobs jobs = {};
   int n_jobs = 0, tiles = 0;
-  size_t off = 0;
+  long long off = 0;
   auto add = [&](const bf16* g, int ldg, int m, const bf16* h, int ldh, int k) {
     DwJob& jb = jobs.job[n_jobs++];
     jb.g = g;
@@ -546,11 +803,10 @@ extern "C" int field_backward_launch(const void* const* ptrs, int depth, int ski
     jb.ldh = ldh;
     jb.m = m;
     jb.k = k;
-    jb.tiles_k = (k + 63) / 64;
     jb.tile0 = tiles;
     jb.out0 = off;
-    tiles += ((m + 63) / 64) * jb.tiles_k;
-    off += (size_t)m * k;
+    tiles += (m + 127) / 128;
+    off += (long long)m * k;
   };
   const size_t nn = (size_t)n;
   for (int i = 0; i < depth; ++i) {
@@ -560,24 +816,23 @@ extern "C" int field_backward_launch(const void* const* ptrs, int depth, int ski
     if (i == skip_layer) add(gi, WIDTH, WIDTH, sc.feat, ENC, ENC);
   }
   const bf16* h_last = sc.hs + (depth - 1) * nn * WIDTH;
-  add(sc.gfeat, WIDTH, WIDTH, h_last, WIDTH, WIDTH);           // dw_feature
-  add(sc.gh + GH_SIGMA, GH, 8, h_last, WIDTH, WIDTH);          // dw_alpha, row 0 live
-  add(sc.ghv, HALF, HALF, sc.feature, WIDTH, WIDTH);           // dw_view_h
-  add(sc.ghv, HALF, HALF, sc.venc, VENC, VENC);                // dw_view_enc
-  add(sc.gh, GH, 8, sc.hv, HALF, HALF);                        // dw_rgb, rows 0-2 live
+  add(sc.gfeat, WIDTH, WIDTH, h_last, WIDTH, WIDTH);   // dw_feature
+  add(sc.gh + GH_SIGMA, GH, 8, h_last, WIDTH, WIDTH);  // dw_alpha, row 0 live
+  add(sc.ghv, HALF, HALF, sc.feature, WIDTH, WIDTH);   // dw_view_h
+  add(sc.ghv, HALF, HALF, sc.venc, VENC, VENC);        // dw_view_enc
+  add(sc.gh, GH, 8, sc.hv, HALF, HALF);                // dw_rgb, rows 0-2 live
   jobs.n_jobs = n_jobs;
 
   const int n_chunks = (n + chunk - 1) / chunk;
-  const size_t dw_smem = 2 * BK * LDT * sizeof(bf16) + NWARPS * 16 * LDST * sizeof(float);
-  err = cudaFuncSetAttribute(field_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dw_smem);
+  const int dw_smem = DW_STAGES * DW_STAGE + 1024;
+  err = allow_smem(field_dw_kernel, dw_smem, dw_ready);
   if (err != cudaSuccess) return (int)err;
-  field_dw_kernel<<<dim3(tiles, n_chunks), NTHREADS, dw_smem, st>>>(jobs, n, chunk, part, off);
+  field_dw_kernel<<<dim3(tiles, n_chunks), N_CONSUMERS, dw_smem, cs>>>(jobs, n, chunk, part, off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_rows_kernel<<<264, 256, 0, st>>>(part, n_chunks, off, dw);
+  sum_rows_kernel<<<(int)((off + 31) / 32), 256, 0, cs>>>(part, n_chunks, (size_t)off, dw);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_rows_kernel<<<8, 256, 0, st>>>(dbpart, n_tiles, (size_t)db_size(depth), db);
+  sum_rows_kernel<<<(db_size(depth) + 31) / 32, 256, 0, cs>>>(dbpart, 2 * n_tiles, (size_t)db_size(depth), db);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,9 @@
 Counterpart of `nerf_workspaces_explorer_tpu/obs/profiler.py` (`StepTimer`;
 the trace context is not ported). A phase on a CUDA device ends with
 `torch.cuda.synchronize()`, so its time includes the device work queued in
-it, not only the host's launches.
+it, not only the host's launches. `device_kernel_counts` reads a
+`torch.profiler` trace: how often each kernel ran on the card, the kernels
+of CUDA-graph replays included.
 """
 
 from __future__ import annotations
@@ -49,3 +51,21 @@ class StepTimer:
     def reset(self) -> None:
         self.totals.clear()
         self.counts.clear()
+
+
+def kernel_name(key: str) -> str:
+    """A profiler event's kernel name without return type and parameters:
+    "void field_dw_kernel(DwJobs, int)" -> "field_dw_kernel"."""
+    words = key.split("(")[0].split()
+    return words[-1] if words else key
+
+
+def device_kernel_counts(prof) -> Dict[str, int]:
+    """Runs of each device kernel in a finished `torch.profiler.profile`
+    (with the CUDA activity), by `kernel_name`."""
+    counts: Dict[str, int] = defaultdict(int)
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            counts[kernel_name(e.key)] += e.count
+    return dict(counts)

@@ -13,22 +13,25 @@ cotangent (of its bf16 values for the view layer, as the TPU kernel sums
 them), the trunk stops at layer 0, and points and view directions get zero
 cotangents (importance depths are detached and rays are data).
 
-Two kernels, `csrc/train_field.cu`:
+Two kernels, `csrc/train_field.cu`, every product a bf16 wgmma:
   - K4 `field_forward` (replaces `pallas_train.py::_fwd_kernel`);
   - K5 `field_backward` (replaces `::_bwd_kernel`): recompute + input-
     gradient chain, split-K weight-gradient products and an ordered
     reduction, four launches, deterministic (see the source's notes).
-Each launches its kernel for CUDA tensors and runs its plain PyTorch version
-(`field_forward_plain`, `field_backward_plain`) for CPU tensors. Arrays at
-these functions keep the JAX package's layouts ([3, N] points, [8, N] raw,
-kernel-layout gradients named as `_grad_names`), so the tests compare like
-with like.
+Both read the net's weights as one packed stream of swizzled slabs
+(`pack_field_stream`), which the training step packs from the leaves on the
+device with one gather (`_pack_leaves`), and K5's gradient buffer goes back
+to the leaves with another. Each launches its kernel for CUDA tensors and
+runs its plain PyTorch version (`field_forward_plain`,
+`field_backward_plain`) for CPU tensors. Arrays at these functions keep the
+JAX package's layouts ([3, N] points, [8, N] raw, kernel-layout gradients
+named as `_grad_names`), so the tests compare like with like.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -55,8 +58,10 @@ from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
 # 10 point and 4 view frequencies.
 KERNEL_WIDTH = 256
 
-# Launches: K4 calls, K5 calls, and the kernels K5 launches (four per call).
+# Launches: K4 calls, K5 calls, and the kernels K5 launches (BACKWARD_KERNELS
+# per call: the chain, the weight gradients, two ordered reductions).
 LAUNCHES = {"forward": 0, "backward": 0, "backward_kernels": 0}
+BACKWARD_KERNELS = 4
 
 # Points per partial sum of the weight-gradient products (K5).
 DW_CHUNK = 4096
@@ -277,6 +282,23 @@ def field_backward_plain(
     return {name: out[name] for name in grad_names(meta)}
 
 
+def field_meta(spec: NerfMLPSpec) -> Dict[str, Any]:
+    """The static meta `build_kernel_inputs` returns, from the spec alone."""
+    return dict(
+        n_layers=spec.depth,
+        skips=tuple(spec.skips),
+        pts_freqs=_freqs_from_input_ch(spec.input_ch),
+        view_freqs=_freqs_from_input_ch(spec.input_ch_views),
+        width=spec.width,
+        input_ch=spec.input_ch,
+        input_ch_views=spec.input_ch_views,
+    )
+
+
+def _meta_key(meta: Dict[str, Any]) -> tuple:
+    return tuple(sorted(meta.items()))
+
+
 def _check_cuda_inputs(meta, device, **arrays) -> int:
     if device.type != "cuda":
         raise ValueError(f"no fused field kernel for device {device}")
@@ -311,53 +333,226 @@ def _pad_cols(w: torch.Tensor, cols: int, at: int = 0) -> torch.Tensor:
     return out
 
 
-def _kernel_tensors(inputs, meta, backward: bool) -> List[Any]:
-    """Tensors in `field_*_launch`'s pointer order (csrc/train_field.cu),
-    padded to the kernels' tiles: alpha/rgb heads to 16 rows, the view
-    encoding weights to 64 columns; for the backward the head transposes as
-    64-column tiles (rgb in columns 0-2, alpha in column 8)."""
-    n_layers = meta["n_layers"]
-    vec = lambda b: b.reshape(-1).contiguous()  # noqa: E731
-    ts: List[Any] = []
-    for i in range(n_layers):
-        ts += [inputs[f"w{i}"], vec(inputs[f"b{i}"])]
-    skip = [k for k in inputs if k.startswith("wskip")]
-    ts += [inputs[skip[0]] if skip else None,
-           _pad_rows(inputs["w_alpha"], 16), vec(_pad_rows(inputs["b_alpha"], 16)),
-           inputs["w_feature"], vec(inputs["b_feature"]), inputs["w_view_h"],
-           _pad_cols(inputs["w_view_enc"], 64), vec(inputs["b_view"]),
-           _pad_rows(inputs["w_rgb"], 16), vec(_pad_rows(inputs["b_rgb"], 16))]
-    if backward:
-        ts += [inputs[f"w{i}_t"] for i in range(1, n_layers)]
-        ts += [inputs["w_feature_t"], _pad_cols(inputs["w_alpha_t"][:, 0:1], 64, _GH_SIGMA),
-               inputs["w_view_h_t"], _pad_cols(inputs["w_rgb_t"][:, 0:3], 64)]
-    for t in ts:
-        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError("fused field kernel tensors must be 16-byte aligned and contiguous")
-    return ts
-
-
-def _pointer_array(ts: List[Any]):
-    return (ctypes.c_void_p * len(ts))(*[0 if t is None else t.data_ptr() for t in ts])
-
-
 def _skip_layer(meta) -> int:
     return meta["skips"][0] + 1 if meta["skips"] else -1
 
 
-def _field_forward_cuda(inputs, meta, pts_t, views_t):
+# The kernels' weight stream (csrc/train_field.cu, `field_stream_rows`):
+# every product's [rows, K] matrix cut into slabs of 64 bf16 inputs (128
+# bytes) a row, K zero-padded to the 16-value k-step, each slab's rows in
+# wgmma's 128-byte swizzle.
+SLAB_ELEMS = 64
+K_STEP_ELEMS = 16
+
+
+class StreamLayout(NamedTuple):
+    """Where one architecture's slabs lie in its packed stream: per table
+    (K4's forward, K5's chain) one (name, byte offset, bytes, rows,
+    k_bytes) per slab in the order the consumers take them; the stream's
+    bf16 count; and the tables as the launch entries' host arrays."""
+
+    forward: tuple
+    backward: tuple
+    n_elems: int
+    c_forward: tuple
+    c_backward: tuple
+
+
+class FieldStream(NamedTuple):
+    """One net's packed weights for the field kernels: `buffer` bf16 on the
+    device (the forward slabs, then the transposes only the backward
+    reads), its `layout`, and the fp32 biases in the launch entries' order
+    (b_0 .., b_alpha, b_feature, b_view, b_rgb)."""
+
+    buffer: torch.Tensor
+    layout: StreamLayout
+    biases: tuple
+
+
+def _stream_matrices(inputs, meta):
+    """(forward, backward) lists of (name, [rows, K] matrix) of kernel-layout
+    `inputs`, in the order the kernels' consumers take their slabs: the
+    trunk (layer 0's encoding part, each later layer's skip encoding part
+    and hidden part), alpha (padded to 16 rows), feature, the view layer's
+    feature and view-encoding parts, rgb (16 rows); the backward takes the
+    trunk, feature and view matrices, then rgb^T (rgb in columns 0-2 of
+    16), view_h^T, feature^T, alpha^T (column 8 of 16) and w_i^T for i = L-1
+    .. 1. Inputs without the transposes give an empty backward list."""
+    n_layers, skip = meta["n_layers"], _skip_layer(meta)
+    trunk = [("w0", inputs["w0"])]
+    for i in range(1, n_layers):
+        if i == skip:
+            trunk.append((f"wskip{i}", inputs[f"wskip{i}"]))
+        trunk.append((f"w{i}", inputs[f"w{i}"]))
+    view = [(k, inputs[k]) for k in ("w_feature", "w_view_h", "w_view_enc")]
+    forward = trunk + [("w_alpha", _pad_rows(inputs["w_alpha"], 16))] + view + [
+        ("w_rgb", _pad_rows(inputs["w_rgb"], 16))]
+    if "w_feature_t" not in inputs:
+        return forward, []
+    backward = trunk + view + [
+        ("w_rgb_t", _pad_cols(inputs["w_rgb_t"][:, 0:3], 16)),
+        ("w_view_h_t", inputs["w_view_h_t"]),
+        ("w_feature_t", inputs["w_feature_t"]),
+        ("w_alpha_t", _pad_cols(inputs["w_alpha_t"][:, 0:1], 16, _GH_SIGMA)),
+    ] + [(f"w{i}_t", inputs[f"w{i}_t"]) for i in range(n_layers - 1, 0, -1)]
+    return forward, backward
+
+
+def _slabs(m: torch.Tensor) -> torch.Tensor:
+    """[rows, K] matrix of 2-byte values (or their indices) -> [n_slabs, rows
+    * 64] slabs: K zero-padded to a multiple of 64, slab j holding inputs
+    [64 j, 64 j + 64) of every row, 16-byte chunk p of row r holding the
+    row's chunk p ^ (r % 8) (byte b of row r at r * 128 + (((b >> 4) ^ r) &
+    7) * 16 + (b & 15), csrc/hopper.cuh `swz`)."""
+    rows, k = m.shape
+    n = -(-k // SLAB_ELEMS)
+    padded = torch.zeros(rows, n * SLAB_ELEMS, dtype=m.dtype, device=m.device)
+    padded[:, :k] = m
+    chunks = padded.reshape(rows, n, 8, 8).permute(1, 0, 2, 3)  # [slab, row, chunk, value]
+    r = torch.arange(rows, device=m.device)[:, None]
+    src = torch.arange(8, device=m.device)[None, :] ^ (r % 8)
+    slabs = torch.gather(chunks, 2, src[None, :, :, None].expand(n, rows, 8, 8))
+    return slabs.reshape(n, rows * SLAB_ELEMS)
+
+
+def _pack(inputs, meta):
+    """(forward table, backward table, bf16 count, slabs in buffer order) of
+    kernel-layout `inputs` (`StreamLayout`'s tables)."""
+    forward, backward = _stream_matrices(inputs, meta)
+    names = dict(forward)
+    entries, parts, off = {}, [], 0
+    for name, m in forward + [x for x in backward if x[0] not in names]:
+        k_bytes = 2 * -(-m.shape[1] // K_STEP_ELEMS) * K_STEP_ELEMS
+        entries[name] = []
+        for s in _slabs(m):
+            entries[name].append((name, 2 * off, 2 * s.numel(), m.shape[0], k_bytes))
+            parts.append(s)
+            off += s.numel()
+    fwd = tuple(e for name, _ in forward for e in entries[name])
+    bwd = tuple(e for name, _ in backward for e in entries[name])
+    return fwd, bwd, off, parts
+
+
+_LAYOUTS: Dict[tuple, StreamLayout] = {}
+
+
+def _layout(meta, fwd, bwd, n_elems) -> StreamLayout:
+    key = _meta_key(meta) + (len(bwd),)
+    hit = _LAYOUTS.get(key)
+    if hit is None:
+        def c_table(table):
+            return ((ctypes.c_int * len(table))(*[e[1] for e in table]),
+                    (ctypes.c_int * len(table))(*[e[2] for e in table]))
+
+        hit = _LAYOUTS[key] = StreamLayout(fwd, bwd, n_elems, c_table(fwd), c_table(bwd))
+    return hit
+
+
+@torch.no_grad()
+def pack_field_stream(inputs, meta) -> FieldStream:
+    """Pack kernel-layout `inputs` (`build_kernel_inputs`) into the field
+    kernels' weight stream (`FieldStream`), slab by slab as
+    `_stream_matrices` orders them. The training step packs its leaves into
+    the same bytes with one gather (`_FusedField`)."""
+    fwd, bwd, n_elems, parts = _pack(inputs, meta)
+    buffer = torch.cat(parts).to(torch.bfloat16)
+    vec = lambda b: b.reshape(-1)  # noqa: E731
+    biases = tuple(vec(inputs[f"b{i}"]) for i in range(meta["n_layers"])) + tuple(
+        vec(inputs[k]) for k in ("b_alpha", "b_feature", "b_view", "b_rgb"))
+    return FieldStream(buffer, _layout(meta, fwd, bwd, n_elems), biases)
+
+
+_LEAF_INDEX: Dict[tuple, tuple] = {}
+
+
+def _leaf_indices(template, spec: NerfMLPSpec, meta, device: torch.device):
+    """(stream index, gradient index, layout) of one architecture on
+    `device`, built on the CPU once.
+
+    The stream index gives, for each bf16 of the packed stream, 1 + its
+    position in the concatenated flattened leaves (0: a zero pad), so that
+    `cat([0, leaves]).index_select(stream index)` cast to bf16 equals
+    `pack_field_stream(build_kernel_inputs(params))` value for value (its
+    masked pads may hold -0 where this holds +0). It comes
+    from `build_kernel_inputs` itself, run on trees holding the positions'
+    base-256 digits (its bf16 cast is exact on integers below 256). The
+    gradient index gives, for each leaf gradient value, its position in
+    the kernel's [dW, db] buffer: `grads_to_tree` of `_split_grads` run on
+    the positions."""
+    key = _meta_key(meta) + (str(device),)
+    hit = _LEAF_INDEX.get(key)
+    if hit is not None:
+        return hit
+    shapes = [tuple(x.shape) for x in tree_leaves(template)]
+    sizes = [int(np.prod(s)) for s in shapes]
+    total = sum(sizes)
+    if total >= 1 << 24:
+        raise ValueError(f"{total} parameters: the stream index takes fewer than 2**24")
+    pos = torch.arange(1, total + 1, dtype=torch.int64)
+    combined: Dict[str, torch.Tensor] = {}
+    for k in range(3):
+        digit = ((pos >> (8 * k)) & 255).to(torch.float32)
+        tree = tree_unflatten(template, [x.view(s) for x, s in zip(digit.split(sizes), shapes)])
+        inputs, _ = build_kernel_inputs(tree, spec)
+        for name, t in inputs.items():
+            if name.startswith("w"):
+                combined[name] = combined.get(name, 0) + (t.to(torch.int64) << (8 * k))
+    fwd, bwd, n_elems, parts = _pack(combined, meta)
+    stream_index = torch.cat(parts)
+    shapes_g = grad_shapes(meta)
+    n_dw = sum(int(np.prod(s)) for name, s in shapes_g.items() if name.startswith("dw"))
+    n_db = sum(s[0] for name, s in shapes_g.items() if name.startswith("db"))
+    flat = torch.arange(n_dw + n_db, dtype=torch.float64)
+    tree = grads_to_tree(_split_grads(meta, flat[:n_dw], flat[n_dw:]), meta)
+    grad_index = torch.cat([x.reshape(-1) for x in tree_leaves(tree)]).to(torch.int64)
+    hit = _LEAF_INDEX[key] = (stream_index.to(device), grad_index.to(device),
+                              _layout(meta, fwd, bwd, n_elems))
+    return hit
+
+
+def _pack_leaves(params, leaves, spec, meta):
+    """The training step's pack: the net's leaves -> (`FieldStream`,
+    gradient index), three device operations and no host-to-device copy
+    (after the first call of an architecture), so a CUDA graph can hold it."""
+    device = leaves[0].device
+    stream_index, grad_index, layout = _leaf_indices(params, spec, meta, device)
+    flat = torch.cat([leaves[0].new_zeros(1), *[x.reshape(-1) for x in leaves]])
+    buffer = flat.index_select(0, stream_index).to(torch.bfloat16)
+    biases = tuple(layer["b"] for layer in params["pts"]) + (
+        params["alpha"]["b"], params["feature"]["b"], params["views"][0]["b"], params["rgb"]["b"])
+    return FieldStream(buffer, layout, biases), grad_index
+
+
+def _launch_args(ws: FieldStream, meta, device, backward: bool):
+    """(biases array, buffer pointer, offsets, bytes, slab count) of a launch."""
+    table = ws.layout.backward if backward else ws.layout.forward
+    if backward and not table:
+        raise ValueError("the stream holds no backward table (inputs without the transposes)")
+    buf = ws.buffer
+    if buf.dtype != torch.bfloat16 or buf.device != device or buf.data_ptr() % 128:
+        raise ValueError(f"the weight stream must be 128-byte aligned bf16 on {device}")
+    for b in ws.biases:
+        if b.dtype != torch.float32 or b.device != device or not b.is_contiguous() or b.data_ptr() % 8:
+            raise ValueError(f"field biases must be contiguous 8-byte aligned float32 on {device}")
+    offs, sizes = ws.layout.c_backward if backward else ws.layout.c_forward
+    biases = (ctypes.c_void_p * len(ws.biases))(*[b.data_ptr() for b in ws.biases])
+    return (ctypes.cast(biases, ctypes.c_void_p), buf.data_ptr(), ctypes.cast(offs, ctypes.c_void_p),
+            ctypes.cast(sizes, ctypes.c_void_p), len(table))
+
+
+def field_forward_packed(ws: FieldStream, meta, pts_t: torch.Tensor, views_t: torch.Tensor) -> torch.Tensor:
+    """K4 on a packed stream: points and view directions [3, N] fp32 on the
+    card -> raw [8, N] fp32 (rows 0-2 rgb logits, 3 sigma, 4-7 zero)."""
     device = pts_t.device
     n = _check_cuda_inputs(meta, device, pts_t=pts_t, views_t=views_t)
-    ts = _kernel_tensors(inputs, meta, backward=False)
+    args = _launch_args(ws, meta, device, backward=False)
     fn = _build.load("train_field").field_forward_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
+        ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty((8, n), dtype=torch.float32, device=device)
-    ptrs = _pointer_array(ts)
-    code = fn(ctypes.cast(ptrs, ctypes.c_void_p), meta["n_layers"], _skip_layer(meta),
-              pts_t.data_ptr(), views_t.data_ptr(), out.data_ptr(), n,
-              _build.stream_handle(device))
+    code = fn(args[0], meta["n_layers"], _skip_layer(meta), *args[1:], pts_t.data_ptr(), views_t.data_ptr(),
+              out.data_ptr(), n, _build.stream_handle(device))
     _build.check(code, "field_forward_launch")
     LAUNCHES["forward"] += 1
     return out
@@ -393,10 +588,11 @@ def _split_grads(meta, dw: torch.Tensor, db: torch.Tensor) -> Dict[str, torch.Te
     return {name: out[name] for name in names}
 
 
-def _field_backward_cuda(inputs, meta, pts_t, views_t, g_raw):
+def _field_backward_flat(ws: FieldStream, meta, pts_t, views_t, g_raw) -> Tuple[torch.Tensor, int]:
+    """K5's launches; returns ([dW, db] fp32 in the kernel's order, dW count)."""
     device = pts_t.device
     n = _check_cuda_inputs(meta, device, pts_t=pts_t, views_t=views_t, g_raw=g_raw)
-    ts = _kernel_tensors(inputs, meta, backward=True)
+    args = _launch_args(ws, meta, device, backward=True)
     lib = _build.load("train_field")
     n_scratch, n_dw, n_db = _backward_sizes(lib, meta, n)
     shapes = grad_shapes(meta)
@@ -406,32 +602,36 @@ def _field_backward_cuda(inputs, meta, pts_t, views_t, g_raw):
         raise RuntimeError(f"kernel gradient layout {n_dw}/{n_db}, expected {expect_dw}/{expect_db}")
     n_tiles, n_chunks = -(-n // 128), -(-n // DW_CHUNK)
     scratch = torch.empty((n_scratch,), dtype=torch.bfloat16, device=device)
-    dbpart = torch.empty((n_tiles, n_db), dtype=torch.float32, device=device)
+    dbpart = torch.empty((2 * n_tiles, n_db), dtype=torch.float32, device=device)
     part = torch.empty((n_chunks, n_dw), dtype=torch.float32, device=device)
-    dw = torch.empty((n_dw,), dtype=torch.float32, device=device)
-    db = torch.empty((n_db,), dtype=torch.float32, device=device)
+    grads = torch.empty((n_dw + n_db,), dtype=torch.float32, device=device)
     fn = lib.field_backward_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
+        ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    ptrs = _pointer_array(ts)
-    code = fn(ctypes.cast(ptrs, ctypes.c_void_p), meta["n_layers"], _skip_layer(meta),
-              pts_t.data_ptr(), views_t.data_ptr(), g_raw.data_ptr(), scratch.data_ptr(),
-              dbpart.data_ptr(), part.data_ptr(), dw.data_ptr(), db.data_ptr(), n, DW_CHUNK,
-              _build.stream_handle(device))
+    code = fn(args[0], meta["n_layers"], _skip_layer(meta), *args[1:], pts_t.data_ptr(), views_t.data_ptr(),
+              g_raw.data_ptr(), scratch.data_ptr(), dbpart.data_ptr(), part.data_ptr(), grads.data_ptr(),
+              grads.data_ptr() + 4 * n_dw, n, DW_CHUNK, _build.stream_handle(device))
     _build.check(code, "field_backward_launch")
     LAUNCHES["backward"] += 1
-    LAUNCHES["backward_kernels"] += 4
-    return _split_grads(meta, dw, db)
+    LAUNCHES["backward_kernels"] += BACKWARD_KERNELS
+    return grads, n_dw
+
+
+def field_backward_packed(ws: FieldStream, meta, pts_t, views_t, g_raw) -> Dict[str, torch.Tensor]:
+    """K5 on a packed stream: the cotangent of raw [8, N] fp32 on the card ->
+    every kernel-layout weight and bias gradient (`grad_names`)."""
+    grads, n_dw = _field_backward_flat(ws, meta, pts_t, views_t, g_raw)
+    return _split_grads(meta, grads[:n_dw], grads[n_dw:])
 
 
 def field_forward(inputs, meta, pts_t: torch.Tensor, views_t: torch.Tensor) -> torch.Tensor:
     """K4: points and view directions [3, N] fp32 -> raw [8, N] fp32 (rows
-    0-2 rgb logits, 3 sigma, 4-7 zero). Launches the kernel for CUDA
-    tensors, runs `field_forward_plain` for CPU tensors."""
+    0-2 rgb logits, 3 sigma, 4-7 zero). Packs `inputs` and launches the
+    kernel for CUDA tensors, runs `field_forward_plain` for CPU tensors."""
     if pts_t.device.type == "cpu":
         return field_forward_plain(inputs, meta, pts_t, views_t)
-    return _field_forward_cuda(inputs, meta, pts_t, views_t)
+    return field_forward_packed(pack_field_stream(inputs, meta), meta, pts_t, views_t)
 
 
 def field_backward(
@@ -439,36 +639,51 @@ def field_backward(
 ) -> Dict[str, torch.Tensor]:
     """K5: the cotangent of raw [8, N] fp32 -> every kernel-layout weight and
     bias gradient (names and shapes of `grad_names`/`grad_shapes`), fp32.
-    Launches the kernels for CUDA tensors (two launches on the same inputs
-    give the same bits), runs `field_backward_plain` for CPU tensors."""
+    Packs `inputs` and launches the kernels for CUDA tensors (two launches
+    on the same inputs give the same bits), runs `field_backward_plain` for
+    CPU tensors."""
     if pts_t.device.type == "cpu":
         return field_backward_plain(inputs, meta, pts_t, views_t, g_raw)
-    return _field_backward_cuda(inputs, meta, pts_t, views_t, g_raw)
+    return field_backward_packed(pack_field_stream(inputs, meta), meta, pts_t, views_t, g_raw)
 
 
 class _FusedField(torch.autograd.Function):
     """raw [N, 4] = field(tree leaves; pts, viewdirs), gradients to the
-    leaves only."""
+    leaves only. On the card the leaves are packed into the kernels' stream
+    once per call (`_pack_leaves`) and the kernel's gradient buffer is
+    gathered back into leaf order; on the CPU the plain versions run on
+    `build_kernel_inputs`."""
 
     @staticmethod
     def forward(ctx, template, spec, pts, viewdirs, *leaves):
         params = tree_unflatten(template, list(leaves))
-        inputs, meta = build_kernel_inputs(params, spec, with_transposed=False)
         pts_t = pts.detach().T.to(torch.float32).contiguous()
         views_t = viewdirs.detach().T.to(torch.float32).contiguous()
-        raw_t = field_forward(inputs, meta, pts_t, views_t)
-        ctx.template, ctx.spec = template, spec
+        ctx.ws = None
+        if pts.device.type == "cpu":
+            inputs, meta = build_kernel_inputs(params, spec, with_transposed=False)
+            raw_t = field_forward_plain(inputs, meta, pts_t, views_t)
+        else:
+            meta = field_meta(spec)
+            ctx.ws, ctx.grad_index = _pack_leaves(params, leaves, spec, meta)
+            raw_t = field_forward_packed(ctx.ws, meta, pts_t, views_t)
+        ctx.template, ctx.spec, ctx.meta = template, spec, meta
         ctx.save_for_backward(pts_t, views_t, *leaves)
         return raw_t[:4].T
 
     @staticmethod
     def backward(ctx, g):
         pts_t, views_t, *leaves = ctx.saved_tensors
-        params = tree_unflatten(ctx.template, leaves)
-        inputs, meta = build_kernel_inputs(params, ctx.spec)
         g_raw = torch.cat([g.T.to(torch.float32), torch.zeros_like(g.T)], 0).contiguous()
-        kgrads = field_backward(inputs, meta, pts_t, views_t, g_raw)
-        grads = tree_leaves(grads_to_tree(kgrads, meta))
+        if ctx.ws is None:
+            params = tree_unflatten(ctx.template, leaves)
+            inputs, meta = build_kernel_inputs(params, ctx.spec)
+            kgrads = field_backward_plain(inputs, meta, pts_t, views_t, g_raw)
+            grads = tree_leaves(grads_to_tree(kgrads, meta))
+        else:
+            flat, _ = _field_backward_flat(ctx.ws, ctx.meta, pts_t, views_t, g_raw)
+            flat = flat.index_select(0, ctx.grad_index)
+            grads = [x.view(p.shape) for x, p in zip(flat.split([p.numel() for p in leaves]), leaves)]
         zero = lambda i, t: torch.zeros_like(t.T) if ctx.needs_input_grad[i] else None  # noqa: E731
         return (None, None, zero(2, pts_t), zero(3, views_t), *grads)
 

@@ -25,10 +25,30 @@ class RenderOutputs(NamedTuple):
     depth: torch.Tensor  # [...]
 
 
+class _CumprodPositive(torch.autograd.Function):
+    """torch.cumprod along the last axis of an input with no zeros. Its
+    gradient is PyTorch's own for that case (the reversed cumulative sum of
+    output * grad, divided by the input), without the host-side test for
+    zeros that PyTorch's backward makes first, which a CUDA graph of the
+    training step (train/step.py::StepGraph) cannot hold."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, -1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
-    """[1, x0, x0*x1, ...] along the last axis (reference model_utils.py:75-80)."""
+    """[1, x0, x0*x1, ...] along the last axis (reference model_utils.py:75-80),
+    for x without zeros (the callers' 1 - alpha + 1e-10 >= 1e-10)."""
     ones = torch.ones_like(x[..., :1])
-    return torch.cumprod(torch.cat([ones, x], -1), -1)[..., :-1]
+    return _CumprodPositive.apply(torch.cat([ones, x], -1))[..., :-1]
 
 
 def _dists(z_vals: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:

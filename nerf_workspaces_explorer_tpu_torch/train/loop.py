@@ -14,6 +14,11 @@ eval renders go through the fused serving path (K1-K3 on the current
 weights); on the CPU both are plain PyTorch. Each step's random draws come
 from the Trainer's generator seeded from (seed, step), so a run resumed
 from a checkpoint takes the same steps as one that never stopped.
+
+`steps_per_call` K > 1 (JAX `Trainer(steps_per_call=)`, `lax.scan` there):
+`fit` advances the stretches between cadence boundaries K steps a call, on
+`cuda` as a replay of a CUDA graph of K steps (`train/step.py::StepGraph`),
+on the CPU as K eager steps; the trajectory is the single steps'.
 """
 
 from __future__ import annotations
@@ -47,12 +52,15 @@ from nerf_workspaces_explorer_tpu_torch.rays.raygen import RayBundle, create_ray
 from nerf_workspaces_explorer_tpu_torch.render.pipeline import FIELD_IMPLS, render_rays_chunked
 from nerf_workspaces_explorer_tpu_torch.train.step import (
     ExponentialDecay,
+    StepDraws,
+    StepGraph,
     TrainState,
     draw_step,
     init_train_state,
     load_optimizer_leaves,
     optimizer_leaves,
     train_step,
+    train_steps,
 )
 from nerf_workspaces_explorer_tpu_torch.utils.metrics import to8b
 from nerf_workspaces_explorer_tpu_torch.utils.viz import depth2rgb
@@ -97,6 +105,7 @@ class Trainer:
         save_dir: Optional[str] = None,
         enable_tensorboard: bool = True,
         field_impl: str = "auto",
+        steps_per_call: int = 1,
         eval_max_views: int = 0,
         device: Optional[str | torch.device] = None,
     ) -> None:
@@ -109,6 +118,10 @@ class Trainer:
         if field_impl not in FIELD_IMPLS:
             raise ValueError(f"unknown field_impl {field_impl!r} (auto|{'|'.join(FIELD_IMPLS)})")
         self._field_impl = field_impl
+        # steps_per_call > 1: fit() advances K steps a call between cadence
+        # boundaries (a CUDA-graph replay on cuda, StepGraph).
+        self._steps_per_call = max(1, int(steps_per_call))
+        self._graph: Optional[StepGraph] = None
         self._eval_max_views = max(0, int(eval_max_views))
         self.timer = StepTimer(self._device)
         self._save_dir = save_dir or _next_run_dir(os.path.join(experiments_dir, office_name))
@@ -135,6 +148,15 @@ class Trainer:
     @property
     def field_impl(self) -> str:
         return self._field_impl
+
+    @property
+    def steps_per_call(self) -> int:
+        return self._steps_per_call
+
+    @property
+    def graph_captured(self) -> bool:
+        """Whether `step_many` holds a captured CUDA graph of its K steps."""
+        return self._graph is not None and self._graph.graph is not None
 
     @property
     def save_dir(self) -> str:
@@ -178,6 +200,7 @@ class Trainer:
 
     def initialize_models(self) -> None:
         self._state = init_train_state(self._spec, self._schedule, self._device, seed=self._seed)
+        self._graph = None
 
     def initialize_rays(self) -> None:
         """Per-image ray bundles on the device (reference :243-263)."""
@@ -201,14 +224,18 @@ class Trainer:
 
     # The step loop (reference step(), …training_handler.py:265-339).
 
+    def _draws(self, global_step: int) -> StepDraws:
+        """Step `global_step`'s draws, from the generator seeded for it."""
+        n_img, hw = self._train_rgbs.shape[0], self._train_rgbs.shape[1]
+        self._gen.manual_seed(step_seed(self._seed, global_step))
+        return draw_step(self._gen, n_img, hw, self._config.rendering.n_rays, self._settings,
+                         self._device)
+
     def step(self, global_step: int) -> Dict[str, Any]:
         """One optimization step plus cadenced logging, eval and checkpoints."""
         cfg = self._config
-        n_img, hw = self._train_rgbs.shape[0], self._train_rgbs.shape[1]
         with self.timer.phase("train_step"):
-            self._gen.manual_seed(step_seed(self._seed, global_step))
-            draws = draw_step(self._gen, n_img, hw, cfg.rendering.n_rays, self._settings,
-                              self._device)
+            draws = self._draws(global_step)
             self._state, metrics = train_step(
                 self.state, self.rays_train, self._train_rgbs, draws, self._settings,
                 self._spec, self._schedule,
@@ -240,11 +267,74 @@ class Trainer:
             self.save_models_checkpoint(global_step)
         return metrics
 
+    def step_many(self, global_step: int) -> Dict[str, Any]:
+        """Steps global_step .. global_step + K - 1 (K = `steps_per_call`) in
+        one call, with no cadence action (the JAX package's scanned
+        dispatch): on `cuda` a replay of a CUDA graph of K steps (captured
+        at its first call), on the CPU K eager steps. Returns the last
+        step's metrics, plus every step's total loss as `total_loss_steps`
+        [K]."""
+        k = self._steps_per_call
+        with self.timer.phase("train_step"):
+            draws = [self._draws(global_step + i) for i in range(k)]
+            args = (self.rays_train, self._train_rgbs, draws, self._settings, self._spec,
+                    self._schedule)
+            if self._device.type == "cuda":
+                if self._graph is None:
+                    self._graph = StepGraph(k)
+                self._state, metrics = self._graph(self.state, *args)
+            else:
+                self._state, metrics = train_steps(self.state, *args)
+        return metrics
+
+    def _cadence_intervals(self) -> list:
+        """The logging, eval and checkpoint intervals whose actions can fire."""
+        log = self._config.logging
+        return [
+            v
+            for v, active in (
+                (log.step_log_print, True),
+                (log.step_log_tensorboard, self._tb is not None),
+                (log.step_render_train, True),
+                (log.step_render_test, True),
+                (log.step_save_ckpt, True),
+            )
+            if v > 0 and active
+        ]
+
     def fit(self, n_iterations: Optional[int] = None, *, start_step: int = 0) -> None:
-        """Run the main loop (reference nerf/train.py:48-56), one step at a time."""
+        """Run the main loop (reference nerf/train.py:48-56).
+
+        With `steps_per_call` K > 1, stretches between cadence boundaries
+        advance K steps a call (`step_many`); steps ON a boundary go through
+        `step()`, so every cadence action still fires at its exact step. The
+        trajectory is the same either way (JAX `Trainer.fit`)."""
         total = n_iterations if n_iterations is not None else self._config.training.n_iterations
-        for i in range(start_step, total):
+        k = self._steps_per_call
+        if k <= 1:
+            for i in range(start_step, total):
+                self.step(i)
+            return
+        intervals = self._cadence_intervals()
+        if intervals and min(intervals) < k:
+            print(
+                f"[Trainer] steps_per_call={k} is limited by the "
+                f"{min(intervals)}-step logging cadence; raise the logging "
+                f"intervals (the train CLI's --steps-per-call stretches the "
+                f"print cadence automatically) to get full K-step calls"
+            )
+        i = start_step
+        while i < total:
             self.step(i)
+            i += 1
+            boundary = min(((i // v + (1 if i % v else 0)) * v for v in intervals), default=total)
+            boundary = min(max(boundary, i), total)
+            while boundary - i >= k:
+                self.step_many(i)
+                i += k
+            while i < boundary:
+                self.step(i)
+                i += 1
 
     # Eval renders (reference :411-508).
 
@@ -353,6 +443,7 @@ class Trainer:
         if opt_leaves:
             state = load_optimizer_leaves(state, opt_leaves)
         self._state = state._replace(step=step)
+        self._graph = None  # a captured graph holds the optimizer state's old tensors
         return step
 
     def export_results(self, out_dir: Optional[str] = None) -> list:

@@ -11,6 +11,12 @@ A step's random draws (`StepDraws`: image, pixels and the render's jitter,
 noise and importance quantiles) are made by `draw_step` from a generator
 that the caller seeds, or handed in by a test, so both packages can take the
 same step.
+
+On `cuda` the optimizer is capturable and its rate a device tensor, so that
+`StepGraph` can capture K steps as one CUDA graph and replay them (the
+counterpart of the JAX package's `lax.scan` over steps, `make_train_step(
+steps_per_call=K)`); eager steps use the same optimizer, so a replay takes
+the steps K eager calls would.
 """
 
 from __future__ import annotations
@@ -56,10 +62,15 @@ class TrainState(NamedTuple):
 
 def make_optimizer(params: Dict[str, Any], schedule: ExponentialDecay) -> torch.optim.Adam:
     """Adam (b1 0.9, b2 0.999, eps 1e-8, as optax.adam) over the tree's
-    leaves in `tree_leaves` order; `train_step` sets its rate per step."""
-    return torch.optim.Adam(
-        tree_leaves(params), lr=schedule(0), betas=(0.9, 0.999), eps=1e-8
-    )
+    leaves in `tree_leaves` order; `train_step` sets its rate per step. On
+    `cuda` it is capturable (its step counts on the device) with the rate a
+    device tensor, so a CUDA graph can hold the update."""
+    leaves = tree_leaves(params)
+    device = leaves[0].device
+    if device.type == "cuda":
+        lr = torch.tensor(schedule(0), dtype=torch.float32, device=device)
+        return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=True)
+    return torch.optim.Adam(leaves, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8)
 
 
 def init_train_state(
@@ -106,9 +117,12 @@ def sample_training_rays(
 ) -> Tuple[RayBundle, torch.Tensor]:
     """One image's pixels (reference _sample_training_data, :341-370).
 
-    rays: RayBundle [N_img, H*W]; rgbs: [N_img, H*W, 3]."""
-    sampled = RayBundle(*(field[img_idx][pix_idx] for field in rays))
-    return sampled, rgbs[img_idx][pix_idx]
+    rays: RayBundle [N_img, H*W]; rgbs: [N_img, H*W, 3]. One gather at
+    img_idx * H*W + pix_idx: indexing by a 0-d device tensor would read it
+    back to the host, which a CUDA graph cannot hold."""
+    flat = img_idx * rgbs.shape[1] + pix_idx
+    sampled = RayBundle(*(field.reshape(-1, *field.shape[2:])[flat] for field in rays))
+    return sampled, rgbs.reshape(-1, rgbs.shape[-1])[flat]
 
 
 def loss_and_metrics(
@@ -137,6 +151,37 @@ def loss_and_metrics(
     return total, metrics
 
 
+def set_learning_rate(opt: torch.optim.Adam, lr: float) -> None:
+    """Every group's rate: written into the device tensor of a capturable
+    optimizer, assigned otherwise."""
+    for group in opt.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def apply_step(
+    state: TrainState,
+    rays: RayBundle,
+    rgbs: torch.Tensor,
+    draws: StepDraws,
+    settings: RenderSettings,
+    spec: NerfMLPSpec,
+) -> Dict[str, torch.Tensor]:
+    """Sample, render, loss, backward and one Adam update at the optimizer's
+    current rate, in place; the step's metrics."""
+    sampled, gt = sample_training_rays(rays, rgbs, draws.img_idx, draws.pix_idx)
+    loss, metrics = loss_and_metrics(
+        state.params, sampled, gt, settings._replace(train=True), spec, draws.render
+    )
+    opt = state.optimizer
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    return metrics
+
+
 def train_step(
     state: TrainState,
     rays: RayBundle,
@@ -148,17 +193,105 @@ def train_step(
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """Sample, render, loss, backward and one Adam update at lr(state.step).
     Updates the parameters and the optimizer in place."""
-    sampled, gt = sample_training_rays(rays, rgbs, draws.img_idx, draws.pix_idx)
-    loss, metrics = loss_and_metrics(
-        state.params, sampled, gt, settings._replace(train=True), spec, draws.render
-    )
-    opt = state.optimizer
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    for group in opt.param_groups:
-        group["lr"] = schedule(state.step)
-    opt.step()
+    set_learning_rate(state.optimizer, schedule(state.step))
+    metrics = apply_step(state, rays, rgbs, draws, settings, spec)
     return state._replace(step=state.step + 1), metrics
+
+
+def _stack_losses(steps: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """The last step's metrics, with every step's total loss as
+    `total_loss_steps` [K]."""
+    out = dict(steps[-1])
+    out["total_loss_steps"] = torch.stack([m["total_loss"] for m in steps])
+    return out
+
+
+def train_steps(
+    state: TrainState,
+    rays: RayBundle,
+    rgbs: torch.Tensor,
+    draws: List[StepDraws],
+    settings: RenderSettings,
+    spec: NerfMLPSpec,
+    schedule: ExponentialDecay,
+) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """len(draws) consecutive `train_step`s; the last step's metrics and
+    `total_loss_steps`."""
+    steps = []
+    for d in draws:
+        state, m = train_step(state, rays, rgbs, d, settings, spec, schedule)
+        steps.append(m)
+    return state, _stack_losses(steps)
+
+
+def _draw_tensors(d: StepDraws) -> List[torch.Tensor]:
+    return [d.img_idx, d.pix_idx, *d.render]
+
+
+class StepGraph:
+    """K consecutive training steps as one CUDA graph, captured at the first
+    call and replayed at every later one.
+
+    The graph holds each step's sampling, render, loss, backward (through
+    K4/K5 on the fused field) and capturable Adam update. Its inputs are
+    static buffers: each step's draws and learning rate, copied in before a
+    replay from draws the caller made outside the graph and from
+    `schedule(step)`, so a replay takes the same steps as K `train_step`
+    calls. The first call takes its K steps eagerly on a side stream
+    (PyTorch's whole-network capture recipe: the kernels build, the
+    optimizer state and the packing indices exist before the capture), then
+    captures without running anything. A failed capture or replay raises."""
+
+    def __init__(self, k: int) -> None:
+        self.k = k
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def __call__(
+        self,
+        state: TrainState,
+        rays: RayBundle,
+        rgbs: torch.Tensor,
+        draws: List[StepDraws],
+        settings: RenderSettings,
+        spec: NerfMLPSpec,
+        schedule: ExponentialDecay,
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if len(draws) != self.k:
+            raise ValueError(f"the graph takes {self.k} steps, got draws for {len(draws)}")
+        if not all(isinstance(g["lr"], torch.Tensor) for g in state.optimizer.param_groups):
+            raise ValueError("a graphed step needs the capturable optimizer of make_optimizer on cuda")
+        lrs = torch.tensor([schedule(state.step + i) for i in range(self.k)], dtype=torch.float32)
+        if self.graph is None:
+            return self._warm_and_capture(state, rays, rgbs, draws, settings, spec, schedule)
+        for static, d in zip(self._draws, draws):
+            for dst, src in zip(_draw_tensors(static), _draw_tensors(d)):
+                dst.copy_(src)
+        self._lr.copy_(lrs)
+        self.graph.replay()
+        return state._replace(step=state.step + self.k), {k: v.clone() for k, v in self._metrics.items()}
+
+    def _warm_and_capture(self, state, rays, rgbs, draws, settings, spec, schedule):
+        device = rays.origins.device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            state_after, metrics = train_steps(state, rays, rgbs, draws, settings, spec, schedule)
+            metrics = {k: v.clone() for k, v in metrics.items()}
+        torch.cuda.current_stream(device).wait_stream(side)
+
+        self._draws = [StepDraws(d.img_idx.clone(), d.pix_idx.clone(), type(d.render)(*[x.clone() for x in d.render]))
+                       for d in draws]
+        self._lr = torch.empty(self.k, dtype=torch.float32, device=device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            steps = []
+            for i in range(self.k):
+                for group in state.optimizer.param_groups:
+                    group["lr"].copy_(self._lr[i])
+                steps.append(apply_step(state, rays, rgbs, self._draws[i], settings, spec))
+            self._metrics = _stack_losses(steps)
+        self.graph = graph
+        return state_after, metrics
 
 
 def optimizer_leaves(state: TrainState) -> List[np.ndarray]:
@@ -189,8 +322,9 @@ def load_optimizer_leaves(state: TrainState, opt_leaves: List[np.ndarray]) -> Tr
                   for x in (opt_leaves[1 + i], opt_leaves[1 + n + i]))
         if mu.shape != p.shape or nu.shape != p.shape:
             raise ValueError(f"optimizer leaf {i} has shape {tuple(mu.shape)}, param {tuple(p.shape)}")
+        capturable = opt.param_groups[0].get("capturable", False)
         opt.state[p] = {
-            "step": torch.tensor(float(count)),
+            "step": torch.tensor(float(count), device=p.device if capturable else "cpu"),
             "exp_avg": mu.clone(),
             "exp_avg_sq": nu.clone(),
         }

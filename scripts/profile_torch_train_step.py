@@ -8,11 +8,14 @@ under `torch.profiler`. Prints per step the wall time (unprofiled and
 profiled), the device time summed over kernels, the device idle share (1 -
 device time / profiled wall time), the device time of the port's kernels
 and of everything else, the device time by kernel name, and on the host the
-number of aten calls and their self CPU time. Run from the repository root:
+number of aten calls and their self CPU time. With `--steps-per-call K`
+the steps run K at a time as replays of a CUDA graph (`Trainer.step_many`),
+and every figure is per step of those calls. Run from the repository root:
 
-    python3 scripts/profile_torch_train_step.py
+    python3 scripts/profile_torch_train_step.py [--steps-per-call 10]
 """
 
+import argparse
 import os
 import subprocess
 import sys
@@ -21,8 +24,8 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WARM = 5  # steps before the profile: kernel build, first launches, allocator
-STEPS = 5  # profiled warm steps, averaged
+WARM = 5  # calls before the profile: kernel build, first launches, allocator, graph capture
+STEPS = 5  # profiled warm calls, averaged
 PORT_KERNELS = {  # CUDA kernel name -> the port's kernel it belongs to
     "field_fwd_kernel": "K4", "field_bwd_chain_kernel": "K5", "field_dw_kernel": "K5",
     "sum_rows_kernel": "K5",
@@ -38,11 +41,15 @@ def _device_us(evt) -> float:
 
 def _port_kernel(key: str):
     """"void field_dw_kernel(DwJobs, ...)" -> "K5"; None for other kernels."""
-    words = key.split("(")[0].split()
-    return PORT_KERNELS.get(words[-1]) if words else None
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import kernel_name
+
+    return PORT_KERNELS.get(kernel_name(key))
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--steps-per-call", type=int, default=1, metavar="K")
+    k = parser.parse_args().steps_per_call
     if not torch.cuda.is_available():
         print("profile_torch_train_step: no CUDA card", file=sys.stderr)
         return 2
@@ -63,25 +70,33 @@ def main() -> int:
                                             width=w, near=near, far=far, device=device)
     trainer = Trainer("office_tokyo", cfg, train_data=train, test_data=test, device=device,
                       save_dir=os.path.join(ROOT, "build", "torch_kernels", "profile_train"),
-                      enable_tensorboard=False)
+                      enable_tensorboard=False, steps_per_call=k)
     trainer.setup()
-    for i in range(WARM):
-        trainer.step(i)
+
+    def call(j):  # call j: steps j k .. j k + k - 1
+        if k == 1:
+            trainer.step(j)
+        else:
+            trainer.step_many(j * k)
+
+    for j in range(WARM):
+        call(j)
     torch.cuda.synchronize()
 
+    steps = STEPS * k
     t0 = time.perf_counter()
-    for i in range(WARM, WARM + STEPS):
-        trainer.step(i)
+    for j in range(WARM, WARM + STEPS):
+        call(j)
     torch.cuda.synchronize()
-    bare_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    bare_ms = (time.perf_counter() - t0) * 1e3 / steps
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        for i in range(WARM + STEPS, WARM + 2 * STEPS):
-            trainer.step(i)
+        for j in range(WARM + STEPS, WARM + 2 * STEPS):
+            call(j)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     # Device-side spans of `record_function` ranges (the optimizer's step)
     # cover kernels listed on their own: left out, so nothing counts twice.
     kernels = [
@@ -89,25 +104,26 @@ def main() -> int:
         if _device_us(e) > 0 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
         and not getattr(e, "is_user_annotation", False)
     ]
-    device_ms = sum(_device_us(e) for e in kernels) / 1e3 / STEPS
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
     by_port = {"K4": 0.0, "K5": 0.0, "other": 0.0}
     for e in kernels:
-        by_port[_port_kernel(e.key) or "other"] += _device_us(e) / 1e3 / STEPS
+        by_port[_port_kernel(e.key) or "other"] += _device_us(e) / 1e3 / steps
     host = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")]
     print(f"card: {card}")
-    print(f"train step ({trainer.field_impl} field): wall {bare_ms:.2f} ms unprofiled; profiled wall "
+    mode = "eager" if k == 1 else f"CUDA-graph replays of {k} steps"
+    print(f"train step ({trainer.field_impl} field, {mode}): wall {bare_ms:.2f} ms unprofiled; profiled wall "
           f"{wall_ms:.2f} ms, device {device_ms:.2f} ms, device idle share {1.0 - device_ms / wall_ms:.3f} "
-          f"(over {STEPS} steps each)")
+          f"(per step, over {steps} steps each)")
     print("  " + ", ".join(f"{k} {v:.3f} ms/step" for k, v in by_port.items()))
     if not kernels:
         print("no device time captured by the profiler")
     for e in sorted(kernels, key=_device_us, reverse=True)[:20]:
-        print(f"  {_device_us(e) / 1e3 / STEPS:9.3f} ms/step  x{e.count // STEPS:<4d} {e.key[:90]}")
-    print(f"host: {sum(e.count for e in host) / STEPS:.0f} aten calls per step, self CPU "
-          f"{sum(e.self_cpu_time_total for e in host) / 1e3 / STEPS:.2f} ms/step (profiled)")
+        print(f"  {_device_us(e) / 1e3 / steps:9.3f} ms/step  x{e.count // steps:<4d} {e.key[:90]}")
+    print(f"host: {sum(e.count for e in host) / steps:.0f} aten calls per step, self CPU "
+          f"{sum(e.self_cpu_time_total for e in host) / 1e3 / steps:.2f} ms/step (profiled)")
     for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]:
-        print(f"  {e.self_cpu_time_total / 1e3 / STEPS:9.3f} ms/step  x{e.count // STEPS:<4d} {e.key[:90]}")
+        print(f"  {e.self_cpu_time_total / 1e3 / steps:9.3f} ms/step  x{e.count // steps:<4d} {e.key[:90]}")
     return 0
 
 

@@ -176,7 +176,8 @@ def _field_setup(device, n, seed=0, skips=(4,)):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [8192, 5000], ids=["aligned", "ragged"])
+@pytest.mark.parametrize("n", [8192, 5000, 1, 127, 129, 4097],
+                         ids=["aligned", "ragged", "n1", "n127", "n129", "n4097"])
 @pytest.mark.parametrize("skips", [(4,), ()], ids=["skip", "no-skip"])
 def test_field_kernels_match_plain(cuda, n, skips):
     """K4 within 1e-3 and every K5 gradient within rel 5e-2 of the plain
@@ -193,7 +194,7 @@ def test_field_kernels_match_plain(cuda, n, skips):
     torch.cuda.synchronize()
     assert ff.LAUNCHES["forward"] == before["forward"] + 1
     assert ff.LAUNCHES["backward"] == before["backward"] + 1
-    assert ff.LAUNCHES["backward_kernels"] == before["backward_kernels"] + 4
+    assert ff.LAUNCHES["backward_kernels"] == before["backward_kernels"] + ff.BACKWARD_KERNELS
     raw_ref = ff.field_forward_plain(inputs, meta, pts, views)
     assert torch.isfinite(raw).all()
     assert float((raw - raw_ref).abs().max()) <= 1e-3
@@ -207,13 +208,95 @@ def test_field_kernels_match_plain(cuda, n, skips):
 
 
 @pytest.mark.gpu
-def test_field_backward_is_deterministic(cuda):
-    ff, inputs, meta, pts, views, g_raw = _field_setup(cuda, 20_000, seed=1)
+@pytest.mark.parametrize("n", [20_000, 129])
+def test_field_backward_is_deterministic(cuda, n):
+    """Two launches of K5 (and of K4) on the same inputs give the same bits:
+    no atomics, sums in a fixed order."""
+    ff, inputs, meta, pts, views, g_raw = _field_setup(cuda, n, seed=1)
     a = ff.field_backward(inputs, meta, pts, views, g_raw)
     b = ff.field_backward(inputs, meta, pts, views, g_raw)
+    fa = ff.field_forward(inputs, meta, pts, views)
+    fb = ff.field_forward(inputs, meta, pts, views)
     torch.cuda.synchronize()
     for name in a:
         assert torch.equal(a[name], b[name]), name
+    assert torch.equal(fa, fb)
+
+
+@pytest.mark.gpu
+def test_training_step_makes_no_host_sync(cuda, tmp_path):
+    """After one warm step, a fused training step (sampling, render, loss,
+    backward through K4/K5, Adam) makes no synchronizing call and no
+    host-to-device copy, so a CUDA graph can hold it: run under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import dataclasses
+
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
+    from nerf_workspaces_explorer_tpu_torch.train.step import train_step
+
+    cfg = load_config(office_name="tokyo")
+    train, test, _ = make_synthetic_scene(n_train=2, n_test=1, height=24, width=32, device=cuda)
+    tr = Trainer("office_tokyo", cfg, train_data=train, test_data=test, device=cuda, save_dir=str(tmp_path),
+                 enable_tensorboard=False)
+    tr.setup()
+    args = (tr.rays_train, tr._train_rgbs)
+    state, _ = train_step(tr.state, *args, tr._draws(0), tr._settings, tr._spec, tr._schedule)
+    draws = tr._draws(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        train_step(state, *args, draws, tr._settings, tr._spec, tr._schedule)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_graph_replay_equals_eager_steps(cuda, tmp_path):
+    """Trainer(steps_per_call=4) on the card: the first K-step call runs
+    its steps eagerly and captures a CUDA graph, the next two replay it;
+    the 12 losses equal K = 1's eager steps to 1e-6 and the parameters
+    after them agree; a profiler trace of the replays shows K4 and K5's
+    kernels twice a step, and the wrappers' counters do not move."""
+    import dataclasses
+
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerf_workspaces_explorer_tpu_torch.models.mlp import tree_leaves
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import device_kernel_counts
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
+
+    cfg = load_config(office_name="tokyo")
+    cfg = dataclasses.replace(cfg, logging=dataclasses.replace(
+        cfg.logging, step_log_print=0, step_save_ckpt=0, step_render_test=0, step_render_train=0))
+    train, test, _ = make_synthetic_scene(n_train=2, n_test=1, height=24, width=32, device=cuda)
+
+    def trainer(name, k):
+        tr = Trainer("office_tokyo", cfg, train_data=train, test_data=test, device=cuda,
+                     save_dir=str(tmp_path / name), enable_tensorboard=False, steps_per_call=k)
+        tr.setup()
+        return tr
+
+    eager = trainer("eager", 1)
+    losses = [float(eager.step(i)["total_loss"]) for i in range(12)]
+    graphed = trainer("graphed", 4)
+    got = graphed.step_many(0)["total_loss_steps"].tolist()
+    assert graphed.graph_captured
+    before = dict(ff.LAUNCHES)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        got += graphed.step_many(4)["total_loss_steps"].tolist()
+        got += graphed.step_many(8)["total_loss_steps"].tolist()
+    ran = device_kernel_counts(prof)
+    assert ff.LAUNCHES == before
+    assert ran.get("field_fwd_kernel") == 16 and ran.get("field_bwd_chain_kernel") == 16, ran
+    assert max(abs(a - b) for a, b in zip(got, losses)) <= 1e-6, (got, losses)
+    assert graphed.state.step == 12
+    for a, b in zip(tree_leaves(eager.params), tree_leaves(graphed.params)):
+        assert float((a - b).abs().max()) <= 1e-6
 
 
 @pytest.mark.gpu

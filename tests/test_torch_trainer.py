@@ -185,16 +185,106 @@ def test_train_cli_on_cpu_lowers_loss(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--proposal"], ["--fast-preset"], ["--mesh", "4"],
-                                  ["--steps-per-call", "4"], ["--profile", "p"], ["--nan-debug"],
-                                  ["--export-final"], []],
-                         ids=["proposal", "fast-preset", "mesh", "steps-per-call", "profile",
-                              "nan-debug", "export-final", "replica"])
+                                  ["--profile", "p"], ["--nan-debug"], ["--export-final"], []],
+                         ids=["proposal", "fast-preset", "mesh", "profile", "nan-debug", "export-final",
+                              "replica"])
 def test_unported_cli_options_raise(flag):
     from nerf_workspaces_explorer_tpu_torch.cli.train import main
 
     synthetic_flag = [] if not flag else ["--synthetic"]
     with pytest.raises(NotImplementedError, match="not ported"):
         main(synthetic_flag + flag + ["--device", "cpu"])
+
+
+def _params_moments(trainer):
+    opt = trainer.state.optimizer
+    leaves = tree_leaves(trainer.params)
+    return ([p.detach().clone() for p in leaves],
+            [(opt.state[p]["exp_avg"].clone(), opt.state[p]["exp_avg_sq"].clone()) for p in leaves])
+
+
+def _assert_same_state(a, b):
+    (pa, ma), (pb, mb) = _params_moments(a), _params_moments(b)
+    assert a.state.step == b.state.step
+    for x, y in zip(pa, pb):
+        assert torch.equal(x, y)
+    for (m1, v1), (m2, v2) in zip(ma, mb):
+        assert torch.equal(m1, m2) and torch.equal(v1, v2)
+
+
+def test_step_many_takes_the_single_steps(tmp_path, orbit):
+    """Trainer(steps_per_call=4).step_many on the CPU (K eager steps): the
+    losses, parameters and Adam moments of single step() calls, bit for
+    bit, with single steps on either side."""
+    a = _trainer(tmp_path / "a", orbit)
+    a.setup()
+    losses_a = [float(a.step(i)["total_loss"]) for i in range(10)]
+    b = _trainer(tmp_path / "b", orbit, steps_per_call=4)
+    assert b.steps_per_call == 4
+    b.setup()
+    m = b.step_many(0)
+    assert tuple(m["total_loss_steps"].shape) == (4,)
+    assert float(m["total_loss"]) == float(m["total_loss_steps"][-1])
+    losses_b = m["total_loss_steps"].tolist() + [float(b.step(4)["total_loss"])]
+    losses_b += b.step_many(5)["total_loss_steps"].tolist() + [float(b.step(9)["total_loss"])]
+    assert losses_b == losses_a
+    _assert_same_state(a, b)
+
+
+def test_fit_with_steps_per_call_keeps_the_cadence(tmp_path, orbit, capsys):
+    """fit() with K = 4 and a print every 5 steps: the prints at steps 0, 5
+    and 10 as with K = 1, the stretches between them as K-step calls, the
+    same parameters and moments after 13 steps; a cadence under K warns."""
+    cfg = tiny_config(step_log_print=5)
+    a = _trainer(tmp_path / "a", orbit, config=cfg)
+    a.setup()
+    a.fit(13)
+    out_a = capsys.readouterr().out
+    b = _trainer(tmp_path / "b", orbit, config=cfg, steps_per_call=4)
+    b.setup()
+    calls = []
+    step_many = b.step_many
+    b.step_many = lambda i: calls.append(i) or step_many(i)
+    b.fit(13)
+    out_b = capsys.readouterr().out
+    assert calls == [1, 6]
+    train_lines = lambda out: [x for x in out.splitlines() if x.startswith("[TRAIN]")]  # noqa: E731
+    assert train_lines(out_a) == train_lines(out_b)
+    assert [x.split(" Loss")[0] for x in train_lines(out_b)] == [
+        "[TRAIN] Iter: 0", "[TRAIN] Iter: 5", "[TRAIN] Iter: 10"]
+    _assert_same_state(a, b)
+    c = _trainer(tmp_path / "c", orbit, config=cfg, steps_per_call=8)
+    c.setup()
+    c.fit(2)
+    assert "steps_per_call=8 is limited by the 5-step logging cadence" in capsys.readouterr().out
+
+
+def test_train_cli_steps_per_call_on_cpu(tmp_path, capsys):
+    """`--steps-per-call 4 --device cpu` trains: the print cadence raised to
+    4, one steps/s line, the final checkpoint."""
+    from nerf_workspaces_explorer_tpu_torch.cli.train import main
+
+    cfg = tmp_path / "tiny.yaml"
+    cfg.write_text(TINY_YAML)
+    main(["--synthetic", "--synthetic-size", "16", "--synthetic-views", "2", "1",
+          "--iterations", "12", "--device", "cpu", "--config", str(cfg), "--steps-per-call", "4",
+          "--save-dir", str(tmp_path / "run"), "--save-final"])
+    out = capsys.readouterr().out
+    assert "console print cadence raised to every 4 steps" in out
+    iters = [int(x.split("Iter: ")[1].split(" ")[0]) for x in out.splitlines() if x.startswith("[TRAIN]")]
+    assert iters == [0, 4, 8]
+    assert "Finished steps 1..12 in" in out and "4 steps/dispatch" in out
+    assert os.path.exists(tmp_path / "run" / "checkpoints" / "000012.npz")
+
+
+def test_step_graph_needs_the_capturable_optimizer(tmp_path, orbit):
+    from nerf_workspaces_explorer_tpu_torch.train.step import StepGraph
+
+    t = _trainer(tmp_path, orbit)
+    t.setup()
+    with pytest.raises(ValueError, match="capturable optimizer"):
+        StepGraph(2)(t.state, t.rays_train, t._train_rgbs, [t._draws(0), t._draws(1)], t._settings, t._spec,
+                     t._schedule)
 
 
 def test_trainer_needs_a_device_or_cuda_and_data(tmp_path, orbit):
@@ -210,3 +300,33 @@ def test_trainer_needs_a_device_or_cuda_and_data(tmp_path, orbit):
         Trainer("office_tokyo", tiny_config(), train_data=train, test_data=test,
                 save_dir=str(tmp_path / "r3"), enable_tensorboard=False, device="cpu",
                 field_impl="pallas")
+
+
+@pytest.mark.parametrize("key,name", [
+    ("field_fwd_kernel(FieldNet, rk::StreamT<160>, float const*, float*, int)", "field_fwd_kernel"),
+    ("void sum_rows_kernel(float const*, int, unsigned long, float*)", "sum_rows_kernel"),
+    ("aten::copy_", "aten::copy_"),
+])
+def test_kernel_name(key, name):
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import kernel_name
+
+    assert kernel_name(key) == name
+
+
+def test_device_kernel_counts_counts_device_kernels_only():
+    """Device kernels by name, their counts summed over keys; host events
+    and device-side user annotations left out."""
+    from types import SimpleNamespace
+
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import device_kernel_counts
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = [
+        SimpleNamespace(key="field_fwd_kernel(FieldNet, float*)", count=6, device_type=cuda),
+        SimpleNamespace(key="void field_fwd_kernel(FieldNet, int)", count=2, device_type=cuda),
+        SimpleNamespace(key="field_dw_kernel(DwJobs, int)", count=3, device_type=cuda),
+        SimpleNamespace(key="aten::copy_", count=9, device_type=cpu),
+        SimpleNamespace(key="Optimizer.step#Adam.step", count=1, device_type=cuda, is_user_annotation=True),
+    ]
+    prof = SimpleNamespace(key_averages=lambda: events)
+    assert device_kernel_counts(prof) == {"field_fwd_kernel": 8, "field_dw_kernel": 3}
