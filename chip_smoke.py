@@ -12,7 +12,9 @@ pipelined frame, the presets, the two profiling scripts' kernels, training.
 Serving: holds K1-K3 against their plain PyTorch versions on the card at the
 main path's shapes (one 320x240 frame: 76,800 rays, 8x256 coarse+fine nets
 from `assets/bench/synth_hier.npz`, 64 coarse + 128 importance samples),
-times them with CUDA events, then serves floor-plan clicks through
+times them with CUDA events (one reading of 20 launches for K2, K6 and the
+launch floor, an empty kernel through the same binding; for these three also
+the median of 5 such readings and one CUDA graph of 20), then serves floor-plan clicks through
 `Workspace.render_image` at precision="fast" and checks each frame against
 the fp32 parity render (SSIM >= 0.99, the repo's gate for bf16 serving,
 reports/reference_parity_320x240.md) and that every kernel of the path ran
@@ -28,7 +30,8 @@ checkpoints (64/F=6, 128/F=8, 192/F=10, 256/F=10) in its bf16, int8-trunk and
 int8 modes; holds K6 (importance-only placement) against its plain version
 at the turbo shapes (64 proposal samples, 48 importance samples, the 4,800
 stride-4 lattice rays of a real proposal pass) and at synth_hier's
-fast-preset shapes (64, 128, 76,800 rays), K1/K3 at the proposal (2x64@6f)
+fast-preset shapes (64, 128, 76,800 rays), each with its bound, plain time
+and CUDA-graph time, K1/K3 at the proposal (2x64@6f)
 and student (6x192@10f, all 76,800 rays) shapes, and K7 (int8-trunk and
 int8, density-only and full) on synth_hier's 8x256 nets and the turbo nets,
 all at eps 0 (the kernel and its plain version read one set of int8
@@ -71,7 +74,8 @@ checkpoint (its next loss equal to 1e-6), and trains the 300 steps again at
 steps_per_call=10, as 30 replays of a CUDA graph of 10 steps (losses equal
 to the eager run's to 1e-6, the same launch counts, ms/step beside the
 eager run's). The `train_field` library must show no ptxas spill and
-wgmma (HGMMA) with no mma.sync (HMMA) in its SASS.
+wgmma (HGMMA) with no mma.sync (HMMA) in its SASS; every kernel of the
+`importance_merge` library (K2/K6) a 0-byte stack frame and no spill.
 
 Its last two lines are a JSON object with one entry per kernel (K1-K9; the
 new K1/K3 shapes, each served K7 mode, each K8 row and K9 leg have entries
@@ -142,6 +146,33 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def median_ms(fn, reps: int = 20, runs: int = 5) -> float:
+    """Median of `runs` readings of `time_ms(fn, reps)`: for a kernel of a
+    few microseconds each reading is mostly the host's launch path, whose
+    time varies from reading to reading."""
+    return float(np.median([time_ms(fn, reps) for _ in range(runs)]))
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of `fn` over `reps` calls captured as one CUDA graph
+    and replayed: its kernels back to back, without the host's gaps between
+    launches that `time_ms` also counts for a kernel of a few microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
@@ -231,6 +262,25 @@ def library_spills(name: str, kernel: str = "") -> list:
             if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line):
                 bad.append((name, entry, line.strip()))
     return bad
+
+
+def library_stack_or_spills(name: str):
+    """(kernels, bad): the number of kernels of library `name` that ptxas
+    reports on, and (kernel, ptxas line) of each whose line is not `0 bytes
+    stack frame, 0 bytes spill stores, 0 bytes spill loads`."""
+    import re
+
+    from nerf_workspaces_explorer_tpu_torch.ops import _build
+
+    n, bad, entry = 0, [], ""
+    for line in _build.build_log(name).splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "stack frame" in line:
+            n += 1
+            if not re.search(r"\b0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", line):
+                bad.append((entry, line.strip()))
+    return n, bad
 
 
 def sass_counts(name: str):
@@ -687,14 +737,22 @@ def presets_phase(card: str, device: torch.device, main: dict):
     torch.cuda.synchronize()
     k6_hier = merge_check(z_hier, im.importance_merge_plain(main["weights"], main["z_c"], 128, merge=False),
                           main["z_c"], slice(-1, None))
-    t6 = dict(ms=time_ms(lambda: im.importance_merge(w_l, z_l, n_imp, merge=False), 20),
+    k6 = lambda: im.importance_merge(w_l, z_l, n_imp, merge=False)  # noqa: E731
+    k6_hier_fn = lambda: im.importance_merge(main["weights"], main["z_c"], 128, merge=False)  # noqa: E731
+    t6 = dict(ms=time_ms(k6, 20), median=median_ms(k6), graph=graph_ms(k6, 20),
               plain=time_ms(lambda: im.importance_merge_plain(w_l, z_l, n_imp, merge=False), 5),
-              ms_hier=time_ms(lambda: im.importance_merge(main["weights"], main["z_c"], 128, merge=False), 20))
+              ms_hier=time_ms(k6_hier_fn, 20), median_hier=median_ms(k6_hier_fn), graph_hier=graph_ms(k6_hier_fn, 20),
+              plain_hier=time_ms(lambda: im.importance_merge_plain(main["weights"], main["z_c"], 128, merge=False), 5))
     b6, by6 = bound_ms(0, (2 * s_c + n_imp) * n_lat * 4)
+    b6h, by6h = bound_ms(0, (2 * main["s_c"] + 128) * h * w * 4)
     print(f"K6 importance-only: turbo shapes (S={s_c}, I={n_imp}, R={n_lat}) ms {t6['ms']:.4f} plain_ms "
           f"{t6['plain']:.3f} bound_ms {b6:.5f} max_abs_err {k6_turbo[0]:.2e} flips {k6_turbo[1]:.4%} (off the "
-          f"u = 1 row {k6_turbo[2]:.4%}); synth_hier fast shapes (S=64, I=128, R={h * w}) ms {t6['ms_hier']:.4f} "
-          f"max_abs_err {k6_hier[0]:.2e} flips {k6_hier[1]:.4%} (off the u = 1 row {k6_hier[2]:.4%})", flush=True)
+          f"u = 1 row {k6_turbo[2]:.4%}); median of 5 readings {t6['median']:.4f}; as one CUDA graph of 20 "
+          f"{t6['graph']:.4f}; launch floor {main['floor']:.4f} (median {main['floor_median']:.4f}) ms", flush=True)
+    print(f"K6 importance-only: synth_hier fast shapes (S={main['s_c']}, I=128, R={h * w}) ms {t6['ms_hier']:.4f} "
+          f"plain_ms {t6['plain_hier']:.3f} bound_ms {b6h:.5f} max_abs_err {k6_hier[0]:.2e} flips "
+          f"{k6_hier[1]:.4%} (off the u = 1 row {k6_hier[2]:.4%}); median of 5 readings {t6['median_hier']:.4f}; "
+          f"as one CUDA graph of 20 {t6['graph_hier']:.4f}", flush=True)
 
     # 3. K1/K3 at the student's shape against the plain version at eps 0: the
     # 6x192@10f full pass on all 76,800 rays at the lattice placement.
@@ -750,11 +808,18 @@ def presets_phase(card: str, device: torch.device, main: dict):
              max_abs_err=k3s_err, ms=t3s["ms"], plain_ms=t3s["plain"], bound_ms=t3s["bound"], bound_by=t3s["by"],
              library_ms=None, dense_bound_ms=t3s["dense"], rays=h * w, samples=n_imp, held_against_plain=True,
              **st3s),
-        dict(name="K6 importance-only placement (fast/turbo presets)", route="cuda",
+        dict(name="K6 importance-only placement: turbo shapes (4,800 lattice rays, 64 + 48)", route="cuda",
              source=src + "importance_merge.cu", replaces="nerf_workspaces_explorer_tpu/ops/pallas_sampling.py:47",
-             max_abs_err=max(k6_turbo[0], k6_hier[0]), ms=t6["ms"], plain_ms=t6["plain"], bound_ms=b6, bound_by=by6,
-             library_ms=None, boundary_flips=k6_turbo[1], boundary_flips_off_u1_row=max(k6_turbo[2], k6_hier[2]),
-             ms_76800_rays_128=t6["ms_hier"], rays=n_lat, samples=s_c, importance=n_imp, held_against_plain=True),
+             max_abs_err=k6_turbo[0], ms=t6["ms"], plain_ms=t6["plain"], bound_ms=b6, bound_by=by6,
+             library_ms=None, boundary_flips=k6_turbo[1], boundary_flips_off_u1_row=k6_turbo[2],
+             ms_median_of_5=t6["median"], graph_ms=t6["graph"], launch_floor_ms=main["floor"], rays=n_lat, samples=s_c, importance=n_imp,
+             held_against_plain=True),
+        dict(name="K6 importance-only placement: synth_hier fast shapes (76,800 rays, 64 + 128)", route="cuda",
+             source=src + "importance_merge.cu", replaces="nerf_workspaces_explorer_tpu/ops/pallas_sampling.py:47",
+             max_abs_err=k6_hier[0], ms=t6["ms_hier"], plain_ms=t6["plain_hier"], bound_ms=b6h, bound_by=by6h,
+             library_ms=None, boundary_flips=k6_hier[1], boundary_flips_off_u1_row=k6_hier[2],
+             ms_median_of_5=t6["median_hier"], graph_ms=t6["graph_hier"], launch_floor_ms=main["floor"], rays=h * w, samples=main["s_c"],
+             importance=128, held_against_plain=True),
     ]
 
     # 4. K7 against its plain version at eps 0: int8-trunk and int8, density
@@ -917,6 +982,7 @@ def presets_phase(card: str, device: torch.device, main: dict):
     entries[0]["launches"] = launches["room turbo fast"]["density_only"]
     entries[1]["launches"] = launches["room turbo fast"]["full"]
     entries[2]["launches"] = launches["room turbo int8"]["importance_only"]
+    entries[3]["launches"] = launches["synth_hier fast fast"]["importance_only"]
     # K7's entries: the passes a served row launched (turbo serves int8 only).
     nets = {"coarse density": ("synth_hier reference", "8x256"), "fine full": ("synth_hier reference", "8x256"),
             "proposal density": ("room turbo", "2x64@6f"), "student full": ("room turbo", "6x192@10f")}
@@ -1113,6 +1179,11 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
     spills = served_render_spills(names) + library_spills("train_field")
     require(not spills, f"ptxas reports spills in served render or training field kernels: {spills}")
+    n_place, bad_place = library_stack_or_spills("importance_merge")
+    require(n_place >= 2 and not bad_place, f"importance_merge: {n_place} kernels reported, not stack- and "
+            f"spill-free: {bad_place}")
+    print(f"ptxas gate importance_merge: {n_place} kernels, each 0 bytes stack frame, 0 bytes spill stores, "
+          f"0 bytes spill loads", flush=True)
     for name in names:
         if name.startswith("fused_render"):
             counts = sass_counts(name)
@@ -1181,6 +1252,7 @@ def main() -> int:
         "k1": time_ms(lambda: k1(EPS), reps), "k1_eps0": time_ms(lambda: k1(0.0), reps),
         "k1_plain": time_ms(lambda: fr.nerf_render_plain(kp["coarse"], o_ph, d_ph, z_c, dist_c, density_only=True), 2),
         "k2": time_ms(lambda: im.importance_merge(weights, z_c, n_imp), 20),
+        "k2_median": median_ms(lambda: im.importance_merge(weights, z_c, n_imp)),
         "k2_plain": time_ms(lambda: im.importance_merge_plain(weights, z_c, n_imp), 5),
         "k3": time_ms(lambda: k3(EPS), reps), "k3_eps0": time_ms(lambda: k3(0.0), reps),
         "k3_plain": time_ms(lambda: fr.nerf_render_plain(kp["fine"], o_ph, d_ph, z_f, dist_f, venc), 2),
@@ -1198,12 +1270,24 @@ def main() -> int:
                           PEAK_BF16_FLOPS)
     t["products_matmul"] = products_matmul_ms(kp["fine"], samples3)
     b2, by2 = bound_ms(0, (2 * s_c + s_f) * n_rays * 4)
+    # The launch floor: an empty kernel through the placement kernel's
+    # binding, timed as K2 and K6 are (CUDA events over 20 launches; the
+    # median of 5 such readings), and as one CUDA graph of 20 (the device
+    # alone).
+    t["floor"] = time_ms(lambda: im.empty_launch(device), 20)
+    t["floor_median"] = median_ms(lambda: im.empty_launch(device))
+    t["floor_graph"] = graph_ms(lambda: im.empty_launch(device), 20)
+    t["k2_graph"] = graph_ms(lambda: im.importance_merge(weights, z_c, n_imp), 20)
     print(f"K1 coarse density: ms {t['k1']:.3f} (eps 0: {t['k1_eps0']:.3f}) plain_ms {t['k1_plain']:.3f} "
           f"bound_ms {b1:.3f} ({samples1} of {s_c * n_rays} samples evaluated; dense bound {b1_dense:.3f}) "
           f"max_abs_err {k1_err:.2e}", flush=True)
-    print(f"K2 importance merge: ms {t['k2']:.4f} plain_ms {t['k2_plain']:.3f} bound_ms {b2:.4f} "
-          f"max_abs_err {k2_err:.2e} (boundary flips {k2_flips:.4%}; off the u = 1 rows {k2_flips_rest:.4%})",
+    print(f"launch floor: an empty kernel through the importance_merge binding, ms {t['floor']:.5f} (CUDA "
+          f"events over 20 launches), median of 5 readings {t['floor_median']:.5f}, {t['floor_graph']:.5f} as one "
+          f"CUDA graph of 20; card {card}",
           flush=True)
+    print(f"K2 importance merge: ms {t['k2']:.4f} plain_ms {t['k2_plain']:.3f} bound_ms {b2:.4f} "
+          f"max_abs_err {k2_err:.2e} (boundary flips {k2_flips:.4%}; off the u = 1 rows {k2_flips_rest:.4%}); "
+          f"median of 5 readings {t['k2_median']:.4f}; as one CUDA graph of 20 {t['k2_graph']:.4f}", flush=True)
     print(f"K3 fine full: ms {t['k3']:.3f} (eps 0: {t['k3_eps0']:.3f}) plain_ms {t['k3_plain']:.3f} "
           f"bound_ms {b3:.3f} ({samples3} of {s_f * n_rays} samples evaluated; dense bound {b3_dense:.3f}) "
           f"max_abs_err {k3_err:.2e}; {stats_text(st3, 'TFLOP/s')}; products_matmul_ms {t['products_matmul']:.3f} "
@@ -1256,7 +1340,8 @@ def main() -> int:
     # 5. The serving presets and precisions.
     preset_kernels = presets_phase(card, device, dict(
         weights=weights, z_c=z_c, o_ph=o_ph, d_ph=d_ph, dist_c=dist_c, z_f=z_f, dist_f=dist_f, venc=venc,
-        s_c=s_c, s_f=s_f, coarse_bytes=ray_bytes + 3 * s_c * n_rays * 4,
+        s_c=s_c, s_f=s_f, coarse_bytes=ray_bytes + 3 * s_c * n_rays * 4, floor=t["floor"],
+        floor_median=t["floor_median"],
         fine_bytes=ray_bytes + 2 * s_f * n_rays * 4 + 32 * n_rays * 2 + 8 * n_rays * 4,
         parity_frames=refs, fast_office=offices[CLICKS[0][0]][0], fast_frames=frames))
 
@@ -1277,6 +1362,8 @@ def main() -> int:
              replaces="nerf_workspaces_explorer_tpu/ops/pallas_sampling.py:47", launches=launches["K2"],
              max_abs_err=k2_err, ms=t["k2"], plain_ms=t["k2_plain"], bound_ms=b2, bound_by=by2,
              library_ms=None, boundary_flips=k2_flips, boundary_flips_off_u1_rows=k2_flips_rest,
+             ms_median_of_5=t["k2_median"], graph_ms=t["k2_graph"], launch_floor_ms=t["floor"],
+             launch_floor_median_ms=t["floor_median"], launch_floor_graph_ms=t["floor_graph"],
              held_against_plain=True),
         dict(name="K3 fused render, full (fine pass)", route="cuda", source=src + "fused_render.cu",
              replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598", launches=launches["K3"],

@@ -10,7 +10,15 @@ alone.
 
 `importance_merge` launches the CUDA kernel `csrc/importance_merge.cu` for a
 CUDA tensor (K2 merged, K6 importance-only) and runs `importance_merge_plain`
-for a CPU tensor.
+for a CPU tensor. The kernel stages a tile of 32 rays in shared memory, a
+lane each, and splits each ray's work over the block's warps: the CDF by
+segments, the quantiles each by its own binary search, the merge by ranks
+through a shared output tile written in whole rows (K6 stores its rows
+straight from registers); its note says why. It differs from the plain
+version only in rounding: the CDF's summation order (cumulative sums divided
+by the total), a reciprocal in the interpolation, and the clamp of each
+sample to its bin's upper edge (an ulp at most), which makes every output
+column ascending.
 """
 
 from __future__ import annotations
@@ -41,6 +49,19 @@ def importance_merge_plain(
     return merge_sorted_z(z, samples).T.contiguous()
 
 
+_ENTRIES = {}
+
+
+def _entry(name: str, argtypes):
+    """An entry point of the library with its argument types, bound once."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = getattr(_build.load("importance_merge"), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _ENTRIES[name] = fn
+    return fn
+
+
 def _importance_merge_cuda(
     weights_t: torch.Tensor, z_t: torch.Tensor, n_importance: int, merge: bool
 ) -> torch.Tensor:
@@ -52,19 +73,24 @@ def _importance_merge_cuda(
     for name, t in (("weights_t", weights_t), ("z_t", z_t)):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != z_t.device:
             raise ValueError(f"{name} must be contiguous float32 on {z_t.device}")
-    lib = _build.load("importance_merge")
-    fn = lib.importance_merge_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out_rows = s + n_importance if merge else n_importance
     out = torch.empty((out_rows, r), dtype=torch.float32, device=z_t.device)
-    code = fn(
+    launch = _entry("importance_merge_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    code = launch(
         weights_t.data_ptr(), z_t.data_ptr(), out.data_ptr(), r, s, n_importance, int(merge),
         _build.stream_handle(z_t.device),
     )
     _build.check(code, "importance_merge_launch")
     LAUNCHES["importance_merge" if merge else "importance_only"] += 1
     return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """One launch of an empty kernel through this module's library, on the
+    current stream: the floor under any launch of the placement kernel,
+    which `chip_smoke.py` times the same way beside it."""
+    launch = _entry("importance_empty_launch", [ctypes.c_void_p])
+    _build.check(launch(_build.stream_handle(device)), "importance_empty_launch")
 
 
 def importance_merge(
@@ -74,7 +100,7 @@ def importance_merge(
     sorted union of the coarse depths and the I deterministic inverse-CDF
     samples, [S + I, R], or with merge=False the I samples alone, [I, R]
     (ascending); either equal to `importance_merge_plain` up to the fp32
-    summation order of the CDF."""
+    rounding of the CDF and the interpolation (see the module's note)."""
     if n_importance < 2:
         raise ValueError(
             "importance_merge needs n_importance >= 2 (deterministic quantiles "

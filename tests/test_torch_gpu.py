@@ -92,7 +92,12 @@ def test_render_kernel_early_stop_is_exact_up_to_eps(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_rays,n_samples,n_importance", [(76_800, 64, 128), (1000, 16, 16)])
+@pytest.mark.parametrize("n_rays,n_samples,n_importance", [
+    (76_800, 64, 128), (1000, 16, 16),
+    (4801, 64, 128),  # a ragged last tile
+    (1000, 3, 16), (4096, 256, 128),  # the launcher's least and most coarse samples
+    (2000, 256, 300),  # 556 output rows: more than one output tile, so row chunks
+])
 def test_importance_kernel_matches_plain(cuda, n_rays, n_samples, n_importance):
     g = torch.Generator(device="cpu").manual_seed(2)
     z = torch.sort(torch.rand(n_samples, n_rays, generator=g) * 5.9 + 0.1, dim=0).values
@@ -135,16 +140,94 @@ def _tied_inputs(n_samples, n_rays):
     return w, z
 
 
+def _edge_inputs(n_samples, n_rays):
+    """Every other ray all-zero (the uniform pdf of the +1e-5 guard), the
+    rest all mass in the last interior weight: every quantile but u = 0
+    lies in the last interval, and u = 1 clamps to the last bin."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    z = torch.sort(torch.rand(n_samples, n_rays, generator=g) * 5.9 + 0.1, dim=0).values
+    w = torch.zeros(n_samples, n_rays)
+    w[-2, 1::2] = 50.0
+    return w, z
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("inputs,n_samples,n_importance", [("uniform", 32, 64), ("ties", 16, 5)])
-def test_importance_kernel_exact_cases(cuda, inputs, n_samples, n_importance):
-    """Where no CDF edge is left to rounding (a strictly increasing CDF, or
-    exact ties), the kernel equals the plain version on the CPU, the one the
-    CPU tests hold against the JAX package, to fp32 rounding of the depths."""
-    w, z = (_uniform_inputs if inputs == "uniform" else _tied_inputs)(n_samples, 1000)
-    ref = im.importance_merge_plain(w, z, n_importance)
-    out = im.importance_merge(w.to(cuda), z.to(cuda), n_importance).cpu()
-    assert (out - ref).abs().max() <= 1e-5
+@pytest.mark.parametrize("inputs,n_samples,n_importance,n_rays", [
+    ("uniform", 32, 64, 1000), ("ties", 16, 5, 1000),
+    ("ties", 64, 129, 76_800),  # at frame size; 128 intervals put u = 0.5 on the tie
+    ("edge", 64, 128, 76_800),
+])
+def test_importance_kernel_exact_cases(cuda, inputs, n_samples, n_importance, n_rays):
+    """Where no CDF edge is left to rounding (a strictly increasing CDF,
+    exact ties, all-zero or last-bin rays), the kernel equals the plain
+    version on the CPU, the one the CPU tests hold against the JAX package,
+    to fp32 rounding of the depths, merged and importance-only."""
+    make = {"uniform": _uniform_inputs, "ties": _tied_inputs, "edge": _edge_inputs}[inputs]
+    w, z = make(n_samples, n_rays)
+    for merge in (True, False):
+        ref = im.importance_merge_plain(w, z, n_importance, merge=merge)
+        out = im.importance_merge(w.to(cuda), z.to(cuda), n_importance, merge=merge).cpu()
+        assert (out - ref).abs().max() <= 1e-5, merge
+
+
+def _frame_inputs(device, n_rays=76_800, n_samples=64, seed=5):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    z = torch.sort(torch.rand(n_samples, n_rays, generator=g) * 5.9 + 0.1, dim=0).values
+    centre = torch.rand(1, n_rays, generator=g) * 4 + 1
+    w = torch.exp(-0.5 * ((z - centre) / 0.4) ** 2) + 1e-4
+    w[:, ::97] = 0.0
+    return w.to(device), z.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rays", [1, 31, 33, 4801])
+@pytest.mark.parametrize("merge", [True, False], ids=["merge", "only"])
+def test_importance_kernel_ragged_tiles(cuda, n_rays, merge):
+    """A ray's placement does not depend on its tile: the first n_rays
+    columns of a frame-size launch equal a launch on those rays alone, bit
+    for bit, however ragged the last tile is (and with or without the
+    16-byte copies, which need n_rays % 4 == 0)."""
+    w, z = _frame_inputs(cuda)
+    full = im.importance_merge(w, z, 128, merge=merge)
+    part = im.importance_merge(w[:, :n_rays].contiguous(), z[:, :n_rays].contiguous(), 128, merge=merge)
+    torch.cuda.synchronize()
+    assert torch.equal(part, full[:, :n_rays])
+    assert (torch.diff(part, dim=0) >= 0).all()
+
+
+def _guarded_edge_inputs(n_samples, n_rays):
+    """Quantiles just past bin edges under the `denom < 1e-5` guard: the
+    interior weights alternate a per-ray weight (1 or 2**10) and 0, so the
+    CDF climbs in equal steps separated by intervals of width ~1e-5 / sum;
+    with (I - 1) a multiple of the steps the quantiles u = q / (I - 1) fall
+    on step edges, on either side of a guarded interval by the summation
+    order's rounding."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    z = torch.sort(torch.rand(n_samples, n_rays, generator=g) * 5.9 + 0.1, dim=0).values
+    w = torch.zeros(n_samples, n_rays)
+    w[1:-1:2] = torch.where(torch.rand(n_rays, generator=g) < 0.5, 1.0, 2.0**10)
+    return w, z
+
+
+@pytest.mark.gpu
+def test_importance_kernel_guarded_edges_are_a_permutation(cuda):
+    """On the guarded-edge inputs each merged column is ascending and is,
+    bit for bit, the sorted union of the coarse depths and the
+    importance-only kernel's samples; both stay within the placement
+    contract of the plain version."""
+    n_samples, n_rays = 64, 76_800
+    n_importance = 31 * 4 + 1  # 31 weighted bins: every 4th quantile on a step edge
+    w, z = _guarded_edge_inputs(n_samples, n_rays)
+    w, z = w.to(cuda), z.to(cuda)
+    merged = im.importance_merge(w, z, n_importance)
+    alone = im.importance_merge(w, z, n_importance, merge=False)
+    torch.cuda.synchronize()
+    assert (torch.diff(merged, dim=0) >= 0).all() and (torch.diff(alone, dim=0) >= 0).all()
+    assert torch.equal(merged, torch.sort(torch.cat([z, alone]), dim=0).values)
+    bin_w = float(torch.diff(z, dim=0).max())
+    for out, ref in ((merged, im.importance_merge_plain(w, z, n_importance)),
+                     (alone, im.importance_merge_plain(w, z, n_importance, merge=False))):
+        assert float((out - ref).abs().max()) <= bin_w + 1e-4
 
 
 @pytest.mark.gpu
@@ -381,7 +464,10 @@ def test_render_kernel_shapes_and_modes_match_plain(cuda, net, mode, density_onl
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_samples,n_importance,n_rays", [(64, 48, 4800), (64, 128, 76_800), (16, 5, 1000)])
+@pytest.mark.parametrize("n_samples,n_importance,n_rays", [
+    (64, 48, 4800), (64, 128, 76_800), (16, 5, 1000),
+    (64, 48, 4801), (3, 4, 500), (256, 300, 700),  # ragged tile; least and most S; row chunks
+])
 def test_importance_only_kernel_matches_plain(cuda, n_samples, n_importance, n_rays):
     """K6 (merge=False) against its plain version: ascending, boundary flips
     on < 0.5% of samples, each within one coarse bin, off the last row: there

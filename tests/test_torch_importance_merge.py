@@ -169,3 +169,27 @@ def test_importance_only_is_the_merge_without_coarse_depths(rng):
         for depth in z[:, r]:
             rest.remove(depth)
         np.testing.assert_array_equal(np.sort(rest), alone[:, r])
+
+
+@pytest.mark.parametrize("merge", [True, False], ids=["merge", "only"])
+def test_turbo_shapes_match_pallas_kernel(rng, merge):
+    """At the turbo preset's placement shapes (64 proposal samples, 48
+    importance samples), merged and importance-only, against
+    `importance_merge_pallas` in interpret mode. At 48 quantiles the u = 1
+    row is 2.1% of the importance-only samples, and every flip lies there
+    (merged: rows -3 and -2, as in `assert_merge_close`; 1.0-1.2% of the
+    samples under numpy seeds 0-2): that row gets its ray's last bin as its
+    bound, the other rows keep the 0.5% budget."""
+    s, r, n_imp = 64, 128, 48
+    w, z = _inputs(rng, s, r)
+    ref = np.asarray(importance_merge_pallas(
+        jnp.asarray(w), jnp.asarray(z), n_imp, ray_tile=128, interpret=True, merge=merge))
+    mine = importance_merge(torch.from_numpy(w), torch.from_numpy(z), n_imp, merge=merge).numpy()
+    assert mine.shape == ((s + n_imp) if merge else n_imp, r)
+    if merge:
+        assert_merge_close(mine, ref, z)
+        return
+    assert_importance_only_close(mine[:-1], ref[:-1], z)
+    mid = 0.5 * (z[1:] + z[:-1])
+    assert np.all(np.abs(mine[-1] - ref[-1]) <= mid[-1] - mid[-2] + 1e-4)
+    assert np.all(mine[-1] >= mine[-2])
