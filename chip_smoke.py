@@ -57,8 +57,11 @@ its plain version on 4,096 rays x 48 samples of the 4x128@8f student
 (`assets/bench/synth_proposal.turbo.npz`, int8 trunk and heads), then runs
 `scripts/profile_torch_fine_ablation.py`'s attribution at 640x480 x 48 and
 prints its table. int4 (K9): both legs of `scripts/probe_int4_torch.py`
-against their plain versions and numpy, timed beside `torch.matmul` of the
-widened matrix, then the probe's verdicts.
+against their plain versions and numpy, timed three ways (one events
+reading of 50 launches, the median of 5 such, one CUDA graph of 20) beside
+the launch floor read the same ways and beside `torch.matmul` of the
+widened matrix, then the probe's verdicts; the `int4_probe` library must
+show wgmma (HGMMA), no mma.sync (HMMA) and no spill.
 
 Training: on the room scene at 320x240 (60-frame walkthrough, every 5th
 frame a train view, +2 a test view: 12 and 12) with the stock config (8x256
@@ -73,13 +76,25 @@ test views through K1-K3, trains the same 300 steps with the plain field
 checkpoint (its next loss equal to 1e-6), and trains the 300 steps again at
 steps_per_call=10, as 30 replays of a CUDA graph of 10 steps (losses equal
 to the eager run's to 1e-6, the same launch counts, ms/step beside the
-eager run's). The `train_field` library must show no ptxas spill and
-wgmma (HGMMA) with no mma.sync (HMMA) in its SASS; every kernel of the
-`importance_merge` library (K2/K6) a 0-byte stack frame and no spill.
+eager run's). Then proposal training, the same config with the 2x64@6f/2f
+proposal net in the coarse net's place (the interlevel loss): K4/K5 at
+that shape against the plain field on one real step's 65,536 proposal
+points (the same gates; two K5 launches bit-equal; times also as one CUDA
+graph of 20), 300 fused steps (one K4 and one K5 call a step through each
+of the two libraries, loss falling), test-view PSNR within 1 dB of 300
+plain steps, the graph leg at steps_per_call=10 (losses equal to eager to
+1e-6), 300 `--fast-preset` steps (importance-only placement), and the
+step-300 checkpoint served at the fast preset for one room test view (SSIM
+>= 0.99 against its parity frame at stride 1; stride 4's SSIM to stride 1
+printed). The training field builds as one library per network shape
+(`train_field_w256f10v4`, `train_field_w64f6v2`); each must show no
+ptxas spill and wgmma (HGMMA) with no mma.sync (HMMA) in its SASS; every
+kernel of the `importance_merge` library (K2/K6) a 0-byte stack frame and
+no spill.
 
 Its last two lines are a JSON object with one entry per kernel (K1-K9; the
-new K1/K3 shapes, each served K7 mode, each K8 row and K9 leg have entries
-of their own) and the result line `{"ok": true, "device": {...}}`. Any
+new K1/K3 shapes, each served K7 mode, each K8 row and K9 leg, and K4/K5 at
+the proposal shape have entries of their own) and the result line `{"ok": true, "device": {...}}`. Any
 failure raises and exits nonzero; without a CUDA card, or outside the
 repository, it exits 2 and prints no result.
 """
@@ -406,72 +421,57 @@ def train_config():
     )
 
 
-def train_phase(card: str, device: torch.device):
-    """The training path (module docstring); returns the K4 and K5 entries
-    of the kernels line."""
-    from nerf_workspaces_explorer_tpu_torch.data.synthetic import make_room_scene_splits
-    from nerf_workspaces_explorer_tpu_torch.infer.renderer import settings_from_config, spec_from_config
+def field_leg(device, trainer, nets, specs, settings, spec, cfg):
+    """K4 and K5 against the fp32 plain field on the points of one real step
+    (step 0's draws on the room scene, the trainer's initial weights): the
+    plain step's autograd gives the raw maps, their cotangents and every
+    leaf's gradient. `nets` are the nets held ("coarse" and "fine", or
+    "proposal"); with a proposal net the loss is the proposal step's
+    (interlevel + fine MSE). Returns {net: checks, times and bounds}."""
     from nerf_workspaces_explorer_tpu_torch.models.mlp import tree_leaves
-    from nerf_workspaces_explorer_tpu_torch.obs.profiler import device_kernel_counts
     from nerf_workspaces_explorer_tpu_torch.ops import _build
     from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
-    from nerf_workspaces_explorer_tpu_torch.ops import fused_render as fr
-    from nerf_workspaces_explorer_tpu_torch.ops import importance_merge as im
     from nerf_workspaces_explorer_tpu_torch.render.pipeline import render_ray_bundle
-    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer, step_seed
+    from nerf_workspaces_explorer_tpu_torch.render.proposal import interlevel_loss
+    from nerf_workspaces_explorer_tpu_torch.render.volume import sigma_to_weights
+    from nerf_workspaces_explorer_tpu_torch.train.loop import step_seed
     from nerf_workspaces_explorer_tpu_torch.train.step import draw_step, sample_training_rays
     from nerf_workspaces_explorer_tpu_torch.utils.metrics import img2mse
 
-    cfg = train_config()
-    spec = spec_from_config(cfg)
     w, h = TRAIN_SIZE
-    near, far = cfg.rendering.depth_range
-    t0 = time.time()
-    train, test, _ = make_room_scene_splits(n_frames=TRAIN_FRAMES, stride=TRAIN_STRIDE, height=h, width=w,
-                                            near=near, far=far, device=device)
-    print(f"room scene: {len(train)} train / {len(test)} test views at {w}x{h}, ground truth "
-          f"{time.time() - t0:.1f} s", flush=True)
-    out_dir = os.path.join(HERE, "build", "torch_kernels", "smoke_train")
-    shutil.rmtree(out_dir, ignore_errors=True)
-
-    def trainer(field_impl: str, name: str, steps_per_call: int = 1) -> Trainer:
-        tr = Trainer("office_tokyo", cfg, train_data=train, test_data=test, device=device,
-                     save_dir=os.path.join(out_dir, name), enable_tensorboard=False,
-                     field_impl=field_impl, eval_max_views=TRAIN_EVAL_VIEWS, steps_per_call=steps_per_call)
-        tr.setup()
-        return tr
-
-    fused = trainer("auto", "fused")
-    require(fused.field_impl == "fused", f"field_impl auto on {device} chose {fused.field_impl}")
-
-    # 2. K4 and K5 against the fp32 plain field on the points of one real
-    # step (step 0's draws on the room scene, the initial weights): the plain
-    # step's autograd gives the raw maps, their cotangents and every leaf's
-    # gradient.
-    settings = settings_from_config(cfg)._replace(train=True, field_impl="plain")
-    rgbs = torch.as_tensor(train.rgb.reshape(len(train), -1, 3), dtype=torch.float32, device=device)
+    train_rgbs = trainer._train_rgbs
     gen = torch.Generator(device=device).manual_seed(step_seed(0, 0))
-    draws = draw_step(gen, len(train), w * h, cfg.rendering.n_rays, settings, device)
-    rays, gt = sample_training_rays(fused.rays_train, rgbs, draws.img_idx, draws.pix_idx)
-    out = render_ray_bundle(fused.params, rays, settings, spec=spec, draws=draws.render, full_outputs=True)
-    loss = img2mse(out["rgb_coarse"], gt) + img2mse(out["rgb_fine"], gt)
-    nets = ("coarse", "fine")
-    leaves = {k: tree_leaves(fused.params[k]) for k in nets}
-    grads = torch.autograd.grad(loss, [out["raw_coarse"], out["raw_fine"], *leaves["coarse"], *leaves["fine"]])
-    g_raws = dict(zip(nets, grads[:2]))
-    ref_grads = {"coarse": grads[2: 2 + len(leaves["coarse"])], "fine": grads[2 + len(leaves["coarse"]):]}
-    mac_fwd, mac_bwd = field_macs(spec)
+    draws = draw_step(gen, train_rgbs.shape[0], w * h, cfg.rendering.n_rays, settings, device)
+    rays, gt = sample_training_rays(trainer.rays_train, train_rgbs, draws.img_idx, draws.pix_idx)
+    out = render_ray_bundle(trainer.params, rays, settings, spec=spec, draws=draws.render, full_outputs=True)
+    if settings.use_proposal:
+        w_prop = sigma_to_weights(out["raw_coarse"][..., 3], out["z_vals_coarse"], rays.dirs)
+        w_fine = sigma_to_weights(out["raw_fine"][..., 3], out["z_vals_fine"], rays.dirs)
+        loss = interlevel_loss(out["z_vals_coarse"], w_prop, out["z_vals_fine"], w_fine)
+    else:
+        loss = img2mse(out["rgb_coarse"], gt)
+    loss = loss + img2mse(out["rgb_fine"], gt)
+    raw_key = {"coarse": "coarse", "proposal": "coarse", "fine": "fine"}
+    leaves = {k: tree_leaves(trainer.params[k]) for k in nets}
+    grads = torch.autograd.grad(loss, [out[f"raw_{raw_key[k]}"] for k in nets] + [x for k in nets for x in leaves[k]])
+    g_raws = dict(zip(nets, grads[: len(nets)]))
+    ref_grads, at = {}, len(nets)
+    for k in nets:
+        ref_grads[k] = grads[at: at + len(leaves[k])]
+        at += len(leaves[k])
     res = {}
     for net in nets:
-        z = out[f"z_vals_{net}"]
+        net_spec = specs[net]
+        mac_fwd, mac_bwd = field_macs(net_spec)
+        z = out[f"z_vals_{raw_key[net]}"]
         n = z.numel()
         pts_t = (rays.origins[:, None, :] + rays.dirs[:, None, :] * z[..., None]).reshape(n, 3).T.contiguous()
         views_t = rays.viewdirs[:, None, :].expand(-1, z.shape[1], 3).reshape(n, 3).T.contiguous()
         g_raw = torch.cat([g_raws[net].reshape(n, 4).T, torch.zeros(4, n, device=device)]).contiguous()
-        inputs, meta = ff.build_kernel_inputs(fused.params[net], spec)
+        inputs, meta = ff.build_kernel_inputs(trainer.params[net], net_spec)
         raw = ff.field_forward(inputs, meta, pts_t, views_t)
         torch.cuda.synchronize()
-        raw_ref = out[f"raw_{net}"].detach().reshape(n, 4).T
+        raw_ref = out[f"raw_{raw_key[net]}"].detach().reshape(n, 4).T
         k4_err = float((raw[:4] - raw_ref).abs().max())
         require(bool(torch.isfinite(raw).all()), f"K4 {net}: non-finite output")
         require(k4_err <= BF16_ATOL, f"K4 {net}: max |err| {k4_err} against the fp32 field")
@@ -493,29 +493,35 @@ def train_phase(card: str, device: torch.device):
         # `_FusedField`): K4 = the pack of the net's leaves into the weight
         # stream, then the kernel; K5 = its launches on that stream, then the
         # gather of the gradients into leaf order. The kernels alone, on a
-        # stream packed once, and the pack alone are timed beside them.
-        leaves_net = tree_leaves(fused.params[net])
-        ws, grad_index = ff._pack_leaves(fused.params[net], leaves_net, spec, meta)
+        # stream packed once, and the pack alone are timed beside them; at
+        # the proposal shape also as one CUDA graph of 20 (the device alone).
+        leaves_net = tree_leaves(trainer.params[net])
+        ws, grad_index = ff._pack_leaves(trainer.params[net], leaves_net, net_spec, meta)
 
         def k4_step():
-            packed, _ = ff._pack_leaves(fused.params[net], leaves_net, spec, meta)
+            packed, _ = ff._pack_leaves(trainer.params[net], leaves_net, net_spec, meta)
             return ff.field_forward_packed(packed, meta, pts_t, views_t)
 
         def k5_step():
             flat, _ = ff._field_backward_flat(ws, meta, pts_t, views_t, g_raw)
             return flat.index_select(0, grad_index)
 
+        k4_kernel = lambda: ff.field_forward_packed(ws, meta, pts_t, views_t)  # noqa: E731
+        k5_kernel = lambda: ff._field_backward_flat(ws, meta, pts_t, views_t, g_raw)  # noqa: E731
         t = dict(
             k4=time_ms(k4_step, 10),
-            k4_kernel=time_ms(lambda: ff.field_forward_packed(ws, meta, pts_t, views_t), 10),
+            k4_kernel=time_ms(k4_kernel, 10),
             k4_plain=time_ms(lambda: ff.field_forward_plain(inputs, meta, pts_t, views_t), 3),
             k5=time_ms(k5_step, 5),
-            k5_kernel=time_ms(lambda: ff._field_backward_flat(ws, meta, pts_t, views_t, g_raw), 5),
+            k5_kernel=time_ms(k5_kernel, 5),
             k5_plain=time_ms(lambda: ff.field_backward_plain(inputs, meta, pts_t, views_t, g_raw), 3),
-            pack=time_ms(lambda: ff._pack_leaves(fused.params[net], leaves_net, spec, meta), 10),
+            pack=time_ms(lambda: ff._pack_leaves(trainer.params[net], leaves_net, net_spec, meta), 10),
             k4_matmul=field_products_matmul_ms(inputs, n, backward=False),
             k5_matmul=field_products_matmul_ms(inputs, n, backward=True),
         )
+        if net == "proposal":
+            t.update(k4_graph=graph_ms(k4_step, 20), k5_graph=graph_ms(k5_step, 20),
+                     k4_kernel_graph=graph_ms(k4_kernel, 20), k5_kernel_graph=graph_ms(k5_kernel, 20))
         # Bytes: points and view directions in, raw [8, N] out, the fp32
         # leaves read once (the pack); the backward reads cotangent rows 0-3,
         # the bf16 weights and their transposes, and writes fp32 gradients.
@@ -523,38 +529,83 @@ def train_phase(card: str, device: torch.device):
         b4 = bound_ms(2 * mac_fwd * n, n * (6 * 4 + 8 * 4) + 2 * w_bytes)
         b5 = bound_ms(2 * mac_bwd * n, n * (6 * 4 + 4 * 4) + 4 * w_bytes)
         # K5's design also writes its bf16 scratch and reads it back.
-        n_scratch = ff._backward_sizes(_build.load("train_field"), meta, n)[0]
+        n_scratch = ff._backward_sizes(ff._library(meta), meta, n)[0]
         b5_design = 2 * n_scratch * 2 / PEAK_BYTES * 1e3
         res[net] = dict(n=n, k4_err=k4_err, k5_rel=worst[0], k5_abs=max(e[1] for e in errs), worst=worst[2],
-                        t=t, b4=b4, b5=b5, b5_design=b5_design)
-        print(f"{net} field, {n} points: K4 ms {t['k4']:.3f} (pack + kernel; kernel {t['k4_kernel']:.3f}, "
-              f"pack {t['pack']:.4f}) plain_ms {t['k4_plain']:.3f} bound_ms {b4[0]:.4f} max_abs_err "
-              f"{k4_err:.2e} (vs fp32), products as torch.matmul {t['k4_matmul']:.3f}; K5 ms {t['k5']:.3f} "
-              f"(kernels + gradient gather; kernels {t['k5_kernel']:.3f}) plain_ms {t['k5_plain']:.3f} bound_ms "
-              f"{b5[0]:.4f} (design bytes bound {b5_design:.4f}) max rel err {worst[0]:.2e} ({worst[2]}), "
-              f"deterministic {same}, products as torch.matmul {t['k5_matmul']:.3f}", flush=True)
-    del out, grads, loss
+                        t=t, b4=b4, b5=b5, b5_design=b5_design, library=_build.field_library(*ff._shape(meta)))
+        graphs = (f"; as one CUDA graph of 20: K4 {t['k4_graph']:.4f} (kernel {t['k4_kernel_graph']:.4f}), "
+                  f"K5 {t['k5_graph']:.4f} (kernels {t['k5_kernel_graph']:.4f})") if "k4_graph" in t else ""
+        print(f"{net} field ({res[net]['library']}), {n} points: K4 ms {t['k4']:.3f} (pack + kernel; kernel "
+              f"{t['k4_kernel']:.3f}, pack {t['pack']:.4f}) plain_ms {t['k4_plain']:.3f} bound_ms {b4[0]:.4f} "
+              f"({b4[1]}) max_abs_err {k4_err:.2e} (vs fp32), products as torch.matmul {t['k4_matmul']:.3f}; "
+              f"K5 ms {t['k5']:.3f} (kernels + gradient gather; kernels {t['k5_kernel']:.3f}) plain_ms "
+              f"{t['k5_plain']:.3f} bound_ms {b5[0]:.4f} ({b5[1]}; design bytes bound {b5_design:.4f}) max rel "
+              f"err {worst[0]:.2e} ({worst[2]}), deterministic {same}, products as torch.matmul "
+              f"{t['k5_matmul']:.3f}{graphs}", flush=True)
+    return res
+
+
+def train_phase(card: str, device: torch.device):
+    """The training path (module docstring); returns the K4 and K5 entries
+    of the kernels line, at the stock shape and at the proposal shape."""
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import make_room_scene_splits
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import settings_from_config, spec_from_config
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import device_kernel_counts
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_render as fr
+    from nerf_workspaces_explorer_tpu_torch.ops import importance_merge as im
+    from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
+
+    cfg = train_config()
+    spec = spec_from_config(cfg)
+    prop_spec = proposal_spec(6)
+    w, h = TRAIN_SIZE
+    near, far = cfg.rendering.depth_range
+    t0 = time.time()
+    train, test, _ = make_room_scene_splits(n_frames=TRAIN_FRAMES, stride=TRAIN_STRIDE, height=h, width=w,
+                                            near=near, far=far, device=device)
+    print(f"room scene: {len(train)} train / {len(test)} test views at {w}x{h}, ground truth "
+          f"{time.time() - t0:.1f} s", flush=True)
+    out_dir = os.path.join(HERE, "build", "torch_kernels", "smoke_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def trainer(field_impl: str, name: str, steps_per_call: int = 1, **kw) -> Trainer:
+        tr = Trainer("office_tokyo", cfg, train_data=train, test_data=test, device=device,
+                     save_dir=os.path.join(out_dir, name), enable_tensorboard=False,
+                     field_impl=field_impl, eval_max_views=TRAIN_EVAL_VIEWS, steps_per_call=steps_per_call, **kw)
+        tr.setup()
+        return tr
+
+    fused = trainer("auto", "fused")
+    require(fused.field_impl == "fused", f"field_impl auto on {device} chose {fused.field_impl}")
+
+    # 2. K4 and K5 against the fp32 plain field on one real step's points.
+    settings = settings_from_config(cfg)._replace(train=True, field_impl="plain")
+    specs = {"coarse": spec, "fine": spec, "proposal": prop_spec}
+    res = field_leg(device, fused, ("coarse", "fine"), specs, settings, spec, cfg)
 
     # 3. Train with the fused field: exactly two K4 and two K5 calls per step.
-    def run(tr: Trainer, ckpt_at: int = -1):
+    def run(tr: Trainer, ckpt_at: int = -1, steps: int = TRAIN_STEPS, label: str = ""):
         losses, ms, ckpt = [], [], None
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             t0 = time.perf_counter()
             losses.append(float(tr.step(i)["total_loss"]))  # waits for the step's device work
             ms.append((time.perf_counter() - t0) * 1e3)
             if i + 1 == ckpt_at:
                 ckpt = tr.save_models_checkpoint(ckpt_at)
         k = TRAIN_WINDOW
-        require(all(np.isfinite(losses)), f"{tr.field_impl}: non-finite loss")
+        name = label or tr.field_impl
+        require(all(np.isfinite(losses)), f"{name}: non-finite loss")
         first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
-        require(last < first, f"{tr.field_impl}: loss did not fall ({first} -> {last})")
+        require(last < first, f"{name}: loss did not fall ({first} -> {last})")
         warm = float(np.median(ms[WARM_SKIP:]))
-        print(f"train {tr.field_impl}: {TRAIN_STEPS} steps, mean loss first {k} {first:.5f} -> last {k} "
+        print(f"train {name}: {steps} steps, mean loss first {k} {first:.5f} -> last {k} "
               f"{last:.5f}; warm ms/step {warm:.2f} (median), {1e3 / warm:.1f} steps/s; first step "
               f"{ms[0]:.1f} ms; card {card}", flush=True)
         return losses, warm, ckpt
 
-    counters = (ff.LAUNCHES, fr.LAUNCHES, im.LAUNCHES)
+    counters = (ff.LAUNCHES, fr.LAUNCHES, im.LAUNCHES, *ff.SHAPE_LAUNCHES.values())
     zero_launches(*counters)
     losses, warm_fused, ckpt = run(fused, RESUME_STEP)
     launches = dict(ff.LAUNCHES)
@@ -585,6 +636,7 @@ def train_phase(card: str, device: torch.device):
           f"(gap {gap:.3f}, limit {PSNR_GAP_DB}); warm ms/step fused {warm_fused:.2f}, plain {warm_plain:.2f}",
           flush=True)
     require(np.isfinite(gap) and gap <= PSNR_GAP_DB, f"PSNR gap {gap} dB")
+    del plain
 
     # 5. Resume a fresh Trainer from the step-RESUME_STEP checkpoint: its next
     # two losses (params, then params after an Adam update from the restored
@@ -597,51 +649,99 @@ def train_phase(card: str, device: torch.device):
     print(f"resume from step {start}: losses {again[0]:.7f}, {again[1]:.7f} against {losses[start]:.7f}, "
           f"{losses[start + 1]:.7f} (|diff| {diffs[0]:.1e}, {diffs[1]:.1e})", flush=True)
     require(max(diffs) <= 1e-6, f"resumed losses differ by {diffs}")
+    del resumed
 
     # 6. The same steps at steps_per_call=GRAPH_K: the first call runs its
     # steps eagerly and captures a CUDA graph of GRAPH_K steps, every later
     # call replays it. A replay calls no wrapper, so the K4/K5 kernels it
     # ran are counted from a profiler trace of the last calls.
-    graphed = trainer("auto", "graphed", steps_per_call=GRAPH_K)
-    g_losses, call_ms = [], []
-    n_calls = TRAIN_STEPS // GRAPH_K
+    def graph_leg(graphed: Trainer, eager_losses, eager_ms: float, label: str):
+        g_losses, call_ms = [], []
+        n_calls = TRAIN_STEPS // GRAPH_K
 
-    def graph_calls(calls):
-        for c in calls:
-            t0 = time.perf_counter()
-            m = graphed.step_many(c * GRAPH_K)
-            g_losses.extend(m["total_loss_steps"].tolist())  # waits for the call's device work
-            call_ms.append((time.perf_counter() - t0) * 1e3)
+        def graph_calls(calls):
+            for c in calls:
+                t0 = time.perf_counter()
+                m = graphed.step_many(c * GRAPH_K)
+                g_losses.extend(m["total_loss_steps"].tolist())  # waits for the call's device work
+                call_ms.append((time.perf_counter() - t0) * 1e3)
 
-    timed = n_calls - GRAPH_PROFILED_CALLS
-    graph_calls(range(timed))
-    require(graphed.graph_captured, "no CUDA graph was captured")
-    wrapped = dict(ff.LAUNCHES)
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        graph_calls(range(timed, n_calls))
-    require(ff.LAUNCHES == wrapped, f"a replay moved the K4/K5 wrappers' counts: {wrapped} -> {ff.LAUNCHES}")
-    ran = device_kernel_counts(prof)
-    g_steps = GRAPH_PROFILED_CALLS * GRAPH_K
-    g_launches = {key: sum(ran.get(k, 0) for k in names) for key, names in TRAIN_KERNELS.items()}
-    g_want = {key: v * g_steps // TRAIN_STEPS for key, v in want.items()}
-    require(g_launches == g_want, f"graph replays ran K4/K5 kernels {g_launches}, expected {g_want}")
-    g_diff = max(abs(a - b) for a, b in zip(g_losses, losses))
-    warm_graph = float(np.median(call_ms[1:timed])) / GRAPH_K
-    print(f"train graph: {TRAIN_STEPS} steps at steps_per_call={GRAPH_K} ({n_calls} calls, the first "
-          f"capturing, {call_ms[0]:.1f} ms): losses against the eager run max |diff| {g_diff:.1e} (limit 1e-6); "
-          f"warm ms/step graph {warm_graph:.2f} (median of calls 2..{timed} / {GRAPH_K}), eager "
-          f"{warm_fused:.2f}; kernels run by the last {GRAPH_PROFILED_CALLS} replays ({g_steps} steps, "
-          f"profiler trace) {g_launches}; card {card}", flush=True)
-    require(g_diff <= 1e-6, f"graph-replayed losses differ from the eager run's by {g_diff}")
+        timed = n_calls - GRAPH_PROFILED_CALLS
+        graph_calls(range(timed))
+        require(graphed.graph_captured, f"{label}: no CUDA graph was captured")
+        wrapped = dict(ff.LAUNCHES)
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            graph_calls(range(timed, n_calls))
+        require(ff.LAUNCHES == wrapped, f"a replay moved the K4/K5 wrappers' counts: {wrapped} -> {ff.LAUNCHES}")
+        ran = device_kernel_counts(prof)
+        g_steps = GRAPH_PROFILED_CALLS * GRAPH_K
+        g_launches = {key: sum(ran.get(k, 0) for k in names) for key, names in TRAIN_KERNELS.items()}
+        g_want = {key: v * g_steps // TRAIN_STEPS for key, v in want.items()}
+        require(g_launches == g_want, f"{label} graph replays ran K4/K5 kernels {g_launches}, expected {g_want}")
+        g_diff = max(abs(a - b) for a, b in zip(g_losses, eager_losses))
+        warm_graph = float(np.median(call_ms[1:timed])) / GRAPH_K
+        print(f"{label}: {TRAIN_STEPS} steps at steps_per_call={GRAPH_K} ({n_calls} calls, the first "
+              f"capturing, {call_ms[0]:.1f} ms): losses against the eager run max |diff| {g_diff:.1e} (limit "
+              f"1e-6); warm ms/step graph {warm_graph:.2f} (median of calls 2..{timed} / {GRAPH_K}), eager "
+              f"{eager_ms:.2f}; kernels run by the last {GRAPH_PROFILED_CALLS} replays ({g_steps} steps, "
+              f"profiler trace) {g_launches}; card {card}", flush=True)
+        require(g_diff <= 1e-6, f"{label}: graph-replayed losses differ from the eager run's by {g_diff}")
+        return warm_graph, g_launches, g_steps
+
+    warm_graph, g_launches, g_steps = graph_leg(trainer("auto", "graphed", steps_per_call=GRAPH_K), losses,
+                                                warm_fused, "train graph")
+
+    # 7. Proposal training: the stock config with the 2x64 proposal net in
+    # the coarse net's place. Its K4/K5 against the plain field on one real
+    # step's proposal points; 300 fused steps (one K4 and one K5 call a
+    # step through each of the two libraries), their test views against 300
+    # plain steps', the graph leg, 300 --fast-preset steps; the checkpoint
+    # served at the fast preset against its parity frame.
+    prop = trainer("auto", "proposal", use_proposal=True)
+    p_settings = settings._replace(use_proposal=True)
+    res.update(field_leg(device, prop, ("proposal",), specs, p_settings, spec, cfg))
+    zero_launches(*counters)
+    p_losses, p_warm, p_ckpt = run(prop, TRAIN_STEPS, label="proposal fused")
+    p_launches = {lib: dict(v) for lib, v in ff.SHAPE_LAUNCHES.items()}
+    p_want = {lib: {"forward": TRAIN_STEPS, "backward": TRAIN_STEPS} for lib in p_launches}
+    require(p_launches == p_want and launches_equal(ff.LAUNCHES, want),
+            f"proposal K4/K5 launches {p_launches} ({ff.LAUNCHES}), expected {p_want}")
+    print(f"train proposal launches by library: {p_launches}", flush=True)
+    p_psnr = prop.render_test_images(TRAIN_STEPS)
+    p_plain = trainer("plain", "proposal_plain", use_proposal=True)
+    zero_launches(*counters)
+    _, p_warm_plain, _ = run(p_plain, label="proposal plain")
+    require(sum(ff.LAUNCHES.values()) == 0, f"the plain proposal field launched {ff.LAUNCHES}")
+    p_psnr_plain = p_plain.render_test_images(TRAIN_STEPS)
+    p_gap = abs(p_psnr - p_psnr_plain)
+    print(f"train proposal: test-view PSNR after {TRAIN_STEPS} steps fused {p_psnr:.3f} dB, plain "
+          f"{p_psnr_plain:.3f} dB (gap {p_gap:.3f}, limit {PSNR_GAP_DB}); warm ms/step fused {p_warm:.2f}, plain "
+          f"{p_warm_plain:.2f}", flush=True)
+    require(np.isfinite(p_gap) and p_gap <= PSNR_GAP_DB, f"proposal PSNR gap {p_gap} dB")
+    del p_plain
+    p_warm_graph, p_g_launches, _ = graph_leg(trainer("auto", "proposal_graphed", GRAPH_K, use_proposal=True),
+                                              p_losses, p_warm, "train proposal graph")
+    fast = trainer("auto", "proposal_fast", use_proposal=True, merge_coarse=False)
+    zero_launches(*counters)
+    _, f_warm, _ = run(fast, label="proposal fast-preset fused")
+    require(launches_equal(ff.LAUNCHES, want), f"fast-preset K4/K5 launches {ff.LAUNCHES}, expected {want}")
+    f_psnr = fast.render_test_images(TRAIN_STEPS)
+    print(f"train proposal fast-preset: test-view PSNR {f_psnr:.3f} dB after {TRAIN_STEPS} steps", flush=True)
+    del fast
+    serve = serve_proposal_checkpoint(card, device, cfg, p_ckpt, test.camera_pose[0])
     shutil.rmtree(out_dir, ignore_errors=True)
 
     src = f"{PACKAGE}/csrc/train_field.cu"
-    c, f = res["coarse"], res["fine"]
+    c, f, p = res["coarse"], res["fine"], res["proposal"]
     per_step = lambda key: c["t"][key] + f["t"][key]  # noqa: E731
     common = dict(route="cuda", source=src, library_ms=None, held_against_plain=True, calls_per_step=2,
                   points_coarse=c["n"], points_fine=f["n"], step_ms_eager=warm_fused, step_ms_graph=warm_graph,
-                  graph_profiled_steps=g_steps, pack_ms=per_step("pack"))
+                  graph_profiled_steps=g_steps, pack_ms=per_step("pack"), library=c["library"])
+    p_common = dict(route="cuda", source=src, library_ms=None, held_against_plain=True, calls_per_step=1,
+                    points=p["n"], step_ms_eager=p_warm, step_ms_graph=p_warm_graph, step_ms_plain=p_warm_plain,
+                    step_ms_fast_preset=f_warm, psnr_fused=p_psnr, psnr_plain=p_psnr_plain, pack_ms=p["t"]["pack"],
+                    library=p["library"], served_fast_preset=serve)
     return [
         dict(name="K4 fused field forward (training, coarse + fine call of one step)",
              replaces="nerf_workspaces_explorer_tpu/ops/pallas_train.py:222", launches=launches["forward"],
@@ -657,7 +757,55 @@ def train_phase(card: str, device: torch.device):
              graph_kernel_launches=g_launches["backward_kernels"], bound_ms=c["b5"][0] + f["b5"][0], bound_by=f["b5"][1],
              design_bytes_bound_ms=c["b5_design"] + f["b5_design"], ms_coarse=c["t"]["k5"], ms_fine=f["t"]["k5"],
              products_matmul_ms=per_step("k5_matmul"), **common),
+        dict(name="K4 fused field forward (training, proposal 2x64@6f/2f call of one step)",
+             replaces="nerf_workspaces_explorer_tpu/ops/pallas_train.py:222",
+             launches=p_launches[p["library"]]["forward"], max_abs_err=p["k4_err"], ms=p["t"]["k4"],
+             kernel_ms=p["t"]["k4_kernel"], graph_ms=p["t"]["k4_graph"], kernel_graph_ms=p["t"]["k4_kernel_graph"],
+             plain_ms=p["t"]["k4_plain"], bound_ms=p["b4"][0], bound_by=p["b4"][1],
+             products_matmul_ms=p["t"]["k4_matmul"], **p_common),
+        dict(name="K5 fused field backward (training, proposal 2x64@6f/2f call of one step)",
+             replaces="nerf_workspaces_explorer_tpu/ops/pallas_train.py:237",
+             launches=p_launches[p["library"]]["backward"], max_abs_err=p["k5_abs"], max_rel_err=p["k5_rel"],
+             deterministic=True, ms=p["t"]["k5"], kernel_ms=p["t"]["k5_kernel"], graph_ms=p["t"]["k5_graph"],
+             kernel_graph_ms=p["t"]["k5_kernel_graph"], plain_ms=p["t"]["k5_plain"], bound_ms=p["b5"][0],
+             bound_by=p["b5"][1], design_bytes_bound_ms=p["b5_design"], products_matmul_ms=p["t"]["k5_matmul"],
+             **p_common),
     ]
+
+
+def launches_equal(got: dict, want: dict) -> bool:
+    return {k: got[k] for k in want} == want
+
+
+def serve_proposal_checkpoint(card: str, device: torch.device, cfg, ckpt: str, pose) -> dict:
+    """The proposal run's checkpoint served for one 320x240 frame of a room
+    test view at the fast preset (bf16, importance-only placement) at stride
+    1 against its fp32 parity frame (SSIM >= SSIM_GATE), and at the preset's
+    served stride 4 (SSIM to stride 1 printed)."""
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_render as fr
+    from nerf_workspaces_explorer_tpu_torch.ops import importance_merge as im
+    from nerf_workspaces_explorer_tpu_torch.utils.metrics import ssim
+
+    def frame(precision, **kw):
+        r = NeRFRenderer("tokyo", ckpt, config=cfg, precision=precision, preset="fast", use_proposal=True,
+                         device=device, **kw)
+        r.initialize_models()
+        return r.render_pose_uint8(pose).cpu().numpy()
+
+    zero_launches(fr.LAUNCHES, im.LAUNCHES)
+    exact = frame("fast", proposal_subsample=1)
+    served = frame("fast")
+    launches = {k: v for d in (fr.LAUNCHES, im.LAUNCHES) for k, v in d.items() if v}
+    parity = frame("parity")
+    score, score_served = ssim(exact / 255.0, parity / 255.0), ssim(served / 255.0, exact / 255.0)
+    print(f"serve proposal checkpoint (fast preset, bf16, room test view 0, {exact.shape[1]}x{exact.shape[0]}): "
+          f"SSIM vs parity at stride 1 {score:.5f} (gate {SSIM_GATE}); stride 4 vs stride 1 {score_served:.5f}; "
+          f"launches {launches}; mean level {exact.mean():.2f}; card {card}", flush=True)
+    require(exact.shape == (TRAIN_SIZE[1], TRAIN_SIZE[0], 3) and score >= SSIM_GATE,
+            f"proposal checkpoint at the fast preset: SSIM {score} against parity")
+    require(launches == {"density_only": 2, "importance_only": 2, "full": 2}, f"serve launches {launches}")
+    return dict(ssim_vs_parity_stride1=score, ssim_stride4_vs_stride1=score_served)
 
 
 ROOM_CKPT = os.path.join(HERE, "assets", "bench", "room_proposal.npz")
@@ -1098,12 +1246,20 @@ def ablation_phase(card: str, device: torch.device):
 
 def int4_phase(card: str, device: torch.device):
     """K9 (module docstring); returns the kernels line's K9 entries."""
+    from nerf_workspaces_explorer_tpu_torch.ops import importance_merge as im
     from nerf_workspaces_explorer_tpu_torch.ops import int4_probe as ip
 
     p4 = _script("probe_int4_torch")
     np.random.seed(0)
     entries, legs = [], (("int4-operand", False, "scripts/probe_int4_tpu.py:42"),
                          ("int4x2-packed-bytes", True, "scripts/probe_int4_tpu.py:72"))
+    # The launch floor, an empty kernel through a ctypes binding, read the
+    # three ways K9 is: one events reading of 50 launches, the median of 5
+    # such, one CUDA graph of 20.
+    floor_fn = lambda: im.empty_launch(device)  # noqa: E731
+    floor = dict(ms=time_ms(floor_fn, 50), median=median_ms(floor_fn, 50), graph=graph_ms(floor_fn, 20))
+    print(f"launch floor (K9's readings): ms {floor['ms']:.5f} (CUDA events over 50 launches), median of 5 "
+          f"readings {floor['median']:.5f}, {floor['graph']:.5f} as one CUDA graph of 20", flush=True)
     res = {}
     for name, packed, _ in legs:
         a, b, ref = p4.leg_inputs(packed, device)
@@ -1114,16 +1270,18 @@ def int4_phase(card: str, device: torch.device):
         err, err_plain = p4.rel_err(out, ref), err_abs / float(plain.abs().max())
         require(err < p4.TOL and err_plain < p4.TOL, f"K9 {name}: rel err {err} (numpy), {err_plain} (plain)")
         widened = ip.unpack_int4_rows(a) if packed else a
-        t = dict(ms=time_ms(lambda: ip.int4_matmul(a, b, packed=packed), 50),
+        k9 = lambda: ip.int4_matmul(a, b, packed=packed)  # noqa: E731
+        t = dict(ms=time_ms(k9, 50), median=median_ms(k9, 50), graph=graph_ms(k9, 20),
                  plain=time_ms(lambda: ip.int4_matmul_plain(a, b, packed=packed), 50),
                  lib=time_ms(lambda: torch.matmul(widened.to(torch.bfloat16), b), 50))
         m, k = widened.shape
         n = b.shape[1]
         bound = bound_ms(2 * m * n * k, a.numel() * a.element_size() + b.numel() * 2 + m * n * 4)
         res[name] = (err, err_abs, err_plain, t, bound)
-        print(f"K9 {name} ({m}x{k} @ {k}x{n}): ms {t['ms']:.4f} plain_ms {t['plain']:.4f} library_ms (torch.matmul "
+        print(f"K9 {name} ({m}x{k} @ {k}x{n}): ms {t['ms']:.4f} (median of 5 readings {t['median']:.4f}, as one "
+              f"CUDA graph of 20 {t['graph']:.4f}) plain_ms {t['plain']:.4f} library_ms (torch.matmul "
               f"of the widened bf16 matrix) {t['lib']:.4f} bound_ms {bound[0]:.6f} ({bound[1]}); rel err "
-              f"{err:.2e} against numpy, {err_plain:.2e} against plain", flush=True)
+              f"{err:.2e} against numpy, {err_plain:.2e} against plain; card {card}", flush=True)
     zero_launches(ip.LAUNCHES)
     np.random.seed(0)
     verdicts = p4.run_legs(device)
@@ -1137,8 +1295,9 @@ def int4_phase(card: str, device: torch.device):
         entries.append(dict(
             name=f"K9 int4 probe leg {name} (128x128x128, widened to bf16)", route="cuda",
             source=f"{PACKAGE}/csrc/int4_probe.cu", replaces=replaces, launches=launches[key], max_abs_err=err_abs,
-            max_rel_err=err, rel_err_vs_plain=err_plain, ms=t["ms"], plain_ms=t["plain"], bound_ms=bound[0],
-            bound_by=bound[1], library_ms=t["lib"], held_against_plain=True))
+            max_rel_err=err, rel_err_vs_plain=err_plain, ms=t["ms"], ms_median_of_5=t["median"], graph_ms=t["graph"],
+            launch_floor_ms=floor["ms"], launch_floor_median_ms=floor["median"], launch_floor_graph_ms=floor["graph"],
+            plain_ms=t["plain"], bound_ms=bound[0], bound_by=bound[1], library_ms=t["lib"], held_against_plain=True))
     return entries
 
 
@@ -1170,15 +1329,16 @@ def main() -> int:
 
     # 1. Build every kernel of the path from the checkout's sources.
     t0 = time.time()
-    names = [*_build.VARIANTS, "importance_merge", "train_field", "int4_probe"]
+    names = [*_build.VARIANTS, "importance_merge", "int4_probe"]
+    field_libs = [n for n in names if n.startswith("train_field")]
     _build.build(names)
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name in names:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line or "(C7" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    spills = served_render_spills(names) + library_spills("train_field")
-    require(not spills, f"ptxas reports spills in served render or training field kernels: {spills}")
+    spills = served_render_spills(names) + [x for n in field_libs + ["int4_probe"] for x in library_spills(n)]
+    require(not spills, f"ptxas reports spills in served render, training field or int4 kernels: {spills}")
     n_place, bad_place = library_stack_or_spills("importance_merge")
     require(n_place >= 2 and not bad_place, f"importance_merge: {n_place} kernels reported, not stack- and "
             f"spill-free: {bad_place}")
@@ -1193,11 +1353,12 @@ def main() -> int:
                 need = ("IGMMA",) if "ablate" in name else ("HGMMA", "IGMMA")
                 require(counts["HMMA"] == 0 and counts["IMMA"] == 0, f"{name}: mma.sync products remain {counts}")
                 require(all(counts[op] > 0 for op in need), f"{name}: no wgmma {counts}")
-    counts = sass_counts("train_field")
-    print(f"sass train_field: {counts}", flush=True)
-    if counts is not None:
-        require(counts["HMMA"] == 0 and counts["IMMA"] == 0 and counts["HGMMA"] > 0,
-                f"train_field: the products must be wgmma alone {counts}")
+    for name in field_libs + ["int4_probe"]:
+        counts = sass_counts(name)
+        print(f"sass {name}: {counts}", flush=True)
+        if counts is not None:
+            require(counts["HMMA"] == 0 and counts["IMMA"] == 0 and counts["HGMMA"] > 0,
+                    f"{name}: the products must be wgmma alone {counts}")
 
     # 2. Kernels against their plain versions at the main path's shapes.
     cfg = load_config(office_name="tokyo")

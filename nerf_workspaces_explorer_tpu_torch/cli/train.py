@@ -4,15 +4,23 @@ Counterpart of `nerf_workspaces_explorer_tpu/cli/train.py` (reference
 nerf/train.py:11-56: `--office` whitelist, config load, handler setup, the
 per-step wall-clock print), its `--synthetic` path. Runs on `cuda` (the
 fused K4/K5 field kernels) unless given `--device cpu` (plain PyTorch).
-Options of the JAX CLI that this port does not have yet raise.
+`--mesh` and the Replica loader are not ported and raise.
 `--steps-per-call K` advances the stretches between cadence boundaries K
 steps a call: on `cuda` a replay of a CUDA graph of K steps, on the CPU K
-eager steps (the same trajectory as one step a call).
+eager steps (the same trajectory as one step a call). `--proposal` trains a
+2x64 proposal net in the coarse net's place (the interlevel loss),
+`--fast-preset` the fine net on importance-only placement; `--profile DIR`
+traces the first 20 steps with `torch.profiler` into DIR/trace.json,
+`--nan-debug` turns on autograd's anomaly detection, `--export-final`
+writes final_models/<office>/model.npz and the reference's model.ckpt
+(which has no slot for a proposal net: refused with `--proposal`).
 
 Usage:
     python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --scene room
     python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --scene room \\
         --steps-per-call 10
+    python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --scene room \\
+        --proposal --fast-preset
     python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --device cpu \\
         --synthetic-size 16 --iterations 40
 """
@@ -21,16 +29,16 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 AVAILABLE_OFFICES = ("tokyo", "new_york", "geneve", "belgrade")
 
 # Options of the JAX package's CLI that are not ported, with the value that
 # means "not asked for".
-UNPORTED = {
-    "proposal": False, "fast_preset": False, "mesh": 0,
-    "profile": None, "nan_debug": False, "export_final": False,
-}
+UNPORTED = {"mesh": 0}
+# Steps traced by --profile (JAX cli/train.py:218-222).
+PROFILE_STEPS = 20
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,13 +73,20 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--steps-per-call", type=int, default=1, metavar="K",
                         help="steps per call between cadence boundaries: a CUDA-graph replay of K "
                         "steps on cuda, K eager steps on the CPU (the print cadence is raised to K)")
-    # Not ported: each raises when given.
+    parser.add_argument("--proposal", action="store_true",
+                        help="replace the coarse 8x256 net with a 2x64 proposal density net trained by the "
+                        "interlevel loss (changes sample placement against the reference)")
+    parser.add_argument("--fast-preset", action="store_true",
+                        help="train the fine net on the importance-only placement (merge_coarse=False) it "
+                        "sees under the fast serving preset")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help=f"a torch.profiler trace of the first {PROFILE_STEPS} steps into DIR/trace.json")
+    parser.add_argument("--nan-debug", action="store_true",
+                        help="raise in backward on the first NaN (autograd anomaly detection; slow)")
+    parser.add_argument("--export-final", action="store_true",
+                        help="on completion, save final_models/<office>/model.npz and the reference's model.ckpt")
+    # Not ported: raises when given.
     parser.add_argument("--mesh", type=int, default=0, help=argparse.SUPPRESS)
-    parser.add_argument("--profile", type=str, default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--export-final", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--proposal", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--fast-preset", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--nan-debug", action="store_true", help=argparse.SUPPRESS)
     return parser
 
 
@@ -87,6 +102,10 @@ def main(argv=None) -> None:
     if office_name not in AVAILABLE_OFFICES:
         raise RuntimeError(f"Office {office_name} not available for training.")
     office = f"office_{office_name}"
+    if args.export_final and args.proposal:
+        # The JAX CLI finds out after training, in a KeyError (cli/train.py:266).
+        raise ValueError("--export-final writes the reference's model.ckpt, which holds a coarse and a fine "
+                         "net and has no slot for --proposal's proposal net")
 
     import torch
 
@@ -95,9 +114,14 @@ def main(argv=None) -> None:
         make_room_scene_splits,
         make_synthetic_scene,
     )
+    from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import save_checkpoint, save_torch_checkpoint
     from nerf_workspaces_explorer_tpu_torch.infer.renderer import resolve_device
+    from nerf_workspaces_explorer_tpu_torch.obs.debug import enable_nan_debugging
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import trace_context
     from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
 
+    if args.nan_debug:
+        enable_nan_debugging()
     device = resolve_device(torch.device(args.device))
     config = load_config(args.config, office_name=office)
     if args.steps_per_call > 1 and 0 < config.logging.step_log_print < args.steps_per_call:
@@ -130,7 +154,8 @@ def main(argv=None) -> None:
 
     trainer = Trainer(
         office, config, train_data=train_data, test_data=test_data, seed=args.seed,
-        save_dir=args.save_dir, field_impl=args.field, steps_per_call=args.steps_per_call,
+        save_dir=args.save_dir, field_impl=args.field, use_proposal=args.proposal,
+        merge_coarse=not args.fast_preset, steps_per_call=args.steps_per_call,
         eval_max_views=args.eval_max_views, device=device,
     )
     trainer.setup()
@@ -143,20 +168,29 @@ def main(argv=None) -> None:
     print("#" * 80)
     print("------------------------------- Training loop ---------------------------------")
     print("#" * 80)
+    main_start = start_step
+    if args.profile:
+        # The first steps under the profiler, one step a call (JAX
+        # cli/train.py:218-222).
+        main_start = min(start_step + PROFILE_STEPS, num_iterations)
+        with trace_context(args.profile):
+            for i in range(start_step, main_start):
+                trainer.step(i)
+        print(f"Profiled steps {start_step + 1}..{main_start} into {os.path.join(args.profile, 'trace.json')}")
     if args.steps_per_call > 1:
         # K-step calls; per-step wall-clock prints only make sense one step
         # at a time, so fit() owns the loop (JAX cli/train.py:223-236).
         loop_start = time.time()
-        trainer.fit(num_iterations, start_step=start_step)
+        trainer.fit(num_iterations, start_step=main_start)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         duration = time.time() - loop_start
-        done = num_iterations - start_step
+        done = num_iterations - main_start
         if done > 0:
-            print(f"Finished steps {start_step + 1}..{num_iterations} in {duration:.1f} sec "
+            print(f"Finished steps {main_start + 1}..{num_iterations} in {duration:.1f} sec "
                   f"({done / duration:.1f} steps/s, {args.steps_per_call} steps/dispatch)")
     else:
-        for i in range(start_step, num_iterations):
+        for i in range(main_start, num_iterations):
             step_start = time.time()
             trainer.step(i)
             if device.type == "cuda":
@@ -169,6 +203,15 @@ def main(argv=None) -> None:
     written = trainer.export_results()
     if written:
         print(f"Exported {len(written)} result curves to {trainer.save_dir}/results")
+    if args.export_final:
+        # Relative to the working directory, as the JAX CLI writes them.
+        final_dir = os.path.join("final_models", office)
+        step = int(trainer.state.step)
+        save_checkpoint(os.path.join(final_dir, "model.npz"), trainer.params, step=step,
+                        metadata={"office": office})
+        save_torch_checkpoint(os.path.join(final_dir, "model.ckpt"), trainer.params["coarse"],
+                              trainer.params["fine"], step=step)
+        print(f"Exported the final model to {final_dir}/model.npz and the reference-format {final_dir}/model.ckpt")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 // The fused NeRF training field for Hopper (sm_90a): forward (K4) and
-// backward (K5) of encode + 8x256 MLP over free sample points.
+// backward (K5) of encode + MLP over free sample points, built once per
+// network shape (the stock 8x256@10f/4f net; the 2x64@6f/2f proposal net).
 //
 // Replaces: nerf_workspaces_explorer_tpu/ops/pallas_train.py::_fwd_kernel
 //   (via _run_fwd) and ::_bwd_kernel (via _run_bwd), the custom-VJP field
 //   the JAX package trains with on its accelerator.
 //
-// What bounds them on this card. Operations: the forward costs 2 x 593k
+// What bounds them on this card (the stock net). Operations: the forward costs 2 x 593k
 //   FLOP a point against 32 bytes of point input and output, the backward
 //   about three times that (recomputed forward, input-gradient chain,
 //   weight-gradient products); at a step's 65,536 coarse + 196,608 fine
@@ -44,37 +45,68 @@
 //     the bias rows over tiles) in a fixed order.
 //   Fusing the dW products into the chain would remove the scratch; the
 //   chain would then need every layer's dW accumulators at once.
+//   - The 2x64 proposal net (no skip) runs the same kernels at width 64:
+//     its encodings (39 and 15 columns, padded to 40 and 16) enter wgmma
+//     in 48- and 16-deep k-steps over zero pad columns, its view layer is
+//     an m64n32 product, and its dW blocks are one warpgroup of 64 x 64.
+//     At ~0.3 MFLOP a point it is held by latency, not by the tensor cores.
 
 #include "hopper.cuh"
 
-#define WIDTH 256
+// One library per network shape: this file compiles with -DFIELD_WIDTH=W,
+// -DFIELD_PTS_FREQS=F and -DFIELD_VIEW_FREQS=V for each shape the training
+// path runs (ops/_build.py::FIELD_SHAPES): the stock 8x256@10f/4f net and
+// the 2x64@6f/2f proposal net. The defaults are the stock net's.
+#ifndef FIELD_WIDTH
+#define FIELD_WIDTH 256
+#endif
+#ifndef FIELD_PTS_FREQS
+#define FIELD_PTS_FREQS 10
+#endif
+#ifndef FIELD_VIEW_FREQS
+#define FIELD_VIEW_FREQS 4
+#endif
+
+#define WIDTH FIELD_WIDTH
 #define HALF (WIDTH / 2)      // view layer width
-#define PTS_FREQS 10
-#define VIEW_FREQS 4
-#define ENC 64                // point encoding columns: 3 + 6 * 10, padded to 64
-#define VENC 32               // view encoding columns: 3 + 6 * 4, padded to 32
+#define PTS_FREQS FIELD_PTS_FREQS
+#define VIEW_FREQS FIELD_VIEW_FREQS
+#define ENC ((3 + 6 * PTS_FREQS + 7) / 8 * 8)  // point encoding columns (64 at F = 10, 40 at F = 6)
+#define VENC ((3 + 6 * VIEW_FREQS + 7) / 8 * 8)  // view encoding columns (32 at F = 4, 16 at F = 2)
+#define ENC_K ((ENC + 15) / 16 * 16)    // their depth in wgmma's 16-value k-steps (the encoding
+#define VENC_K ((VENC + 15) / 16 * 16)  // tiles' pad columns are zero)
 #define GH 16                 // head-cotangent columns: 0-2 rgb, GH_SIGMA sigma
 #define GH_SIGMA 8
 #define MAXD 16
 #define MAX_FIELD_SLABS 160   // slabs of one tile's weight stream (backward, 16 layers: 139)
-#define FRING 3               // weight ring stages
-#define FSTAGE (WIDTH * 128)  // the largest slab: 256 rows x 128 bytes
+#define FRING (WIDTH >= 256 ? 3 : 8)  // weight ring stages (a 2x64 tile streams 7 small slabs)
+#define FSTAGE (WIDTH * 128)  // the largest slab: WIDTH rows x 128 bytes
+#define BITW(N) (((N) + 63) / 64)  // ReLU-mask words of a thread's N / 2 accumulators
 #define DW_BP 64              // points per stage of the dW products
 #define DW_STAGES 4
 #define DW_TILE (DW_BP * 128)  // one 64-column block of a stage: 64 points x 128 bytes
-#define DW_STAGE (6 * DW_TILE)  // G: two column blocks (128 rows of dW), H: four (256 columns)
-#define DW_N 256              // dW columns of a block
+#define DW_N WIDTH            // dW columns of a block (every dW has at most WIDTH)
+#define DW_HB (DW_N / 64)     // H column blocks of a stage
+#define DW_HB_LOG2 (DW_HB == 4 ? 2 : 0)
+#define DW_WG (WIDTH >= 128 ? 2 : 1)  // consumer warpgroups of a dW block, 64 dW rows each
+#define DW_WG_LOG2 (DW_WG == 2 ? 1 : 0)
+#define DW_M (64 * DW_WG)     // dW rows of a block
+#define DW_THREADS (128 * DW_WG)
+#define DW_STAGE ((DW_WG + DW_HB) * DW_TILE)  // G: DW_WG column blocks, H: DW_HB
 #define MAX_JOBS 24
+
+static_assert(WIDTH == 256 || WIDTH == 64, "the field kernels are tiled for widths 64 and 256");
+static_assert(DW_HB == (1 << DW_HB_LOG2) && DW_WG == (1 << DW_WG_LOG2), "dW tiling");
 
 using namespace rk;
 typedef StreamT<MAX_FIELD_SLABS> FieldStream;
 
 // Biases; the product weights arrive through the stream.
 struct FieldNet {
-  const float* b[MAXD];  // layer i: [256]
+  const float* b[MAXD];  // layer i: [WIDTH]
   const float* b_alpha;  // [>= 1]
-  const float* b_feat;   // [256]
-  const float* b_view;   // [128]
+  const float* b_feat;   // [WIDTH]
+  const float* b_view;   // [HALF]
   const float* b_rgb;    // [>= 3]
   int depth;
   int skip_layer;        // layer whose input is [encoding, h]; -1 for none
@@ -82,15 +114,15 @@ struct FieldNet {
 
 // The backward's global scratch, point-major bf16 [n, cols] arrays.
 struct Scratch {
-  bf16* feat;     // [n, 64] point encoding (kernel row order)
-  bf16* venc;     // [n, 32] view encoding
-  bf16* hs;       // [depth][n, 256] trunk activations h_i
-  bf16* feature;  // [n, 256]
-  bf16* hv;       // [n, 128]
+  bf16* feat;     // [n, ENC] point encoding (kernel row order)
+  bf16* venc;     // [n, VENC] view encoding
+  bf16* hs;       // [depth][n, WIDTH] trunk activations h_i
+  bf16* feature;  // [n, WIDTH]
+  bf16* hv;       // [n, HALF]
   bf16* gh;       // [n, 16] head cotangents: 0-2 rgb, 8 sigma
-  bf16* ghv;      // [n, 128]
-  bf16* gfeat;    // [n, 256]
-  bf16* g;        // [depth][n, 256] trunk pre-activation cotangents
+  bf16* ghv;      // [n, HALF]
+  bf16* gfeat;    // [n, WIDTH]
+  bf16* g;        // [depth][n, WIDTH] trunk pre-activation cotangents
 };
 
 static size_t scratch_elems(int depth, size_t n) {
@@ -112,8 +144,8 @@ static Scratch scratch_layout(bf16* base, int depth, size_t n) {
 }
 
 // Bias-gradient layout (one row of `dbpart` per warpgroup of a tile, and the result):
-// db_0 .. db_{depth-1} (256 each), db_feature (256), db_alpha (8, row 0
-// live), db_view (128), db_rgb (8, rows 0-2 live).
+// db_0 .. db_{depth-1} (WIDTH each), db_feature (WIDTH), db_alpha (8, row 0
+// live), db_view (HALF), db_rgb (8, rows 0-2 live).
 __host__ __device__ inline int db_size(int depth) { return depth * WIDTH + WIDTH + 8 + HALF + 8; }
 
 // Slab rows of the field's weight stream in the order the consumers take
@@ -154,7 +186,7 @@ struct FLay {
   static constexpr int O_V = O_E + MP * 128;              // view encoding [MP x 128 B], 64 B used
   static constexpr int O_STAGES = O_V + MP * 128;
   static constexpr int O_RAW = O_STAGES + FRING * FSTAGE;  // [MP][4] fp32: rgb logits, sigma (K4)
-  static constexpr int O_COL = O_RAW + MP * 4 * 4;         // [2 wg][2][4 warps][256] fp32 column sums (K5)
+  static constexpr int O_COL = O_RAW + MP * 4 * 4;         // [2 wg][2][4 warps][WIDTH] fp32 column sums (K5)
   static constexpr int O_FLAGS = O_COL + 2 * 8 * WIDTH * 4;
   static constexpr int O_BARS = O_FLAGS + 16;
   static constexpr int BYTES = O_BARS + (2 * FRING + 1) * 8 + 1024;
@@ -167,13 +199,13 @@ struct FLay {
 
 // bf16 act = acc + bias (relu'd with RELU) into the activation region;
 // with BITS, bit k of bits[] says whether accumulator k's bf16 activation
-// is > 0 (the ReLU mask the backward needs, N / 64 words a thread).
+// is > 0 (the ReLU mask the backward needs, BITW(N) words a thread).
 template <int N, bool RELU, bool BITS>
 __device__ __forceinline__ void epi_fwd(const float (&d)[N / 2], unsigned char* __restrict__ act,
                                         const float* __restrict__ bias, uint32_t* bits) {
   const int lane = threadIdx.x & 31;
   const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
-  uint32_t w[N / 64] = {};
+  uint32_t w[BITW(N)] = {};
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const int c = c0 + 8 * j;
@@ -195,7 +227,7 @@ __device__ __forceinline__ void epi_fwd(const float (&d)[N / 2], unsigned char* 
   }
   if constexpr (BITS) {
 #pragma unroll
-    for (int q = 0; q < N / 64; ++q) bits[q] = w[q];
+    for (int q = 0; q < BITW(N); ++q) bits[q] = w[q];
   }
 }
 
@@ -243,9 +275,9 @@ __device__ __forceinline__ void epi_grad(const float (&d)[N / 2], unsigned char*
   const int t = threadIdx.x & 127, lane = threadIdx.x & 31, warp = t >> 5;
   const int r0 = (t >> 5) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
   const bool live0 = p0w + r0 < n, live1 = p0w + r0 + 8 < n;
-  uint32_t w[N / 64];
+  uint32_t w[BITW(N)];
 #pragma unroll
-  for (int q = 0; q < N / 64; ++q) w[q] = MASK ? bits[q] : 0xffffffffu;
+  for (int q = 0; q < BITW(N); ++q) w[q] = MASK ? bits[q] : 0xffffffffu;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const int c = c0 + 8 * j;
@@ -329,9 +361,9 @@ __device__ __forceinline__ void forward_tile(const FieldNet& net, unsigned char*
 #pragma unroll
     for (int t = 0; t < WIDTH / 2; ++t) acc[t] = 0.f;
     if (i == 0 || i == net.skip_layer)
-      product<bf16, WIDTH, 0, ENC * 2, FRING, FSTAGE, false>(acc, none, enc_s, 0, ring);
+      product<bf16, WIDTH, 0, ENC_K * 2, FRING, FSTAGE, false>(acc, none, enc_s, 0, ring);
     if (i > 0) product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE, false>(acc, none, act_s, WG_ROWS * 128, ring);
-    epi_fwd<WIDTH, true, SAVE>(acc, act, net.b[i], mbits + i * (WIDTH / 64));
+    epi_fwd<WIDTH, true, SAVE>(acc, act, net.b[i], mbits + i * BITW(WIDTH));
     fence_proxy_async();
     warpgroup_sync();
     if constexpr (SAVE) save_act<WIDTH>(act, sc.hs + (size_t)i * n * WIDTH, p0w, n);
@@ -351,8 +383,8 @@ __device__ __forceinline__ void forward_tile(const FieldNet& net, unsigned char*
     // hv = relu(W_view_h . feature + W_view_enc . venc + b_view).
     float hv[HALF / 2];
     product<bf16, HALF, 0, WIDTH * 2, FRING, FSTAGE>(hv, none, act_s, WG_ROWS * 128, ring);
-    product<bf16, HALF, 0, VENC * 2, FRING, FSTAGE, false>(hv, none, venc_s, 0, ring);
-    epi_fwd<HALF, true, SAVE>(hv, act, net.b_view, mbits + MAXD * (WIDTH / 64));
+    product<bf16, HALF, 0, VENC_K * 2, FRING, FSTAGE, false>(hv, none, venc_s, 0, ring);
+    epi_fwd<HALF, true, SAVE>(hv, act, net.b_view, mbits + MAXD * BITW(WIDTH));
   }
   fence_proxy_async();
   warpgroup_sync();
@@ -455,8 +487,8 @@ field_bwd_chain_kernel(const __grid_constant__ FieldNet net, const __grid_consta
   const uint32_t act_s = saddr(act), enc_s = saddr(E) + wg * WG_ROWS * 128, venc_s = saddr(V) + wg * WG_ROWS * 128;
   float none[1];
   // The recompute's ReLU masks, one bit per accumulator of this thread
-  // (`epi_fwd`): WIDTH / 64 words per trunk layer, then the view layer's.
-  uint32_t mbits[MAXD * (WIDTH / 64) + HALF / 64];
+  // (`epi_fwd`): BITW(WIDTH) words per trunk layer, then the view layer's.
+  uint32_t mbits[MAXD * BITW(WIDTH) + BITW(HALF)];
   for (int tile = blockIdx.x; tile < b.n_tiles; tile += gridDim.x) {
     const int p0 = tile * MP, p0w = p0 + wg * WG_ROWS;
     // This warpgroup's bias-gradient row: db_0 .. db_{L-1}, feature, alpha,
@@ -503,7 +535,7 @@ field_bwd_chain_kernel(const __grid_constant__ FieldNet net, const __grid_consta
     {
       float ghv[HALF / 2];
       product<bf16, HALF, 0, GH * 2, FRING, FSTAGE>(ghv, none, enc_s, 0, b.ring);
-      epi_grad<HALF, true, true>(ghv, act, mbits + MAXD * (WIDTH / 64), colpart0 + par * 4 * WIDTH, p0w, n);
+      epi_grad<HALF, true, true>(ghv, act, mbits + MAXD * BITW(WIDTH), colpart0 + par * 4 * WIDTH, p0w, n);
     }
     fence_proxy_async();
     warpgroup_sync();
@@ -522,7 +554,7 @@ field_bwd_chain_kernel(const __grid_constant__ FieldNet net, const __grid_consta
     for (int t = 0; t < WIDTH / 2; ++t) acc[t] = 0.f;
     product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE, false>(acc, none, act_s, WG_ROWS * 128, b.ring);
     product<bf16, WIDTH, 0, GH * 2, FRING, FSTAGE, false>(acc, none, enc_s, 0, b.ring);
-    epi_grad<WIDTH, true, false>(acc, act, mbits + (L - 1) * (WIDTH / 64), colpart0 + par * 4 * WIDTH, p0w, n);
+    epi_grad<WIDTH, true, false>(acc, act, mbits + (L - 1) * BITW(WIDTH), colpart0 + par * 4 * WIDTH, p0w, n);
     fence_proxy_async();
     warpgroup_sync();
     finish_grad<WIDTH>(act, sc.g + (size_t)(L - 1) * n * WIDTH, colpart0 + par * 4 * WIDTH, db_row + (L - 1) * WIDTH,
@@ -532,7 +564,7 @@ field_bwd_chain_kernel(const __grid_constant__ FieldNet net, const __grid_consta
     // (no input gradient into the encoding).
     for (int i = L - 1; i >= 1; --i) {
       product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE>(acc, none, act_s, WG_ROWS * 128, b.ring);
-      epi_grad<WIDTH, true, false>(acc, act, mbits + (i - 1) * (WIDTH / 64), colpart0 + par * 4 * WIDTH, p0w, n);
+      epi_grad<WIDTH, true, false>(acc, act, mbits + (i - 1) * BITW(WIDTH), colpart0 + par * 4 * WIDTH, p0w, n);
       fence_proxy_async();
       warpgroup_sync();
       finish_grad<WIDTH>(act, sc.g + (size_t)(i - 1) * n * WIDTH, colpart0 + par * 4 * WIDTH,
@@ -546,7 +578,7 @@ field_bwd_chain_kernel(const __grid_constant__ FieldNet net, const __grid_consta
 // K5, second kernel: the weight gradients.
 
 // One weight gradient dW [m, k] = G[:, 0:m]^T . H[:, 0:k] over the points
-// (k <= 256).
+// (k <= WIDTH).
 struct DwJob {
   const bf16* g;
   const bf16* h;
@@ -578,13 +610,15 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
          ((uint64_t)1 << 62);
 }
 
-// Block (tile, chunk): rows [128 t, 128 t + 128) of one dW (warpgroup w the
-// 64 rows from 128 t + 64 w), all its columns, over points [chunk *
+// Block (tile, chunk): rows [DW_M t, DW_M t + DW_M) of one dW (warpgroup w
+// the 64 rows from DW_M t + 64 w), all its columns, over points [chunk *
 // blockIdx.y, +chunk), into part[blockIdx.y][out0 + ...]. Each stage holds
-// 64 points of G (two column blocks) and H (four), point-major rows of 128
-// bytes as the global arrays hold them, loaded by cp.async into the
-// swizzled positions; out-of-range values load as zeros.
-__global__ void __launch_bounds__(N_CONSUMERS, 1)
+// 64 points of G (DW_WG column blocks) and H (DW_HB), point-major rows of
+// 128 bytes as the global arrays hold them, loaded by cp.async into the
+// swizzled positions; out-of-range values load as zeros. At width 256 a
+// block is 128 x 256 (two warpgroups); at width 64, where every dW is at
+// most 64 x 64, one warpgroup of 64 x 64.
+__global__ void __launch_bounds__(DW_THREADS, 1)
 field_dw_kernel(const __grid_constant__ DwJobs jobs, int n, int chunk, float* __restrict__ part,
                 long long part_stride) {
   extern __shared__ unsigned char smem_raw[];
@@ -592,22 +626,22 @@ field_dw_kernel(const __grid_constant__ DwJobs jobs, int n, int chunk, float* __
   int j = 0;
   while (j + 1 < jobs.n_jobs && (int)blockIdx.x >= jobs.job[j + 1].tile0) ++j;
   const DwJob& jb = jobs.job[j];
-  const int m0 = ((int)blockIdx.x - jb.tile0) * 128;
+  const int m0 = ((int)blockIdx.x - jb.tile0) * DW_M;
   const int begin = blockIdx.y * chunk, end = min(n, begin + chunk);
   const int steps = (end - begin + DW_BP - 1) / DW_BP;
   const int tid = threadIdx.x, wg = tid >> 7;
 
   auto load = [&](int s) {
     const int pb = begin + s * DW_BP;
-    const uint32_t a0 = base + (s % DW_STAGES) * DW_STAGE, b0 = a0 + 2 * DW_TILE;
-    for (int v = tid; v < DW_BP * 16; v += N_CONSUMERS) {
-      const int pt = v >> 4, cb = (v >> 3) & 1, ch = v & 7;
+    const uint32_t a0 = base + (s % DW_STAGES) * DW_STAGE, b0 = a0 + DW_WG * DW_TILE;
+    for (int v = tid; v < DW_BP * 8 * DW_WG; v += DW_THREADS) {
+      const int pt = v >> (3 + DW_WG_LOG2), cb = (v >> 3) & (DW_WG - 1), ch = v & 7;
       const int col = m0 + 64 * cb + 8 * ch;
       const bool ok = pb + pt < end && col < jb.m;
       cp_async16(a0 + cb * DW_TILE + swz(pt, 16 * ch), ok ? jb.g + (size_t)(pb + pt) * jb.ldg + col : jb.g, ok);
     }
-    for (int v = tid; v < DW_BP * 32; v += N_CONSUMERS) {
-      const int pt = v >> 5, cb = (v >> 3) & 3, ch = v & 7;
+    for (int v = tid; v < DW_BP * 8 * DW_HB; v += DW_THREADS) {
+      const int pt = v >> (3 + DW_HB_LOG2), cb = (v >> 3) & (DW_HB - 1), ch = v & 7;
       const int col = 64 * cb + 8 * ch;
       const bool ok = pb + pt < end && col < jb.k;
       cp_async16(b0 + cb * DW_TILE + swz(pt, 16 * ch), ok ? jb.h + (size_t)(pb + pt) * jb.ldh + col : jb.h, ok);
@@ -627,7 +661,7 @@ field_dw_kernel(const __grid_constant__ DwJobs jobs, int n, int chunk, float* __
     __syncthreads();  // stage s arrived for all; stage s - 1's products completed
     if (s + DW_STAGES - 1 < steps) load(s + DW_STAGES - 1);
     cp_async_commit();
-    const uint32_t a0 = base + (s % DW_STAGES) * DW_STAGE, b0 = a0 + 2 * DW_TILE;
+    const uint32_t a0 = base + (s % DW_STAGES) * DW_STAGE, b0 = a0 + DW_WG * DW_TILE;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DW_BP / 16; ++kk)
@@ -708,26 +742,43 @@ static bool unpack_stream(const void* base, const int* off, const int* bytes, in
   return true;
 }
 
-// Blocks of the persistent kernels: one per SM, at most one per tile.
-static int field_grid(int n) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+constexpr int kMaxDevices = 64;
+
+// The current device's setup, made once on each device: its SM count and
+// the kernels' opt-in to more than 48 KB of shared memory (an attribute of
+// a kernel on one device). The first launch on a device makes it, so a
+// CUDA-graph capture, which follows warm launches, never does.
+struct DeviceSetup {
+  int sms;
+  cudaError_t err;
+};
+
+static DeviceSetup device_setup() {
+  static bool ready[kMaxDevices] = {};
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return {0, err};
+  if (dev >= kMaxDevices) return {0, cudaErrorInvalidDevice};
+  if (!ready[dev]) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(field_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FLay::BYTES);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(field_bwd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FLay::BYTES);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(field_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 DW_STAGES * DW_STAGE + 1024);
+    if (err != cudaSuccess) return {0, err};
+    ready[dev] = true;
   }
-  const int tiles = (n + MP - 1) / MP;
-  return tiles < sms ? tiles : sms;
+  return {sms[dev], cudaSuccess};
 }
 
-// The shared-memory opt-in of a kernel, once per process (never inside a
-// CUDA-graph capture after the first launch).
-template <typename K>
-static cudaError_t allow_smem(K kernel, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = err == cudaSuccess;
-  return err;
+// Blocks of the persistent kernels: one per SM, at most one per tile.
+static int field_grid(int n, int sms) {
+  const int tiles = (n + MP - 1) / MP;
+  return tiles < sms ? tiles : sms;
 }
 
 // Sizes of the backward's buffers for `depth` layers and n points: the bf16
@@ -756,19 +807,18 @@ extern "C" int field_forward_launch(const void* const* biases, int depth, int sk
   if (!unpack_stream(stream, slab_off, slab_bytes, n_slabs, false, depth, skip_layer, st))
     return (int)cudaErrorInvalidValue;
   const FieldNet net = unpack_net(biases, depth, skip_layer);
-  static bool ready = false;
-  cudaError_t err = allow_smem(field_fwd_kernel, FLay::BYTES, ready);
-  if (err != cudaSuccess) return (int)err;
-  field_fwd_kernel<<<field_grid(n), RK_THREADS, FLay::BYTES, static_cast<cudaStream_t>(cuda_stream)>>>(
+  const DeviceSetup dev = device_setup();
+  if (dev.err != cudaSuccess) return (int)dev.err;
+  field_fwd_kernel<<<field_grid(n, dev.sms), RK_THREADS, FLay::BYTES, static_cast<cudaStream_t>(cuda_stream)>>>(
       net, st, pts, views, out, n);
   return (int)cudaGetLastError();
 }
 
 // K5: cotangent g_raw [8, n] fp32 (rows 0-3 read) -> dw [P] and db [D] fp32
-// (`field_backward_sizes`). dW order: for each layer i, dw_i [256, in_i]
-// then, for the skip layer, dwskip_i [256, 64]; then dw_feature [256, 256],
-// dw_alpha [8, 256], dw_view_h [128, 256], dw_view_enc [128, 32], dw_rgb
-// [8, 128]; each [out, in] row-major, heads padded to 8 rows. stream and
+// (`field_backward_sizes`). dW order, W = WIDTH: for each layer i, dw_i
+// [W, in_i] then, for the skip layer, dwskip_i [W, ENC]; then dw_feature
+// [W, W], dw_alpha [8, W], dw_view_h [W / 2, W], dw_view_enc [W / 2, VENC],
+// dw_rgb [8, W / 2]; each [out, in] row-major, heads padded to 8 rows. stream and
 // its backward table as for K4. Buffers the caller allocates: scratch
 // (bf16), dbpart [2 ceil(n / 128), D], part [ceil(n / chunk), P]. Four
 // launches. Returns the first CUDA error code.
@@ -784,11 +834,11 @@ extern "C" int field_backward_launch(const void* const* biases, int depth, int s
   const FieldNet net = unpack_net(biases, depth, skip_layer);
   const Scratch sc = scratch_layout(static_cast<bf16*>(scratch), depth, (size_t)n);
   const int n_tiles = (n + MP - 1) / MP;
-  static bool chain_ready = false, dw_ready = false;
-  cudaError_t err = allow_smem(field_bwd_chain_kernel, FLay::BYTES, chain_ready);
-  if (err != cudaSuccess) return (int)err;
-  field_bwd_chain_kernel<<<field_grid(n), RK_THREADS, FLay::BYTES, cs>>>(net, st, pts, views, g_raw, sc, dbpart, n);
-  err = cudaGetLastError();
+  const DeviceSetup dev = device_setup();
+  if (dev.err != cudaSuccess) return (int)dev.err;
+  field_bwd_chain_kernel<<<field_grid(n, dev.sms), RK_THREADS, FLay::BYTES, cs>>>(net, st, pts, views, g_raw, sc,
+                                                                                   dbpart, n);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   // The dW jobs, in the order of `dw`.
@@ -805,7 +855,7 @@ extern "C" int field_backward_launch(const void* const* biases, int depth, int s
     jb.k = k;
     jb.tile0 = tiles;
     jb.out0 = off;
-    tiles += (m + 127) / 128;
+    tiles += (m + DW_M - 1) / DW_M;
     off += (long long)m * k;
   };
   const size_t nn = (size_t)n;
@@ -824,10 +874,8 @@ extern "C" int field_backward_launch(const void* const* biases, int depth, int s
   jobs.n_jobs = n_jobs;
 
   const int n_chunks = (n + chunk - 1) / chunk;
-  const int dw_smem = DW_STAGES * DW_STAGE + 1024;
-  err = allow_smem(field_dw_kernel, dw_smem, dw_ready);
-  if (err != cudaSuccess) return (int)err;
-  field_dw_kernel<<<dim3(tiles, n_chunks), N_CONSUMERS, dw_smem, cs>>>(jobs, n, chunk, part, off);
+  field_dw_kernel<<<dim3(tiles, n_chunks), DW_THREADS, DW_STAGES * DW_STAGE + 1024, cs>>>(jobs, n, chunk, part,
+                                                                                          off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_rows_kernel<<<(int)((off + 31) / 32), 256, 0, cs>>>(part, n_chunks, (size_t)off, dw);

@@ -1,7 +1,8 @@
-"""Per-phase wall-clock timing of the training loop.
+"""Per-phase wall-clock timing of the training loop, and profiler traces.
 
-Counterpart of `nerf_workspaces_explorer_tpu/obs/profiler.py` (`StepTimer`;
-the trace context is not ported). A phase on a CUDA device ends with
+Counterpart of `nerf_workspaces_explorer_tpu/obs/profiler.py` (`StepTimer`,
+and `trace_context`, here a `torch.profiler` trace where the JAX package
+takes a `jax.profiler` one). A phase on a CUDA device ends with
 `torch.cuda.synchronize()`, so its time includes the device work queued in
 it, not only the host's launches. `device_kernel_counts` reads a
 `torch.profiler` trace: how often each kernel ran on the card, the kernels
@@ -11,6 +12,7 @@ of CUDA-graph replays included.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
@@ -51,6 +53,23 @@ class StepTimer:
     def reset(self) -> None:
         self.totals.clear()
         self.counts.clear()
+
+
+@contextlib.contextmanager
+def trace_context(log_dir: Optional[str]) -> Iterator[Optional["torch.profiler.profile"]]:
+    """A `torch.profiler` trace of the block (the host's calls and, where
+    CUDA is available, the card's kernels), written on exit as a Chrome
+    trace to `<log_dir>/trace.json`; a no-op without a directory."""
+    if log_dir is None:
+        yield None
+        return
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def kernel_name(key: str) -> str:

@@ -10,7 +10,8 @@ report: registers, shared memory, spills) beside it in
          -Xcompiler -fPIC -Xptxas -v [extra flags] -o <lib> csrc/<source>.cu
 
 A library is `csrc/<name>.cu` itself, or one of VARIANTS: a source compiled
-with extra flags (the render kernel, once per network shape). The hash of
+with extra flags (the render kernel and the training field, once per
+network shape). The hash of
 the source, the shared headers (`csrc/*.cuh`) and the flags in the file name
 means an edited source never loads a stale library. Pointers and the stream
 cross into C as `c_void_p`; every entry point returns `cudaGetLastError()`
@@ -47,9 +48,20 @@ RENDER_SHAPES = {(64, 6): False, (128, 8): True, (192, 10): True, (256, 10): Tru
 # script profiles.
 ABLATION_SHAPES = ((128, 8),)
 
+# The network shapes (width, point frequencies, view frequencies) the
+# training field (K4/K5) is built for: the stock 8x256 net and the 2x64
+# proposal net.
+FIELD_SHAPES = ((256, 10, 4), (64, 6, 2))
+
+def field_library(width: int, pts_freqs: int, view_freqs: int) -> str:
+    """The name of the training field's library for one network shape."""
+    return f"train_field_w{width}f{pts_freqs}v{view_freqs}"
+
+
 # Libraries built from a shared source with extra flags: name -> (source
-# stem in csrc/, flags). The render kernel compiles once per shape, and its
-# ablation into libraries of their own, so the served ones never hold it.
+# stem in csrc/, flags). The render kernel and the training field compile
+# once per shape, and the render kernel's ablation into libraries of their
+# own, so the served ones never hold it.
 VARIANTS = {
     f"fused_render_w{w}f{f}": (
         "fused_render",
@@ -62,6 +74,12 @@ VARIANTS.update({
         "fused_render", (f"-DRENDER_WIDTH={w}", f"-DRENDER_FREQS={f}", "-DRENDER_ABLATE=1"),
     )
     for w, f in ABLATION_SHAPES
+})
+VARIANTS.update({
+    field_library(w, f, v): (
+        "train_field", (f"-DFIELD_WIDTH={w}", f"-DFIELD_PTS_FREQS={f}", f"-DFIELD_VIEW_FREQS={v}"),
+    )
+    for w, f, v in FIELD_SHAPES
 })
 
 # A shared library, once loaded, is process-wide; so is this cache of them.

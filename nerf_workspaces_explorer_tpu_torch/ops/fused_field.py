@@ -13,7 +13,9 @@ cotangent (of its bf16 values for the view layer, as the TPU kernel sums
 them), the trunk stops at layer 0, and points and view directions get zero
 cotangents (importance depths are detached and rays are data).
 
-Two kernels, `csrc/train_field.cu`, every product a bf16 wgmma:
+Two kernels, `csrc/train_field.cu`, every product a bf16 wgmma, built once
+per network shape of `KERNEL_SHAPES` (the stock 8x256@10f/4f net and the
+2x64@6f/2f proposal net):
   - K4 `field_forward` (replaces `pallas_train.py::_fwd_kernel`);
   - K5 `field_backward` (replaces `::_bwd_kernel`): recompute + input-
     gradient chain, split-K weight-gradient products and an ordered
@@ -44,8 +46,6 @@ from nerf_workspaces_explorer_tpu_torch.models.mlp import (
 from nerf_workspaces_explorer_tpu_torch.ops import _build
 from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
     KERNEL_MAX_DEPTH,
-    PTS_FREQS,
-    VIEW_FREQS,
     _bf,
     _enc_dim,
     _encode_ladder,
@@ -54,14 +54,17 @@ from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
     _permute_pad_in_rows,
 )
 
-# The training field kernels are built for the stock network: width 256,
-# 10 point and 4 view frequencies.
-KERNEL_WIDTH = 256
+# The network shapes (width, point frequencies, view frequencies) the
+# training field kernels are built for, one library each: the stock 8x256
+# net and the 2x64 proposal net.
+KERNEL_SHAPES = _build.FIELD_SHAPES
 
 # Launches: K4 calls, K5 calls, and the kernels K5 launches (BACKWARD_KERNELS
-# per call: the chain, the weight gradients, two ordered reductions).
+# per call: the chain, the weight gradients, two ordered reductions); and
+# the K4 and K5 calls by library (network shape).
 LAUNCHES = {"forward": 0, "backward": 0, "backward_kernels": 0}
 BACKWARD_KERNELS = 4
+SHAPE_LAUNCHES = {_build.field_library(*shape): {"forward": 0, "backward": 0} for shape in KERNEL_SHAPES}
 
 # Points per partial sum of the weight-gradient products (K5).
 DW_CHUNK = 4096
@@ -302,10 +305,10 @@ def _meta_key(meta: Dict[str, Any]) -> tuple:
 def _check_cuda_inputs(meta, device, **arrays) -> int:
     if device.type != "cuda":
         raise ValueError(f"no fused field kernel for device {device}")
-    if (meta["width"], meta["pts_freqs"], meta["view_freqs"]) != (KERNEL_WIDTH, PTS_FREQS, VIEW_FREQS):
+    if _shape(meta) not in KERNEL_SHAPES:
         raise ValueError(
-            "the fused field kernels are built for width 256 with 10 point and 4 view "
-            f"frequencies, got width {meta['width']}, {meta['pts_freqs']}/{meta['view_freqs']}"
+            "the fused field kernels are built for (width, point frequencies, view frequencies) "
+            f"in {KERNEL_SHAPES}, got {_shape(meta)}"
         )
     if len(meta["skips"]) > 1 or meta["n_layers"] > KERNEL_MAX_DEPTH:
         raise ValueError("the fused field kernels take at most one skip and 16 layers")
@@ -319,6 +322,15 @@ def _check_cuda_inputs(meta, device, **arrays) -> int:
     if n < 1:
         raise ValueError("the fused field needs at least one point")
     return n
+
+
+def _shape(meta) -> Tuple[int, int, int]:
+    return meta["width"], meta["pts_freqs"], meta["view_freqs"]
+
+
+def _library(meta):
+    """The loaded training field library built for the net's shape."""
+    return _build.load(_build.field_library(*_shape(meta)))
 
 
 def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
@@ -546,7 +558,7 @@ def field_forward_packed(ws: FieldStream, meta, pts_t: torch.Tensor, views_t: to
     device = pts_t.device
     n = _check_cuda_inputs(meta, device, pts_t=pts_t, views_t=views_t)
     args = _launch_args(ws, meta, device, backward=False)
-    fn = _build.load("train_field").field_forward_launch
+    fn = _library(meta).field_forward_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
         ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -555,6 +567,7 @@ def field_forward_packed(ws: FieldStream, meta, pts_t: torch.Tensor, views_t: to
               out.data_ptr(), n, _build.stream_handle(device))
     _build.check(code, "field_forward_launch")
     LAUNCHES["forward"] += 1
+    SHAPE_LAUNCHES[_build.field_library(*_shape(meta))]["forward"] += 1
     return out
 
 
@@ -593,7 +606,7 @@ def _field_backward_flat(ws: FieldStream, meta, pts_t, views_t, g_raw) -> Tuple[
     device = pts_t.device
     n = _check_cuda_inputs(meta, device, pts_t=pts_t, views_t=views_t, g_raw=g_raw)
     args = _launch_args(ws, meta, device, backward=True)
-    lib = _build.load("train_field")
+    lib = _library(meta)
     n_scratch, n_dw, n_db = _backward_sizes(lib, meta, n)
     shapes = grad_shapes(meta)
     expect_dw = sum(int(np.prod(s)) for k, s in shapes.items() if k.startswith("dw"))
@@ -615,6 +628,7 @@ def _field_backward_flat(ws: FieldStream, meta, pts_t, views_t, g_raw) -> Tuple[
     _build.check(code, "field_backward_launch")
     LAUNCHES["backward"] += 1
     LAUNCHES["backward_kernels"] += BACKWARD_KERNELS
+    SHAPE_LAUNCHES[_build.field_library(*_shape(meta))]["backward"] += 1
     return grads, n_dw
 
 

@@ -6,7 +6,10 @@ Counterpart of `scripts/probe_int4_tpu.py`'s Pallas legs: an int4 matrix
 `int4_matmul_plain` for CPU tensors. An int4 matrix is int8 storage holding
 [-8, 7] (PyTorch has no arithmetic int4 type), or with `packed` a uint8
 [M / 2, K] of nibble pairs (`pack_int4_rows`): the low nibble row 2i, the
-high nibble row 2i + 1.
+high nibble row 2i + 1. The kernel (wgmma on a swizzled shared-memory tile
+of the widened stripe) takes M a multiple of 64, N a multiple of 128 and
+K = 128, the probe's 128 x 128 x 128 among them; other
+shapes on the card raise. The plain version takes any shape.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def int4_matmul_plain(a: torch.Tensor, b: torch.Tensor, packed: bool = False) ->
 
 def int4_matmul(a: torch.Tensor, b: torch.Tensor, packed: bool = False) -> torch.Tensor:
     """int4 [M, K] (int8 storage, or packed uint8 [M / 2, K]) widened to bf16
-    @ bf16 [K, N] -> fp32 [M, N]. M, N, K multiples of 16 on the card."""
+    @ bf16 [K, N] -> fp32 [M, N]. On the card M is a multiple of 64, N of
+    128, and K is 128."""
     rows = a.shape[0] * (2 if packed else 1)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"int4 [{rows}, K] @ [K, N]: got {tuple(a.shape)} and {tuple(b.shape)}")
@@ -55,8 +59,11 @@ def int4_matmul(a: torch.Tensor, b: torch.Tensor, packed: bool = False) -> torch
     if b.device.type != "cuda" or a.device != b.device:
         raise ValueError(f"no int4 kernel for devices {a.device} and {b.device}")
     m, (k, n) = rows, b.shape
-    if m % 16 or n % 16 or k % 16 or not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError(f"the int4 kernel takes contiguous operands with M, N, K multiples of 16, got {m, n, k}")
+    if m < 1 or n < 1 or m % 64 or n % 128 or k != 128:
+        raise ValueError(f"the int4 kernel takes M a multiple of 64, N a multiple of 128 and K = 128, got "
+                         f"M, N, K = {m, n, k}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the int4 kernel takes contiguous operands")
     lib = _build.load("int4_probe")
     fn = lib.int4_probe_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]

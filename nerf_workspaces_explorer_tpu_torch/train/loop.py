@@ -15,6 +15,14 @@ weights); on the CPU both are plain PyTorch. Each step's random draws come
 from the Trainer's generator seeded from (seed, step), so a run resumed
 from a checkpoint takes the same steps as one that never stopped.
 
+`use_proposal` trains a 2x64 proposal net in the coarse net's place by the
+interlevel loss, `merge_coarse=False` the fine net on the importance-only
+placement of the fast serving preset (JAX `Trainer(use_proposal=,
+merge_coarse=)`); eval renders and checkpoints follow the nets the state
+holds. `rendering.test_viz_factor` f > 1 renders the eval views at 1/f of
+the training resolution against ground truth downscaled as JAX's
+`jax.image.resize(..., "bilinear")` does (antialiased).
+
 `steps_per_call` K > 1 (JAX `Trainer(steps_per_call=)`, `lax.scan` there):
 `fit` advances the stretches between cadence boundaries K steps a call, on
 `cuda` as a replay of a CUDA graph of K steps (`train/step.py::StepGraph`),
@@ -28,6 +36,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from nerf_workspaces_explorer_tpu_torch.core.config import FrameworkConfig, load_config
 from nerf_workspaces_explorer_tpu_torch.data.replica import ReplicaDataset, SceneData
@@ -50,6 +59,7 @@ from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
 )
 from nerf_workspaces_explorer_tpu_torch.rays.raygen import RayBundle, create_rays
 from nerf_workspaces_explorer_tpu_torch.render.pipeline import FIELD_IMPLS, render_rays_chunked
+from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
 from nerf_workspaces_explorer_tpu_torch.train.step import (
     ExponentialDecay,
     StepDraws,
@@ -85,6 +95,18 @@ def _next_run_dir(base: str) -> str:
             run += 1
 
 
+def resize_images(images: np.ndarray, height: int, width: int) -> np.ndarray:
+    """[N, H, W, C] float images -> [N, height, width, C], bilinear with
+    the triangle filter widened when downsampling (antialiased): the
+    arithmetic of `jax.image.resize(..., method="bilinear")`, which the JAX
+    trainer scales its eval ground truth with (JAX train/loop.py:199-213)."""
+    if images.shape[1:3] == (height, width):
+        return images
+    x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32)).permute(0, 3, 1, 2)
+    out = F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1).numpy()
+
+
 def step_seed(seed: int, step: int) -> int:
     """The generator seed of step `step` of a run seeded `seed`."""
     return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
@@ -105,6 +127,8 @@ class Trainer:
         save_dir: Optional[str] = None,
         enable_tensorboard: bool = True,
         field_impl: str = "auto",
+        use_proposal: bool = False,
+        merge_coarse: bool = True,
         steps_per_call: int = 1,
         eval_max_views: int = 0,
         device: Optional[str | torch.device] = None,
@@ -127,10 +151,11 @@ class Trainer:
         self._save_dir = save_dir or _next_run_dir(os.path.join(experiments_dir, office_name))
 
         cfg = self._config
-        if cfg.rendering.test_viz_factor != 1:
-            raise ValueError("test_viz_factor != 1 (downscaled eval renders) is not ported")
         self._spec = spec_from_config(cfg)
-        self._settings = settings_from_config(cfg)._replace(train=True, field_impl=field_impl)
+        # The proposal net in the coarse net's place; the fine net trained on
+        # the importance-only placement it sees under the fast preset.
+        self._settings = settings_from_config(cfg)._replace(
+            train=True, field_impl=field_impl, use_proposal=use_proposal, merge_coarse=merge_coarse)
         self._schedule = ExponentialDecay(
             cfg.training.learning_rate, cfg.training.learning_rate_decay_rate,
             cfg.training.learning_rate_decay_steps,
@@ -176,7 +201,10 @@ class Trainer:
     # …training_handler.py:118-263).
 
     def prepare_data(self) -> None:
-        """Training colors to the device; ground truth to TensorBoard."""
+        """Training colors to the device; the eval views' ground truth at
+        1 / test_viz_factor of the resolution; ground truth to TensorBoard."""
+        f = self._config.rendering.test_viz_factor
+        self._img_h_scaled, self._img_w_scaled = self._img_h // f, self._img_w // f
         n_train, n_test = len(self._train_data), len(self._test_data)
         self._train_rgbs = torch.as_tensor(
             self._train_data.rgb.reshape(n_train, -1, 3), dtype=torch.float32, device=self._device
@@ -189,8 +217,9 @@ class Trainer:
 
         self._train_eval_ids, self._test_eval_ids = eval_ids(n_train), eval_ids(n_test)
         pick = lambda a, ids: a if ids is None else a[ids]  # noqa: E731
-        self._train_rgbs_eval = pick(self._train_data.rgb, self._train_eval_ids)
-        self._test_rgbs_eval = pick(self._test_data.rgb, self._test_eval_ids)
+        scale = lambda a: resize_images(a, self._img_h_scaled, self._img_w_scaled)  # noqa: E731
+        self._train_rgbs_eval = scale(pick(self._train_data.rgb, self._train_eval_ids))
+        self._test_rgbs_eval = scale(pick(self._test_data.rgb, self._test_eval_ids))
         if self._tb is not None:
             self._tb.write_image("Train/rgb_ground_truth", self._train_data.rgb, 0)
             self._tb.write_image("Test/rgb_ground_truth", self._test_data.rgb, 0)
@@ -198,24 +227,33 @@ class Trainer:
             depth_viz = np.stack([depth2rgb(d, near, far) for d in self._train_data.depth])
             self._tb.write_image("Train/depth_ground_truth", depth_viz / 255.0, 0)
 
+    def _net_specs(self) -> Dict[str, Any]:
+        """{net name: spec} of the state's nets: "coarse" or "proposal", "fine"."""
+        if self._settings.use_proposal:
+            return {"proposal": proposal_spec(self._settings.proposal_num_freqs), "fine": self._spec}
+        return {"coarse": self._spec, "fine": self._spec}
+
     def initialize_models(self) -> None:
-        self._state = init_train_state(self._spec, self._schedule, self._device, seed=self._seed)
+        prop = self._net_specs().get("proposal")
+        self._state = init_train_state(self._spec, self._schedule, self._device, seed=self._seed,
+                                       proposal_spec=prop)
         self._graph = None
 
     def initialize_rays(self) -> None:
-        """Per-image ray bundles on the device (reference :243-263)."""
+        """Per-image ray bundles on the device (reference :243-263): the
+        training views at full resolution, the eval views scaled."""
         near, far = self._config.rendering.depth_range
-        h, w = self._img_h, self._img_w
-        fx = w / 2.0 / np.tan(np.radians(self._config.hfov_degrees / 2.0))
 
-        def rays_for(poses: np.ndarray) -> RayBundle:
+        def rays_for(poses: np.ndarray, h: int, w: int) -> RayBundle:
+            fx = w / 2.0 / np.tan(np.radians(self._config.hfov_degrees / 2.0))
             c2w = torch.as_tensor(np.asarray(poses, np.float32), device=self._device)
             return create_rays(c2w, h, w, fx, fx, (w - 1.0) / 2.0, (h - 1.0) / 2.0, near, far)
 
         pick = lambda a, ids: a if ids is None else a[ids]  # noqa: E731
-        self.rays_train = rays_for(self._train_data.camera_pose)
-        self.rays_vis = rays_for(pick(self._train_data.camera_pose, self._train_eval_ids))
-        self.rays_test = rays_for(pick(self._test_data.camera_pose, self._test_eval_ids))
+        scaled = (self._img_h_scaled, self._img_w_scaled)
+        self.rays_train = rays_for(self._train_data.camera_pose, self._img_h, self._img_w)
+        self.rays_vis = rays_for(pick(self._train_data.camera_pose, self._train_eval_ids), *scaled)
+        self.rays_test = rays_for(pick(self._test_data.camera_pose, self._test_eval_ids), *scaled)
 
     def setup(self) -> None:
         self.prepare_data()
@@ -345,15 +383,16 @@ class Trainer:
         eval_settings = self._settings.for_eval()._replace(field_impl="plain")
         params = self.params
         if self._device.type == "cuda":
-            kparams = {k: prepare_kernel_params(params[k], self._spec) for k in ("coarse", "fine")}
+            kparams = {k: prepare_kernel_params(params[k], spec) for k, spec in self._net_specs().items()}
             return render_rays_fused(kparams, flat_rays, eval_settings)
         chunk = min(self._config.model.chunk, flat_rays.origins.shape[0])
         out = render_rays_chunked(params, flat_rays, eval_settings, spec=self._spec, chunk=chunk)
         return out["rgb_fine"]
 
     def _render_image_set(self, rays: RayBundle, save_dir: Optional[str]) -> np.ndarray:
-        """Every image of a ray set -> [N, H, W, 3], in groups of whole images."""
-        h, w = self._img_h, self._img_w
+        """Every image of a ray set -> [N, H, W, 3] at the eval resolution, in
+        groups of whole images."""
+        h, w = self._img_h_scaled, self._img_w_scaled
         n_img, n_pix = rays.origins.shape[0], h * w
         per_group = min(n_img, max(1, EVAL_GROUP_RAYS // n_pix))
         images = []
@@ -433,7 +472,12 @@ class Trainer:
         if self._state is None:
             self.initialize_models()
         params, step, opt_leaves, _ = load_training_checkpoint(path)
-        loaded = params_from_numpy({k: params[k] for k in ("coarse", "fine")}, self._device)
+        nets = tuple(self._net_specs())
+        if any(k not in params for k in nets):
+            hint = " (a proposal checkpoint needs use_proposal=True)" if "proposal" in params else ""
+            raise ValueError(f"the checkpoint holds {'/'.join(sorted(params))}, the trainer needs "
+                             f"{'/'.join(nets)}{hint}")
+        loaded = params_from_numpy({k: params[k] for k in nets}, self._device)
         with torch.no_grad():
             for dst, src in zip(tree_leaves(self.params), tree_leaves(loaded)):
                 if dst.shape != src.shape:

@@ -6,6 +6,10 @@ NeRFReplicaTrainingHandler.step, nerf/training/nerf_replica_training_handler.py:
 and `n_rays` random pixels of it (with replacement), a training-mode
 coarse+fine render, the summed coarse + fine MSE, one Adam update at the
 continuously decayed learning rate lr * 0.1^(step / 50000) (:312-315).
+With a proposal net in the coarse net's place (`init_train_state(
+proposal_spec=)`, `RenderSettings.use_proposal`; JAX train/step.py:128-163)
+the coarse term is the interlevel loss between the proposal's and the fine
+net's weights, both recomposited without the sigma noise.
 
 A step's random draws (`StepDraws`: image, pixels and the render's jitter,
 noise and importance quantiles) are made by `draw_step` from a generator
@@ -39,6 +43,8 @@ from nerf_workspaces_explorer_tpu_torch.render.pipeline import (
     draw_render_randoms,
     render_ray_bundle,
 )
+from nerf_workspaces_explorer_tpu_torch.render.proposal import interlevel_loss
+from nerf_workspaces_explorer_tpu_torch.render.volume import sigma_to_weights
 from nerf_workspaces_explorer_tpu_torch.utils.metrics import img2mse, mse2psnr
 
 
@@ -55,7 +61,7 @@ class ExponentialDecay(NamedTuple):
 
 
 class TrainState(NamedTuple):
-    params: Dict[str, Any]  # {"coarse", "fine"}: trees of leaf tensors
+    params: Dict[str, Any]  # {"coarse" or "proposal", "fine"}: trees of leaf tensors
     optimizer: torch.optim.Adam  # over tree_leaves(params)
     step: int  # updates taken
 
@@ -80,15 +86,19 @@ def init_train_state(
     *,
     seed: int = 0,
     params: Optional[Dict[str, Any]] = None,
+    proposal_spec: Optional[NerfMLPSpec] = None,
 ) -> TrainState:
     """Fresh coarse and fine nets (drawn on the CPU from `seed`, the same on
     any device) or given `params` (a tree of arrays or tensors, e.g. a JAX
-    TrainState's params through np.asarray), with zero Adam moments."""
+    TrainState's params through np.asarray), with zero Adam moments. With
+    `proposal_spec`, a proposal net of that architecture takes the coarse
+    net's place (params {"proposal", "fine"}; JAX `init_train_state`)."""
+    first = "coarse" if proposal_spec is None else "proposal"
     if params is None:
         gen = torch.Generator().manual_seed(seed)
-        params = {"coarse": init_nerf_params(gen, spec), "fine": init_nerf_params(gen, spec)}
+        params = {first: init_nerf_params(gen, proposal_spec or spec), "fine": init_nerf_params(gen, spec)}
     tree = params_from_numpy(
-        {k: params[k] for k in ("coarse", "fine")}, device, torch.float32, requires_grad=True
+        {k: params[k] for k in (first, "fine")}, device, torch.float32, requires_grad=True
     )
     return TrainState(params=tree, optimizer=make_optimizer(tree, schedule), step=0)
 
@@ -134,16 +144,29 @@ def loss_and_metrics(
     draws: RenderDraws,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Coarse + fine MSE and the reference's metrics (:111-161, the
-    coarse+fine branch), sigma histograms included (:383-388)."""
+    coarse+fine branch), sigma histograms included (:383-388). With
+    `settings.use_proposal` the coarse term is the interlevel loss and
+    `psnr_coarse` is 0 (JAX `_loss_and_metrics`)."""
     out = render_ray_bundle(params, rays, settings, spec=spec, draws=draws, full_outputs=True)
     rgb_loss_fine = img2mse(out["rgb_fine"], gt)
-    rgb_loss_coarse = img2mse(out["rgb_coarse"], gt)
+    if settings.use_proposal:
+        # The histograms are recomposited without the sigma noise (JAX
+        # step.py:133-141: a noisy target makes the proposal chase per-step
+        # noise); the gradient reaches the proposal through its raw sigma,
+        # the fine target is detached inside the loss.
+        w_prop = sigma_to_weights(out["raw_coarse"][..., 3], out["z_vals_coarse"], rays.dirs)
+        w_fine = sigma_to_weights(out["raw_fine"][..., 3], out["z_vals_fine"], rays.dirs)
+        rgb_loss_coarse = interlevel_loss(out["z_vals_coarse"], w_prop, out["z_vals_fine"], w_fine)
+        psnr_coarse = torch.zeros((), device=gt.device)  # no coarse rgb to score
+    else:
+        rgb_loss_coarse = img2mse(out["rgb_coarse"], gt)
+        psnr_coarse = mse2psnr(rgb_loss_coarse.detach())
     total = rgb_loss_coarse + rgb_loss_fine
     metrics = {
         "rgb_loss_coarse": rgb_loss_coarse.detach(),
         "rgb_loss_fine": rgb_loss_fine.detach(),
         "total_loss": total.detach(),
-        "psnr_coarse": mse2psnr(rgb_loss_coarse.detach()),
+        "psnr_coarse": psnr_coarse,
         "psnr_fine": mse2psnr(rgb_loss_fine.detach()),
         "trans_coarse": out["raw_coarse"][..., 3].detach(),
         "trans_fine": out["raw_fine"][..., 3].detach(),

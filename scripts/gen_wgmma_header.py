@@ -6,10 +6,11 @@ issue.
 Each wrapper is a specialisation `wgmma_bf16<N>` (m64nNk16, bf16 operands,
 fp32 accumulators) or `wgmma_s8<N>` (m64nNk32, s8 operands, s32
 accumulators) taking the thread's N/2 accumulator registers and the two
-shared-memory descriptors (A and B both K-major), or `wgmma_bf16_mn<N>`,
+shared-memory descriptors (A and B both K-major), `wgmma_bf16_mn<N>`,
 the bf16 form with both operands MN-major (wgmma's transpose bits: the
-training field's weight-gradient products, whose operands are point-major).
-PTX lists every
+training field's weight-gradient products, whose operands are point-major),
+or `wgmma_bf16_bt<N>`, with A K-major and B MN-major (the int4 probe's
+row-major [K, N] right-hand matrix). PTX lists every
 accumulator register as its own operand, so the wrappers are generated
 rather than written out by hand:
 
@@ -18,8 +19,9 @@ rather than written out by hand:
 
 import os
 
-WIDTHS = (16, 64, 96, 128, 144, 192, 208, 256)  # every N the K-major products issue
-MN_WIDTHS = (256,)  # every N the MN-major products issue
+WIDTHS = (16, 32, 64, 96, 128, 144, 192, 208, 256)  # every N the K-major products issue
+MN_WIDTHS = (64, 256)  # every N the MN-major products issue
+BT_WIDTHS = (128,)  # every N the B-transposed products issue
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "nerf_workspaces_explorer_tpu_torch", "csrc", "wgmma.cuh")
 
@@ -28,6 +30,7 @@ KINDS = (
     ("bf16", "float", "f", "f32.bf16.bf16", 16, ", p, 1, 1, 0, 0", WIDTHS),
     ("s8", "int", "r", "s32.s8.s8", 32, ", p", WIDTHS),
     ("bf16_mn", "float", "f", "f32.bf16.bf16", 16, ", p, 1, 1, 1, 1", MN_WIDTHS),
+    ("bf16_bt", "float", "f", "f32.bf16.bf16", 16, ", p, 1, 1, 0, 1", BT_WIDTHS),
 )
 
 
@@ -58,7 +61,8 @@ def main():
         "// wgmma_bf16<N>: D[64 x N] (+)= A[64 x 16] . B[N x 16]^T, bf16, fp32 accumulators;",
         "// wgmma_s8<N>:   D[64 x N] (+)= A[64 x 32] . B[N x 32]^T, s8, s32 accumulators.",
         "// wgmma_bf16_mn<N>: the bf16 form with A and B MN-major (transpose bits set).",
-        "// A and B are shared-memory descriptors (K-major unless _mn); acc = 0 overwrites D.",
+        "// wgmma_bf16_bt<N>: the bf16 form with A K-major and B MN-major.",
+        "// A and B are shared-memory descriptors (K-major unless _mn or _bt); acc = 0 overwrites D.",
         "// Thread t of the warpgroup holds d[4j + i] = D[16 (t / 32) + (t % 32) / 4 + 8 (i / 2),",
         "// 8 j + 2 (t % 4) + i % 2] for the f32 and the s32 forms alike.",
         "",
@@ -69,6 +73,7 @@ def main():
         "template <int N> __device__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);",
         "template <int N> __device__ void wgmma_s8(int (&d)[N / 2], uint64_t a, uint64_t b, int acc);",
         "template <int N> __device__ void wgmma_bf16_mn(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);",
+        "template <int N> __device__ void wgmma_bf16_bt(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);",
         "",
     ]
     for *kind, widths in KINDS:

@@ -10,9 +10,13 @@ device time / profiled wall time), the device time of the port's kernels
 and of everything else, the device time by kernel name, and on the host the
 number of aten calls and their self CPU time. With `--steps-per-call K`
 the steps run K at a time as replays of a CUDA graph (`Trainer.step_many`),
-and every figure is per step of those calls. Run from the repository root:
+and every figure is per step of those calls. `--proposal` trains the 2x64
+proposal net in the coarse net's place (the interlevel loss; K4 and K5 run
+through both field libraries, whose kernels share their names and are
+summed), `--fast-preset` the fine net on importance-only placement (128
+fine samples). Run from the repository root:
 
-    python3 scripts/profile_torch_train_step.py [--steps-per-call 10]
+    python3 scripts/profile_torch_train_step.py [--steps-per-call 10] [--proposal] [--fast-preset]
 """
 
 import argparse
@@ -49,7 +53,10 @@ def _port_kernel(key: str):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps-per-call", type=int, default=1, metavar="K")
-    k = parser.parse_args().steps_per_call
+    parser.add_argument("--proposal", action="store_true", help="the proposal net in the coarse net's place")
+    parser.add_argument("--fast-preset", action="store_true", help="importance-only placement for the fine net")
+    args = parser.parse_args()
+    k = args.steps_per_call
     if not torch.cuda.is_available():
         print("profile_torch_train_step: no CUDA card", file=sys.stderr)
         return 2
@@ -70,7 +77,8 @@ def main() -> int:
                                             width=w, near=near, far=far, device=device)
     trainer = Trainer("office_tokyo", cfg, train_data=train, test_data=test, device=device,
                       save_dir=os.path.join(ROOT, "build", "torch_kernels", "profile_train"),
-                      enable_tensorboard=False, steps_per_call=k)
+                      enable_tensorboard=False, steps_per_call=k, use_proposal=args.proposal,
+                      merge_coarse=not args.fast_preset)
     trainer.setup()
 
     def call(j):  # call j: steps j k .. j k + k - 1
@@ -112,7 +120,9 @@ def main() -> int:
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")]
     print(f"card: {card}")
     mode = "eager" if k == 1 else f"CUDA-graph replays of {k} steps"
-    print(f"train step ({trainer.field_impl} field, {mode}): wall {bare_ms:.2f} ms unprofiled; profiled wall "
+    nets = ("proposal 2x64 + fine 8x256" if args.proposal else "coarse + fine 8x256") + (
+        ", importance-only placement" if args.fast_preset else "")
+    print(f"train step ({nets}, {trainer.field_impl} field, {mode}): wall {bare_ms:.2f} ms unprofiled; profiled wall "
           f"{wall_ms:.2f} ms, device {device_ms:.2f} ms, device idle share {1.0 - device_ms / wall_ms:.3f} "
           f"(per step, over {steps} steps each)")
     print("  " + ", ".join(f"{k} {v:.3f} ms/step" for k, v in by_port.items()))

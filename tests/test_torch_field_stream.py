@@ -5,8 +5,8 @@ them (`field_stream_rows`), each 128-byte aligned; un-swizzling each slab
 gives the JAX kernel's inputs (`pallas_train._build_kernel_inputs`) exactly,
 with zeros in the padding; the training step's pack from the leaves
 (`_pack_leaves`, one gather) holds the same values, and its gradient gather
-is `grads_to_tree`. Covers the skip at layer 5, no skip, and a skip at layer
-2 of a 4-layer net."""
+is `grads_to_tree`. Covers the skip at layer 5, no skip, a skip at layer 2
+of a 4-layer net, and the 2x64@6f/2f proposal net (no skip)."""
 
 import jax
 import numpy as np
@@ -16,37 +16,52 @@ import torch
 from nerf_workspaces_explorer_tpu.models import NerfMLPSpec as JSpec
 from nerf_workspaces_explorer_tpu.models import init_nerf_params
 from nerf_workspaces_explorer_tpu.ops import pallas_train as jpt
+from nerf_workspaces_explorer_tpu.render.proposal import proposal_spec as jproposal_spec
 from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import params_from_numpy
 from nerf_workspaces_explorer_tpu_torch.models.mlp import NerfMLPSpec, tree_leaves
 from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
 
 torch.set_num_threads(2)
 
-SPECS = {"8x256-skip5": dict(), "8x256-no-skip": dict(skips=()), "4x256-skip2": dict(depth=4, skips=(1,))}
+SPECS = {"8x256-skip5": dict(), "8x256-no-skip": dict(skips=()), "4x256-skip2": dict(depth=4, skips=(1,)),
+         "2x64-proposal": "proposal"}
+
+
+def _specs(name):
+    """(JAX spec, port spec) of a case: the proposal net from each package's
+    `proposal_spec`."""
+    kwargs = SPECS[name]
+    if kwargs == "proposal":
+        return jproposal_spec(6), proposal_spec(6)
+    return JSpec(**kwargs), NerfMLPSpec(**kwargs)
 
 
 def _nets(name):
-    kwargs = SPECS[name]
-    params = init_nerf_params(jax.random.PRNGKey(len(name)), JSpec(**kwargs))
+    jspec, spec = _specs(name)
+    params = init_nerf_params(jax.random.PRNGKey(len(name)), jspec)
     mine = params_from_numpy(jax.tree.map(np.asarray, params))
-    spec = NerfMLPSpec(**kwargs)
     inputs, meta = ff.build_kernel_inputs(mine, spec)
     return params, mine, spec, inputs, meta
 
 
-def _expected_tables(depth, skip_layer):
+def _expected_tables(depth, skip_layer, width=256, enc=64, venc=32):
     """(forward, backward) lists of (name, rows, k_bytes) per slab, written
     out from the kernels' note: a matrix [rows, K] of bf16 takes ceil(2 K /
-    128) slabs; its k_bytes are 2 K rounded up to the 32-byte k-step."""
-    trunk = [("w0", 256, 128)]
+    128) slabs; its k_bytes are 2 K rounded up to the 32-byte k-step. enc
+    and venc are the encodings' padded widths (64 and 32 at 10 and 4
+    frequencies, 40 and 16 at 6 and 2)."""
+    w, half = width, width // 2
+    kb = lambda k: -(-2 * k // 32) * 32  # noqa: E731
+    trunk = [("w0", w, kb(enc))]
     for i in range(1, depth):
         if i == skip_layer:
-            trunk.append((f"wskip{i}", 256, 128))
-        trunk.append((f"w{i}", 256, 512))
-    view = [("w_feature", 256, 512), ("w_view_h", 128, 512), ("w_view_enc", 128, 64)]
-    forward = trunk + [("w_alpha", 16, 512)] + view + [("w_rgb", 16, 256)]
-    backward = trunk + view + [("w_rgb_t", 128, 32), ("w_view_h_t", 256, 256), ("w_feature_t", 256, 512),
-                               ("w_alpha_t", 256, 32)] + [(f"w{i}_t", 256, 512) for i in range(depth - 1, 0, -1)]
+            trunk.append((f"wskip{i}", w, kb(enc)))
+        trunk.append((f"w{i}", w, 2 * w))
+    view = [("w_feature", w, 2 * w), ("w_view_h", half, 2 * w), ("w_view_enc", half, kb(venc))]
+    forward = trunk + [("w_alpha", 16, 2 * w)] + view + [("w_rgb", 16, 2 * half)]
+    backward = trunk + view + [("w_rgb_t", half, 32), ("w_view_h_t", w, 2 * half), ("w_feature_t", w, 2 * w),
+                               ("w_alpha_t", w, 32)] + [(f"w{i}_t", w, 2 * w) for i in range(depth - 1, 0, -1)]
 
     def slabs(mats):
         return [(name, rows, kb) for name, rows, kb in mats for _ in range(-(-kb // 128))]
@@ -75,7 +90,8 @@ def test_slab_order_and_bytes(name):
     _, _, spec, inputs, meta = _nets(name)
     ws = ff.pack_field_stream(inputs, meta)
     skip = spec.skips[0] + 1 if spec.skips else -1
-    want_fwd, want_bwd = _expected_tables(spec.depth, skip)
+    enc, venc = (40, 16) if spec.width == 64 else (64, 32)
+    want_fwd, want_bwd = _expected_tables(spec.depth, skip, spec.width, enc, venc)
     for table, want in ((ws.layout.forward, want_fwd), (ws.layout.backward, want_bwd)):
         assert [(e[0], e[3], e[4]) for e in table] == want
         assert all(e[2] == e[3] * 128 and e[1] % 128 == 0 for e in table)
@@ -96,7 +112,7 @@ def test_slabs_hold_the_jax_kernel_inputs(name):
     rows, rgb^T in columns 0-2 and alpha^T in column 8 of 16), zero past
     its width."""
     params, _, spec, inputs, meta = _nets(name)
-    ref, _ = jpt._build_kernel_inputs(params, JSpec(**SPECS[name]))
+    ref, _ = jpt._build_kernel_inputs(params, _specs(name)[0])
     ref = {k: np.asarray(v, np.float32) for k, v in ref.items()}
     ws = ff.pack_field_stream(inputs, meta)
 
@@ -107,10 +123,11 @@ def test_slabs_hold_the_jax_kernel_inputs(name):
 
     want = {k: v for k, v in ref.items() if k.startswith("w") and k not in (
         "w_alpha", "w_rgb", "w_alpha_t", "w_rgb_t")}
-    want["w_alpha"] = pad(ref["w_alpha"], 16, 256)
-    want["w_rgb"] = pad(ref["w_rgb"], 16, 128)
-    want["w_alpha_t"] = pad(ref["w_alpha_t"][:, 0:1], 256, 16, 8)
-    want["w_rgb_t"] = pad(ref["w_rgb_t"][:, 0:3], 128, 16)
+    w = spec.width
+    want["w_alpha"] = pad(ref["w_alpha"], 16, w)
+    want["w_rgb"] = pad(ref["w_rgb"], 16, w // 2)
+    want["w_alpha_t"] = pad(ref["w_alpha_t"][:, 0:1], w, 16, 8)
+    want["w_rgb_t"] = pad(ref["w_rgb_t"][:, 0:3], w // 2, 16)
     names = {e[0] for e in ws.layout.forward + ws.layout.backward}
     assert names == set(want)
     for key, w in want.items():

@@ -80,6 +80,30 @@ def test_fused_field_matches_jax_kernels(skips):
         assert _rel(a, b) < BF16_GRAD_REL, (i, _rel(a, b))
 
 
+def test_fused_field_at_the_proposal_shape_matches_jax_kernels():
+    """The 2x64@6f/2f proposal net (no skip; `proposal_spec(6)`), the shape
+    of its own field library: forward within the bf16 bound, every gradient
+    leaf within rel 0.08 of JAX's interpret-mode
+    `make_field_train_fn(proposal_spec(6))`."""
+    from nerf_workspaces_explorer_tpu.render.proposal import proposal_spec as jproposal_spec
+    from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
+
+    jspec, spec = jproposal_spec(6), proposal_spec(6)
+    params = init_nerf_params(jax.random.PRNGKey(11), jspec)
+    mine = params_from_numpy(jax.tree.map(np.asarray, params))
+    for leaf in tree_leaves(mine):
+        leaf.requires_grad_(True)
+    pts, vd, tgt = _inputs(12)
+    jfield = jpt.make_field_train_fn(jspec, row_tile=128, interpret=True)
+    out, grads = _port_grads(lambda p, x, v: ff.fused_field(p, spec, x, v), mine, pts, vd, tgt)
+    ref_out, ref_grads = _jax_grads(jfield, params, pts, vd, tgt)
+    np.testing.assert_allclose(out, ref_out, atol=BF16_ATOL)
+    assert len(grads) == len(ref_grads)
+    for i, (a, b) in enumerate(zip(grads, ref_grads)):
+        assert a.shape == b.shape
+        assert _rel(a, b) < BF16_GRAD_REL, (i, _rel(a, b))
+
+
 def test_fused_field_matches_f32_reference():
     """The fused field against JAX's fp32 encode + MLP on the inputs of the
     JAX package's own kernel test (tests/test_pallas_train.py:20-56), to

@@ -242,12 +242,12 @@ def test_kernels_reject_bad_inputs(cuda):
         im.importance_merge(torch.zeros(300, 4, device=cuda), torch.zeros(300, 4, device=cuda), 4)
 
 
-def _field_setup(device, n, seed=0, skips=(4,)):
+def _field_setup(device, n, seed=0, skips=(4,), spec=None):
     from nerf_workspaces_explorer_tpu_torch.models.mlp import init_nerf_params
     from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    spec = NerfMLPSpec(skips=skips)
+    spec = spec or NerfMLPSpec(skips=skips)
     params = params_from_numpy(init_nerf_params(g, spec), device)
     inputs, meta = ff.build_kernel_inputs(params, spec)
     pts = (torch.randn(3, n, generator=g) * 2.0).to(device)
@@ -261,7 +261,7 @@ def _field_setup(device, n, seed=0, skips=(4,)):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [8192, 5000, 1, 127, 129, 4097],
                          ids=["aligned", "ragged", "n1", "n127", "n129", "n4097"])
-@pytest.mark.parametrize("skips", [(4,), ()], ids=["skip", "no-skip"])
+@pytest.mark.parametrize("skips", [(4,), (), "proposal"], ids=["skip", "no-skip", "proposal-2x64"])
 def test_field_kernels_match_plain(cuda, n, skips):
     """K4 within 1e-3 and every K5 gradient within rel 5e-2 of the plain
     versions: the same bf16 algorithm, whose fp32 sums run in other orders,
@@ -269,8 +269,14 @@ def test_field_kernels_match_plain(cuda, n, skips):
     side and carry through the 8 layers. On these inputs (random cotangents,
     whose sums cancel) the plain version itself moves by up to rel 2.2e-2
     when only its sums run in fp64 instead of fp32; the kernel read up to
-    2.3e-2 on the H100."""
-    ff, inputs, meta, pts, views, g_raw = _field_setup(cuda, n, skips=skips)
+    2.3e-2 on the H100. "proposal" is the 2x64@6f/2f net of
+    `render/proposal.py` (no skip), through its own library."""
+    from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
+
+    if skips == "proposal":
+        ff, inputs, meta, pts, views, g_raw = _field_setup(cuda, n, spec=proposal_spec(6))
+    else:
+        ff, inputs, meta, pts, views, g_raw = _field_setup(cuda, n, skips=skips)
     before = dict(ff.LAUNCHES)
     raw = ff.field_forward(inputs, meta, pts, views)
     kgrads = ff.field_backward(inputs, meta, pts, views, g_raw)
@@ -304,6 +310,51 @@ def test_field_backward_is_deterministic(cuda, n):
     for name in a:
         assert torch.equal(a[name], b[name]), name
     assert torch.equal(fa, fb)
+
+
+@pytest.mark.gpu
+def test_proposal_field_backward_is_deterministic(cuda):
+    """The 2x64 proposal net's K5 and K4 give the same bits twice."""
+    from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
+
+    ff, inputs, meta, pts, views, g_raw = _field_setup(cuda, 65_536, seed=2, spec=proposal_spec(6))
+    a = ff.field_backward(inputs, meta, pts, views, g_raw)
+    b = ff.field_backward(inputs, meta, pts, views, g_raw)
+    fa = ff.field_forward(inputs, meta, pts, views)
+    fb = ff.field_forward(inputs, meta, pts, views)
+    torch.cuda.synchronize()
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+    assert torch.equal(fa, fb)
+
+
+@pytest.mark.gpu
+def test_field_kernels_refuse_unbuilt_shapes(cuda):
+    """A net whose (width, frequencies) has no library raises, forward and
+    backward."""
+    ff, inputs, meta, pts, views, g_raw = _field_setup(cuda, 256, spec=NerfMLPSpec(depth=4, width=128))
+    with pytest.raises(ValueError, match="built for"):
+        ff.field_forward(inputs, meta, pts, views)
+    with pytest.raises(ValueError, match="built for"):
+        ff.field_backward(inputs, meta, pts, views, g_raw)
+
+
+@pytest.mark.gpu
+def test_field_kernels_on_a_second_card(cuda):
+    """The field kernels opt into their shared memory on each device: a
+    launch on the second card after one on the first runs and matches."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    outs = []
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        with torch.cuda.device(dev):
+            ff, inputs, meta, pts, views, g_raw = _field_setup(dev, 4096, seed=3)
+            outs.append((ff.field_forward(inputs, meta, pts, views).cpu(),
+                         {k: v.cpu() for k, v in ff.field_backward(inputs, meta, pts, views, g_raw).items()}))
+            torch.cuda.synchronize(dev)
+    assert torch.equal(outs[0][0], outs[1][0])
+    for name in outs[0][1]:
+        assert torch.equal(outs[0][1][name], outs[1][1][name]), name
 
 
 @pytest.mark.gpu
@@ -407,6 +458,73 @@ def test_fused_training_steps_on_the_card(cuda, tmp_path):
     assert ff.LAUNCHES["forward"] - before["forward"] == 10
     assert ff.LAUNCHES["backward"] - before["backward"] == 10
     assert float(trainer.render_test_images(5)) == float(trainer.render_test_images(5))
+
+
+def _tiny_room_trainer(device, tmp_path, name, steps_per_call=1, **kwargs):
+    """A Trainer on a small synthetic scene with the stock config and no
+    cadence action."""
+    import dataclasses
+
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
+
+    cfg = load_config(office_name="tokyo")
+    cfg = dataclasses.replace(cfg, logging=dataclasses.replace(
+        cfg.logging, step_log_print=0, step_save_ckpt=0, step_render_test=0, step_render_train=0))
+    train, test, _ = make_synthetic_scene(n_train=2, n_test=1, height=24, width=32, device=device)
+    tr = Trainer("office_tokyo", cfg, train_data=train, test_data=test, device=device,
+                 save_dir=str(tmp_path / name), enable_tensorboard=False, steps_per_call=steps_per_call,
+                 **kwargs)
+    tr.setup()
+    return tr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge_coarse", [True, False], ids=["proposal", "proposal-fast-preset"])
+def test_proposal_training_eager_and_graphed(cuda, tmp_path, merge_coarse):
+    """Trainer(use_proposal=True) on the card: each eager step calls K4 and
+    K5 once through the 2x64 proposal library and once through the stock
+    one; 8 steps at steps_per_call=4 (the first call captures a CUDA graph,
+    the second replays it) give the eager losses to 1e-6; the eval render
+    goes through the proposal pass."""
+    from nerf_workspaces_explorer_tpu_torch.ops import _build
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+
+    prop, stock = _build.field_library(64, 6, 2), _build.field_library(256, 10, 4)
+    eager = _tiny_room_trainer(cuda, tmp_path, "eager", use_proposal=True, merge_coarse=merge_coarse)
+    assert sorted(eager.params) == ["fine", "proposal"]
+    before = {k: dict(v) for k, v in ff.SHAPE_LAUNCHES.items()}
+    losses = [float(eager.step(i)["total_loss"]) for i in range(8)]
+    for lib in (prop, stock):
+        for key in ("forward", "backward"):
+            assert ff.SHAPE_LAUNCHES[lib][key] - before[lib][key] == 8, (lib, key)
+    graphed = _tiny_room_trainer(cuda, tmp_path, "graphed", 4, use_proposal=True, merge_coarse=merge_coarse)
+    got = graphed.step_many(0)["total_loss_steps"].tolist() + graphed.step_many(4)["total_loss_steps"].tolist()
+    assert graphed.graph_captured
+    assert max(abs(a - b) for a, b in zip(got, losses)) <= 1e-6, (got, losses)
+    assert all(abs(x) < 1e9 for x in losses)
+    psnr = eager.render_test_images(8)
+    assert psnr == psnr
+
+
+@pytest.mark.gpu
+def test_proposal_training_step_makes_no_host_sync(cuda, tmp_path):
+    """The proposal step (the interlevel loss included) makes no
+    synchronizing call after a warm step, as the stock step does."""
+    from nerf_workspaces_explorer_tpu_torch.train.step import train_step
+
+    tr = _tiny_room_trainer(cuda, tmp_path, "sync", use_proposal=True, merge_coarse=False)
+    args = (tr.rays_train, tr._train_rgbs)
+    state, _ = train_step(tr.state, *args, tr._draws(0), tr._settings, tr._spec, tr._schedule)
+    draws = tr._draws(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        train_step(state, *args, draws, tr._settings, tr._spec, tr._schedule)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 # The slice-3 shapes: the proposal net (2x64, F=6, density-only), the two
@@ -593,13 +711,20 @@ def test_ablation_kernel_matches_plain(cuda, mode):
 @pytest.mark.gpu
 @pytest.mark.parametrize("packed", [False, True], ids=["int4-operand", "int4x2-packed-bytes"])
 def test_int4_kernel_matches_plain(cuda, packed):
-    """K9: int4 widened to bf16 on the tensor cores against the plain leg and
-    numpy at the probe's 128^3 (to 1e-6 relative: exact products, fp32
-    sums in another order), and at a ragged 48 x 80 x 32."""
+    """K9: int4 widened to bf16 on wgmma against the plain leg and numpy at
+    the probe's 128^3 (to 1e-6 relative: exact products, fp32 sums in
+    another order) and at 256 x 384 x 128 (4 x 3 blocks); shapes the kernel
+    does not take (M not a multiple of 64, N of 128, K other than 128)
+    raise."""
     from nerf_workspaces_explorer_tpu_torch.ops import int4_probe as ip
 
     g = torch.Generator().manual_seed(9)
-    for m, n, k in ((128, 128, 128), (48, 80, 32)):
+    for m, n, k in ((48, 128, 128), (128, 80, 128), (128, 128, 32)):
+        w4 = torch.randint(-8, 8, (m, k), generator=g, dtype=torch.int8)
+        a = ip.pack_int4_rows(w4) if packed else w4
+        with pytest.raises(ValueError, match="multiple of 64"):
+            ip.int4_matmul(a.to(cuda), torch.zeros(k, n, dtype=torch.bfloat16, device=cuda), packed=packed)
+    for m, n, k in ((128, 128, 128), (256, 384, 128)):
         w4 = torch.randint(-8, 8, (m, k), generator=g, dtype=torch.int8)
         b = torch.randn(k, n, generator=g).to(torch.bfloat16)
         a = ip.pack_int4_rows(w4) if packed else w4

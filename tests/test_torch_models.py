@@ -73,6 +73,17 @@ def test_poses_match_jax(rng):
     np.testing.assert_allclose(poses.rodrigues(v), jposes.rodrigues(v), atol=0)
 
 
+@pytest.mark.parametrize("hw,hfov", [((240, 320), 90.0), ((12, 16), 90.0), ((480, 640), 60.0)])
+def test_pinhole_intrinsics_match_jax(hw, hfov):
+    """PinholeIntrinsics.from_hfov against the JAX package's, field for
+    field (the same float64 arithmetic: exact)."""
+    from nerf_workspaces_explorer_tpu.camera import PinholeIntrinsics as JIntrinsics
+    from nerf_workspaces_explorer_tpu_torch.camera import PinholeIntrinsics
+
+    mine, ref = PinholeIntrinsics.from_hfov(*hw, hfov), JIntrinsics.from_hfov(*hw, hfov)
+    assert mine._fields == ref._fields and tuple(mine) == tuple(ref)
+
+
 @pytest.mark.parametrize("num_freqs,factor", [(10, 10.0), (4, 1.0), (0, 1.0)])
 def test_positional_encoding_matches_jax(rng, num_freqs, factor):
     x = rng.normal(size=(7, 5, 3)).astype(np.float32) * 3

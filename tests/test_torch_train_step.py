@@ -50,7 +50,7 @@ def _jax_draws(key, step, n_img, hw, settings):
     render = RenderDraws(
         t_rand=_t(jax.random.uniform(k_perturb, (N_RAYS, s))),
         noise_coarse=_t(jax.random.normal(k_noise_c, (N_RAYS, s))),
-        noise_fine=_t(jax.random.normal(k_noise_f, (N_RAYS, s + i))),
+        noise_fine=_t(jax.random.normal(k_noise_f, (N_RAYS, s + i if settings.merge_coarse else i))),
         u=_t(jax.random.uniform(k_imp, (N_RAYS, i))),
     )
     draws = tstep.StepDraws(torch.tensor(int(img_idx)), torch.from_numpy(np.array(pix_idx)).long(), render)
@@ -95,6 +95,49 @@ def test_one_step_loss_and_grads_match_jax(scene):
     for k in ("rgb_loss_coarse", "rgb_loss_fine", "psnr_fine"):
         assert float(metrics[k]) == pytest.approx(float(jm[k]), rel=1e-5)
     np.testing.assert_allclose(metrics["trans_fine"].numpy(), np.asarray(jm["trans_fine"]), atol=1e-4)
+    ref = [np.asarray(g) for g in jax.tree_util.tree_leaves(jg)]
+    assert len(grads) == len(ref)
+    for a, b in zip(grads, ref):
+        rel = float(np.abs(a.numpy() - b).max() / (np.abs(b).max() + 1e-12))
+        assert rel < 1e-4, rel
+
+
+@pytest.mark.parametrize("merge_coarse", [True, False], ids=["merged", "fast-preset"])
+def test_proposal_loss_and_grads_match_jax(scene, merge_coarse):
+    """The proposal branch (JAX step.py:128-163: the interlevel loss between
+    noiseless recomposited weights, psnr_coarse 0) from identical params and
+    draws, with the fine net on merged or importance-only placement: the
+    loss and each gradient leaf, proposal and fine, within rel 1e-4 of JAX
+    (fp32 on both sides, summed in other orders)."""
+    from nerf_workspaces_explorer_tpu.render.proposal import proposal_spec as jproposal_spec
+
+    rays, rgbs = scene
+    jspec = JSpec(**SPEC)
+    jsettings = JSettings(**SETTINGS, use_proposal=True, merge_coarse=merge_coarse)._replace(train=True)
+    jstate = jinit_train_state(jax.random.PRNGKey(3), jspec, jmake_optimizer(5e-4),
+                               proposal_spec=jproposal_spec(6))
+    assert sorted(jstate.params) == ["fine", "proposal"]
+    key = jax.random.PRNGKey(4)
+    sample_key, render_key, draws = _jax_draws(key, 0, 3, 64, jsettings)
+    sampled, gt = jsample_training_rays(sample_key, rays, jnp.asarray(rgbs), N_RAYS)
+    (jl, jm), jg = jax.value_and_grad(
+        lambda p: jloss_and_metrics(p, sampled, gt, jsettings, jspec, render_key), has_aux=True)(jstate.params)
+
+    from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
+
+    state = tstep.init_train_state(NerfMLPSpec(**SPEC), tstep.ExponentialDecay(),
+                                   params=jax.tree.map(np.asarray, jstate.params), proposal_spec=proposal_spec(6))
+    assert sorted(state.params) == ["fine", "proposal"]
+    rays_t = RayBundle(*(_t(f) for f in rays))
+    mine_rays, mine_gt = tstep.sample_training_rays(rays_t, _t(rgbs), draws.img_idx, draws.pix_idx)
+    settings = RenderSettings(**SETTINGS, use_proposal=True, merge_coarse=merge_coarse)._replace(train=True)
+    loss, metrics = tstep.loss_and_metrics(state.params, mine_rays, mine_gt, settings, NerfMLPSpec(**SPEC),
+                                           draws.render)
+    grads = torch.autograd.grad(loss, tree_leaves(state.params))
+    assert float(metrics["psnr_coarse"]) == float(jm["psnr_coarse"]) == 0.0
+    for k in ("total_loss", "rgb_loss_coarse", "rgb_loss_fine"):
+        assert float(metrics[k]) == pytest.approx(float(jm[k]), rel=1e-4), k
+    assert float(jm["rgb_loss_coarse"]) > 0.0
     ref = [np.asarray(g) for g in jax.tree_util.tree_leaves(jg)]
     assert len(grads) == len(ref)
     for a, b in zip(grads, ref):
