@@ -7,7 +7,8 @@ Run from the repository root, with no arguments:
 
 It builds the port's CUDA kernels from `nerf_workspaces_explorer_tpu_torch/
 csrc/` and drives the port's paths in this order: serving, the strip-
-pipelined frame, the presets, the two profiling scripts' kernels, training.
+pipelined frame, the presets, the two profiling scripts' kernels, training,
+distillation.
 
 Serving: holds K1-K3 against their plain PyTorch versions on the card at the
 main path's shapes (one 320x240 frame: 76,800 rays, 8x256 coarse+fine nets
@@ -87,14 +88,36 @@ plain steps, the graph leg at steps_per_call=10 (losses equal to eager to
 step-300 checkpoint served at the fast preset for one room test view (SSIM
 >= 0.99 against its parity frame at stride 1; stride 4's SSIM to stride 1
 printed). The training field builds as one library per network shape
-(`train_field_w256f10v4`, `train_field_w64f6v2`); each must show no
+(`train_field_w256f10v4`, `train_field_w64f6v2`, and the students'
+`train_field_w192f10v4`, `train_field_w128f8v4`); each must show no
 ptxas spill and wgmma (HGMMA) with no mma.sync (HMMA) in its SASS; every
 kernel of the `importance_merge` library (K2/K6) a 0-byte stack frame and
 no spill.
 
+Distillation: the room recipe of `scripts/make_bench_fixture.py` cut to
+DISTILL_STEPS of its 50,000 steps. The teacher is `room_proposal.npz`
+(2x64@6f proposal, 8x256 fine, depth 0.1-8), rendered through K1-K3 at
+128x96 (one K1, K2 and K3 a view) at the walkthrough's 180 train poses, 128
+off-tour coverage poses and the 36 probe-grid poses, held out. K4/K5 at
+each student's library (`train_field_w192f10v4`, the default 6x192@10f;
+`train_field_w128f8v4`, the 4x128@8f speed student) against the plain fp32
+field on one real distillation step's 196,608 fine points (the stock
+gates; times also as one CUDA graph of 20), with each library's ptxas
+lines, spill gate and SASS counts. Then `distill_student` with the fused
+field (one K4 and one K5 call a step through the student's library and
+through the proposal net's; the photometric loss falling) and with the
+plain field on the same teacher views: `psnr_vs_teacher` on the held-out
+views (rendered through K1/K6/K3) within 1 dB of each other; the same
+student steps as CUDA-graph replays of GRAPH_K steps (losses equal to the
+eager run's to 1e-6, ms a step beside it); the speed
+student's shorter run; the sidecar written with `save_turbo_checkpoint`,
+its metadata read back equal, served at the turbo preset (bf16) at 320x240
+on the room's spot (warm ms a frame, one K1, K6 and K3 a frame, SSIM >=
+0.99 against its parity frame at stride 1).
+
 Its last two lines are a JSON object with one entry per kernel (K1-K9; the
 new K1/K3 shapes, each served K7 mode, each K8 row and K9 leg, and K4/K5 at
-the proposal shape have entries of their own) and the result line `{"ok": true, "device": {...}}`. Any
+the proposal shape and at each student's have entries of their own) and the result line `{"ok": true, "device": {...}}`. Any
 failure raises and exits nonzero; without a CUDA card, or outside the
 repository, it exits 2 and prints no result.
 """
@@ -127,7 +150,11 @@ TRAIN_WINDOW = 20  # steps averaged at each end of a run for "loss falls"
 WARM_SKIP = 10  # first steps left out of the warm ms per step
 RESUME_STEP = 150
 GRAPH_K = 10  # steps per CUDA-graph replay in the training phase's graph leg
-GRAPH_PROFILED_CALLS = 3  # the graph leg's last calls, traced to count the kernels they replay
+# The graph leg's last calls, traced to count the kernels they replay. One:
+# a trace of three replays (30 steps) came back short of K4/K5 kernels in
+# one of nine smokes on the H100 while the replays' losses were exact, so
+# the trace lost records; a third of the events leaves it less to lose.
+GRAPH_PROFILED_CALLS = 1
 TRAIN_KERNELS = {  # K4/K5 counter -> the CUDA kernels it counts (csrc/train_field.cu)
     "forward": ("field_fwd_kernel",), "backward": ("field_bwd_chain_kernel",),
     "backward_kernels": ("field_bwd_chain_kernel", "field_dw_kernel", "sum_rows_kernel"),
@@ -421,13 +448,15 @@ def train_config():
     )
 
 
-def field_leg(device, trainer, nets, specs, settings, spec, cfg):
+def field_leg(device, trainer, nets, specs, settings, spec, cfg, graph=False, label=""):
     """K4 and K5 against the fp32 plain field on the points of one real step
-    (step 0's draws on the room scene, the trainer's initial weights): the
+    (step 0's draws on the trainer's views, its initial weights): the
     plain step's autograd gives the raw maps, their cotangents and every
     leaf's gradient. `nets` are the nets held ("coarse" and "fine", or
     "proposal"); with a proposal net the loss is the proposal step's
-    (interlevel + fine MSE). Returns {net: checks, times and bounds}."""
+    (interlevel + fine MSE). The proposal net's times, and every net's with
+    `graph`, are also read as one CUDA graph of 20; `label` heads the
+    printed line. Returns {net: checks, times and bounds}."""
     from nerf_workspaces_explorer_tpu_torch.models.mlp import tree_leaves
     from nerf_workspaces_explorer_tpu_torch.ops import _build
     from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
@@ -438,10 +467,9 @@ def field_leg(device, trainer, nets, specs, settings, spec, cfg):
     from nerf_workspaces_explorer_tpu_torch.train.step import draw_step, sample_training_rays
     from nerf_workspaces_explorer_tpu_torch.utils.metrics import img2mse
 
-    w, h = TRAIN_SIZE
     train_rgbs = trainer._train_rgbs
     gen = torch.Generator(device=device).manual_seed(step_seed(0, 0))
-    draws = draw_step(gen, train_rgbs.shape[0], w * h, cfg.rendering.n_rays, settings, device)
+    draws = draw_step(gen, train_rgbs.shape[0], train_rgbs.shape[1], cfg.rendering.n_rays, settings, device)
     rays, gt = sample_training_rays(trainer.rays_train, train_rgbs, draws.img_idx, draws.pix_idx)
     out = render_ray_bundle(trainer.params, rays, settings, spec=spec, draws=draws.render, full_outputs=True)
     if settings.use_proposal:
@@ -519,7 +547,7 @@ def field_leg(device, trainer, nets, specs, settings, spec, cfg):
             k4_matmul=field_products_matmul_ms(inputs, n, backward=False),
             k5_matmul=field_products_matmul_ms(inputs, n, backward=True),
         )
-        if net == "proposal":
+        if net == "proposal" or graph:
             t.update(k4_graph=graph_ms(k4_step, 20), k5_graph=graph_ms(k5_step, 20),
                      k4_kernel_graph=graph_ms(k4_kernel, 20), k5_kernel_graph=graph_ms(k5_kernel, 20))
         # Bytes: points and view directions in, raw [8, N] out, the fp32
@@ -535,7 +563,7 @@ def field_leg(device, trainer, nets, specs, settings, spec, cfg):
                         t=t, b4=b4, b5=b5, b5_design=b5_design, library=_build.field_library(*ff._shape(meta)))
         graphs = (f"; as one CUDA graph of 20: K4 {t['k4_graph']:.4f} (kernel {t['k4_kernel_graph']:.4f}), "
                   f"K5 {t['k5_graph']:.4f} (kernels {t['k5_kernel_graph']:.4f})") if "k4_graph" in t else ""
-        print(f"{net} field ({res[net]['library']}), {n} points: K4 ms {t['k4']:.3f} (pack + kernel; kernel "
+        print(f"{label}{net} field ({res[net]['library']}), {n} points: K4 ms {t['k4']:.3f} (pack + kernel; kernel "
               f"{t['k4_kernel']:.3f}, pack {t['pack']:.4f}) plain_ms {t['k4_plain']:.3f} bound_ms {b4[0]:.4f} "
               f"({b4[1]}) max_abs_err {k4_err:.2e} (vs fp32), products as torch.matmul {t['k4_matmul']:.3f}; "
               f"K5 ms {t['k5']:.3f} (kernels + gradient gather; kernels {t['k5_kernel']:.3f}) plain_ms "
@@ -701,10 +729,11 @@ def train_phase(card: str, device: torch.device):
     prop = trainer("auto", "proposal", use_proposal=True)
     p_settings = settings._replace(use_proposal=True)
     res.update(field_leg(device, prop, ("proposal",), specs, p_settings, spec, cfg))
+    c_lib, p_lib = res["fine"]["library"], res["proposal"]["library"]
     zero_launches(*counters)
     p_losses, p_warm, p_ckpt = run(prop, TRAIN_STEPS, label="proposal fused")
-    p_launches = {lib: dict(v) for lib, v in ff.SHAPE_LAUNCHES.items()}
-    p_want = {lib: {"forward": TRAIN_STEPS, "backward": TRAIN_STEPS} for lib in p_launches}
+    p_launches = {lib: dict(v) for lib, v in ff.SHAPE_LAUNCHES.items() if sum(v.values())}
+    p_want = {lib: {"forward": TRAIN_STEPS, "backward": TRAIN_STEPS} for lib in (c_lib, p_lib)}
     require(p_launches == p_want and launches_equal(ff.LAUNCHES, want),
             f"proposal K4/K5 launches {p_launches} ({ff.LAUNCHES}), expected {p_want}")
     print(f"train proposal launches by library: {p_launches}", flush=True)
@@ -771,6 +800,261 @@ def train_phase(card: str, device: torch.device):
              bound_by=p["b5"][1], design_bytes_bound_ms=p["b5_design"], products_matmul_ms=p["t"]["k5_matmul"],
              **p_common),
     ]
+
+
+DISTILL_SIZE = (128, 96)  # width, height of the room distillation recipe's views (scripts/make_bench_fixture.py)
+DISTILL_STEPS = 500  # of the recipe's 50,000 (train/distill.py DEFAULT_DISTILL_STEPS)
+DISTILL_GRAPH_STEPS = 100  # the student's steps as CUDA-graph replays, against the eager run's
+SPEED_STEPS = 300  # the opt-in 4x128@8f student's run (cli/distill.py --depth 4 --width 128 --freqs 8)
+DISTILL_STUDENT = (6, 192, 10)  # depth, width, point frequencies: train/distill.py DEFAULT_STUDENT
+SPEED_STUDENT = (4, 128, 8)  # train/distill.py SPEED_STUDENT
+
+
+def distill_phase(card: str, device: torch.device):
+    """Distillation (module docstring); returns the kernels line's entries
+    of K4/K5 at the two student shapes."""
+    from nerf_workspaces_explorer_tpu_torch.core.config import ExperimentConfig, FrameworkConfig, RenderingConfig
+    from nerf_workspaces_explorer_tpu_torch.core.types import COORD
+    from nerf_workspaces_explorer_tpu_torch.camera.poses import poses_from_coordinates
+    from nerf_workspaces_explorer_tpu_torch.data.replica import SceneData
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import (
+        room_coverage_poses,
+        room_grid_poses,
+        room_scene,
+        walkthrough_poses,
+    )
+    from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import load_checkpoint
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer, settings_from_config, spec_from_config
+    from nerf_workspaces_explorer_tpu_torch.ops import _build
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_render as fr
+    from nerf_workspaces_explorer_tpu_torch.ops import importance_merge as im
+    from nerf_workspaces_explorer_tpu_torch.train import distill as dist
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
+    from nerf_workspaces_explorer_tpu_torch.utils.metrics import ssim
+
+    t_phase = time.time()
+    w, h = DISTILL_SIZE
+    teacher, _, meta = load_checkpoint(ROOM_CKPT)
+    near, far = (float(x) for x in meta["depth_range"])
+    cfg = FrameworkConfig(experiment=ExperimentConfig(image_width=w, image_height=h),
+                          rendering=RenderingConfig(depth_range=(near, far)))
+    teacher_settings = settings_from_config(cfg).for_eval()._replace(use_proposal=True)
+    # The recipe's views: the walkthrough's train poses (make_room_scene_splits
+    # at its defaults: 900 frames, every 5th), the off-tour coverage views,
+    # then the probe grid, held out.
+    half = np.asarray(room_scene().half)
+    grid = room_grid_poses(half=half)
+    poses = np.concatenate([walkthrough_poses(900, half=half)[::5], room_coverage_poses(half), grid])
+    n_views, n_holdout = len(poses), len(grid)
+    out_dir = os.path.join(HERE, "build", "torch_kernels", "smoke_distill")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    counters = (ff.LAUNCHES, fr.LAUNCHES, im.LAUNCHES, *ff.SHAPE_LAUNCHES.values())
+    libs = {s: _build.field_library(s[1], s[2], 4) for s in (DISTILL_STUDENT, SPEED_STUDENT)}
+    prop_lib = _build.field_library(64, 6, 2)
+
+    # 1. The teacher's views through the fused path: K1, K2, K3 once a view.
+    zero_launches(*counters)
+    t0 = time.perf_counter()
+    rgb = dist.render_teacher_views(teacher, spec_from_config(cfg), teacher_settings, poses, h, w, near=near,
+                                    far=far, device=device)
+    teacher_ms = (time.perf_counter() - t0) * 1e3 / n_views
+    t_launches = {"K1": fr.LAUNCHES["density_only"], "K2": im.LAUNCHES["importance_merge"], "K3": fr.LAUNCHES["full"]}
+    require(t_launches == {"K1": n_views, "K2": n_views, "K3": n_views} and sum(ff.LAUNCHES.values()) == 0,
+            f"teacher views launched {t_launches}, field {ff.LAUNCHES}")
+    require(rgb.shape == (n_views, h, w, 3) and bool(np.isfinite(rgb).all()) and rgb.std() > 0.01,
+            f"teacher views {rgb.shape}, std {rgb.std()}")
+    print(f"distill teacher views: {n_views} at {w}x{h} (room_proposal.npz, 2x64@6f proposal + 8x256 fine) through "
+          f"K1-K3, {teacher_ms:.3f} ms a view (host clock, the copy to the host included); launches {t_launches}; "
+          f"mean level {rgb.mean():.4f}; card {card}", flush=True)
+
+    # 2. K4/K5 at each student's shape against the fp32 plain field on one
+    # real distillation step's points (the student's and proposal nets'
+    # initial weights, step 0's draws on the teacher's views).
+    n_train = n_views - n_holdout
+    zeros = np.zeros(rgb.shape[:3], np.float32)
+    train_data = SceneData(rgb[:n_train], zeros[:n_train], poses[:n_train])
+    test_data = SceneData(rgb[n_train:], zeros[n_train:], poses[n_train:])
+    res = {}
+    for student in (DISTILL_STUDENT, SPEED_STUDENT):
+        depth, width, freqs = student
+        s_cfg = dist.student_config(h, w, near=near, far=far, depth=depth, net_width=width, num_freqs_3d=freqs)
+        tr = Trainer(f"leg_{width}", s_cfg, train_data=train_data, test_data=test_data, device=device,
+                     save_dir=os.path.join(out_dir, f"leg_{width}"), enable_tensorboard=False, use_proposal=True)
+        tr.setup()
+        s_settings = settings_from_config(s_cfg)._replace(train=True, field_impl="plain", use_proposal=True)
+        res[student] = field_leg(device, tr, ("fine",), {"fine": tr._spec}, s_settings, tr._spec, s_cfg,
+                                 graph=True, label=f"distill student {depth}x{width}@{freqs}f ")["fine"]
+        del tr
+    for student, lib in libs.items():
+        bad = library_spills(lib)
+        counts = sass_counts(lib)
+        lines = [ln.strip() for ln in _build.build_log(lib).splitlines()
+                 if ("Used" in ln and "registers" in ln) or "stack frame" in ln]
+        print(f"distill ptxas {lib}: {' | '.join(lines)}; spills {bad or 'none'}; sass {counts}", flush=True)
+        require(not bad, f"{lib}: ptxas spills {bad}")
+        require(counts is None or (counts["HMMA"] == 0 and counts["IMMA"] == 0 and counts["HGMMA"] > 0),
+                f"{lib}: the products must be wgmma alone {counts}")
+
+    # 3. distill_student with the fused field (the student's and the
+    # proposal net's libraries, one K4 and one K5 call a step each), then
+    # with the plain fp32 field, on the same teacher views; the opt-in
+    # speed student's shorter run.
+    def distill(student, steps, field_impl, name):
+        depth, width, freqs = student
+        losses, rgb_losses, stamps = [], [], []
+
+        def on_step(i, metrics):
+            losses.append(float(metrics["total_loss"]))  # waits for the step's device work
+            rgb_losses.append(float(metrics["rgb_loss_fine"]))
+            stamps.append(time.perf_counter())
+
+        zero_launches(*counters)
+        params, s_cfg, report = dist.distill_student(
+            teacher, spec_from_config(cfg), teacher_settings, poses, height=h, width=w, near=near, far=far,
+            steps=steps, depth=depth, net_width=width, num_freqs_3d=freqs, n_holdout=n_holdout, log_every=0,
+            name=name, teacher_rgb=rgb, field_impl=field_impl, save_dir=os.path.join(out_dir, name), device=device,
+            on_step=on_step)
+        k = TRAIN_WINDOW
+        first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+        rgb_first, rgb_last = float(np.mean(rgb_losses[:k])), float(np.mean(rgb_losses[-k:]))
+        warm = float(np.median(np.diff(stamps)[WARM_SKIP:])) * 1e3
+        launches = {lib: dict(v) for lib, v in ff.SHAPE_LAUNCHES.items() if sum(v.values())}
+        held = {"K1": fr.LAUNCHES["density_only"], "K6": im.LAUNCHES["importance_only"], "K3": fr.LAUNCHES["full"]}
+        # The photometric term is what distillation fits; the total adds the
+        # interlevel term, which starts near zero while neither net holds
+        # density and grows as the fine net forms surfaces.
+        require(all(np.isfinite(losses)) and rgb_last < rgb_first, f"{name}: rgb loss {rgb_first} -> {rgb_last}")
+        require(np.isfinite(report["psnr_vs_teacher"]), f"{name}: report {report}")
+        require(held == {"K1": n_holdout, "K6": n_holdout, "K3": n_holdout}, f"{name}: held-out views {held}")
+        print(f"distill {name} ({depth}x{width}@{freqs}f, field {field_impl}): {steps} steps, mean loss first {k} "
+              f"{first:.5f} -> last {k} {last:.5f} (fine rgb loss {rgb_first:.5f} -> {rgb_last:.5f}); warm ms/step {warm:.2f} (median); K4/K5 calls by library "
+              f"{launches}; psnr_vs_teacher {report['psnr_vs_teacher']:.3f} dB (min "
+              f"{report['psnr_vs_teacher_min']:.3f}) on the {n_holdout} held-out views through K1/K6/K3; card {card}",
+              flush=True)
+        return params, s_cfg, report, warm, launches, losses
+
+    params, s_cfg, report, warm, d_launches, d_losses = distill(DISTILL_STUDENT, DISTILL_STEPS, "auto",
+                                                                "student_fused")
+    lib = libs[DISTILL_STUDENT]
+    d_want = {lib: {"forward": DISTILL_STEPS, "backward": DISTILL_STEPS},
+              prop_lib: {"forward": DISTILL_STEPS, "backward": DISTILL_STEPS}}
+    require(d_launches == d_want, f"distillation K4/K5 launches {d_launches}, expected {d_want}")
+    _, _, p_report, p_warm, p_launches, _ = distill(DISTILL_STUDENT, DISTILL_STEPS, "plain", "student_plain")
+    require(not p_launches, f"the plain student field launched {p_launches}")
+    gap = abs(report["psnr_vs_teacher"] - p_report["psnr_vs_teacher"])
+    print(f"distill student: psnr_vs_teacher fused {report['psnr_vs_teacher']:.3f} dB, plain "
+          f"{p_report['psnr_vs_teacher']:.3f} dB (gap {gap:.3f}, limit {PSNR_GAP_DB}); warm ms/step fused "
+          f"{warm:.2f}, plain {p_warm:.2f}", flush=True)
+    require(gap <= PSNR_GAP_DB, f"distillation PSNR gap {gap} dB")
+    # The same student steps as replays of a CUDA graph of GRAPH_K steps
+    # (a measurement: distill_student steps eagerly): a Trainer of the
+    # student's config, seed and views takes the fused run's trajectory.
+    graphed = Trainer("graphed", s_cfg, train_data=train_data, test_data=test_data, device=device,
+                      save_dir=os.path.join(out_dir, "graphed"), enable_tensorboard=False, use_proposal=True,
+                      steps_per_call=GRAPH_K)
+    graphed.setup()
+    g_losses, call_ms = [], []
+    for c in range(DISTILL_GRAPH_STEPS // GRAPH_K):
+        t0 = time.perf_counter()
+        g_losses += graphed.step_many(c * GRAPH_K)["total_loss_steps"].tolist()  # waits for the call
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    g_diff = max(abs(a - b) for a, b in zip(g_losses, d_losses))
+    g_warm = float(np.median(call_ms[1:])) / GRAPH_K
+    print(f"distill student graph: {DISTILL_GRAPH_STEPS} steps at steps_per_call={GRAPH_K} (the first call "
+          f"capturing, {call_ms[0]:.1f} ms): losses against the eager run max |diff| {g_diff:.1e} (limit 1e-6); "
+          f"warm ms/step graph {g_warm:.2f}, eager {warm:.2f}; card {card}", flush=True)
+    require(graphed.graph_captured and g_diff <= 1e-6, f"distillation graph leg: losses differ by {g_diff}")
+    del graphed
+    _, _, sp_report, sp_warm, sp_launches, _ = distill(SPEED_STUDENT, SPEED_STEPS, "auto", "speed_fused")
+    sp_want = {libs[SPEED_STUDENT]: {"forward": SPEED_STEPS, "backward": SPEED_STEPS},
+               prop_lib: {"forward": SPEED_STEPS, "backward": SPEED_STEPS}}
+    require(sp_launches == sp_want, f"speed student K4/K5 launches {sp_launches}, expected {sp_want}")
+
+    # 4. The sidecar: written beside a teacher path, its metadata read back
+    # equal to what was written, served at the turbo preset (bf16) at
+    # 320x240 on the room's spot.
+    ckpt = os.path.join(out_dir, os.path.basename(ROOM_CKPT))
+    sidecar = dist.turbo_sidecar_path(ckpt)
+    dist.save_turbo_checkpoint(sidecar, params, s_cfg, report=report, teacher=ROOM_CKPT, step=DISTILL_STEPS)
+    served_at = {"n_importance": 48, "proposal_subsample": 4}
+    want_meta = {
+        "turbo": True, "teacher": os.path.basename(ROOM_CKPT),
+        "student": {"depth": 6, "width": 192, "num_freqs_3d": 10, "num_freqs_2d": 4, "n_samples": 64,
+                    "n_importance": 48, "proposal_num_freqs": 6, "proposal_subsample": 4},
+        "distill_report": dict(report, measured_at=served_at), "step": DISTILL_STEPS,
+    }
+    got_meta = dist.read_turbo_metadata(sidecar)
+    require(got_meta == want_meta, f"sidecar metadata {got_meta}")
+    tokyo = train_config()
+    room_cfg = dataclasses.replace(tokyo, rendering=dataclasses.replace(tokyo.rendering, depth_range=(near, far)))
+    room_init = COORD(x=1.0, y=-0.5, z=0.5, pitch=-90.0)
+    room_poses = [poses_from_coordinates(room_init, [COORD(yaw=y)])[0] for y in ROOM_YAWS]
+
+    def turbo(precision, **kw):
+        r = NeRFRenderer("tokyo", ckpt, config=room_cfg, precision=precision, preset="turbo", device=device, **kw)
+        r.initialize_models()
+        return r
+
+    served, exact, parity = turbo("fast"), turbo("fast", proposal_subsample=1), turbo("parity")
+    for pose in room_poses:
+        served.render_pose_uint8(pose).cpu()
+    zero_launches(*counters)
+    serve_ms = []
+    for _ in range(SERVE_REPS):
+        for pose in room_poses:
+            t0 = time.perf_counter()
+            frame = served.render_pose_uint8(pose).cpu().numpy()  # ends in a device -> host copy
+            serve_ms.append((time.perf_counter() - t0) * 1e3)
+    s_launches = {"K1": fr.LAUNCHES["density_only"], "K6": im.LAUNCHES["importance_only"], "K3": fr.LAUNCHES["full"]}
+    n_frames = SERVE_REPS * len(room_poses)
+    require(s_launches == {"K1": n_frames, "K6": n_frames, "K3": n_frames}, f"sidecar serve launches {s_launches}")
+    scores, scores_served = [], []
+    for pose in room_poses:
+        a = exact.render_pose_uint8(pose).cpu().numpy()
+        b = parity.render_pose_uint8(pose).cpu().numpy()
+        c = served.render_pose_uint8(pose).cpu().numpy()
+        require(a.shape == (tokyo.experiment.image_height, tokyo.experiment.image_width, 3), f"frame {a.shape}")
+        scores.append(ssim(a / 255.0, b / 255.0))
+        scores_served.append(ssim(c / 255.0, a / 255.0))
+    print(f"distill sidecar {os.path.basename(sidecar)}: metadata read back equal; served at turbo (bf16, stride 4) "
+          f"{frame.shape[1]}x{frame.shape[0]}: warm ms/frame {float(np.median(serve_ms)):.2f} (median of "
+          f"{n_frames}); launches {s_launches}; SSIM vs parity at stride 1 "
+          f"{', '.join(f'{x:.5f}' for x in scores)} (gate {SSIM_GATE}); stride 4 vs stride 1 "
+          f"{', '.join(f'{x:.5f}' for x in scores_served)}; mean level {frame.mean():.2f}; card {card}", flush=True)
+    require(min(scores) >= SSIM_GATE, f"distilled sidecar at turbo: SSIM {scores} against parity")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"distill phase: {time.time() - t_phase:.1f} s", flush=True)
+
+    src = f"{PACKAGE}/csrc/train_field.cu"
+    entries = []
+    for student, runs in ((DISTILL_STUDENT, d_launches), (SPEED_STUDENT, sp_launches)):
+        r, lib = res[student], libs[student]
+        t = r["t"]
+        tag = "{}x{}@{}f".format(*student)
+        common = dict(route="cuda", source=src, library_ms=None, held_against_plain=True, calls_per_step=1,
+                      points=r["n"], library=lib, pack_ms=t["pack"])
+        if student == DISTILL_STUDENT:
+            common.update(step_ms_eager=warm, step_ms_graph=g_warm, step_ms_plain=p_warm,
+                          psnr_vs_teacher_fused=report["psnr_vs_teacher"],
+                          psnr_vs_teacher_plain=p_report["psnr_vs_teacher"], distill_steps=DISTILL_STEPS)
+        else:
+            common.update(step_ms_eager=sp_warm, psnr_vs_teacher_fused=sp_report["psnr_vs_teacher"],
+                          distill_steps=SPEED_STEPS)
+        entries += [
+            dict(name=f"K4 fused field forward (distillation, student {tag} call of one step)",
+                 replaces="nerf_workspaces_explorer_tpu/ops/pallas_train.py:222", launches=runs[lib]["forward"],
+                 max_abs_err=r["k4_err"], ms=t["k4"], kernel_ms=t["k4_kernel"], graph_ms=t["k4_graph"],
+                 kernel_graph_ms=t["k4_kernel_graph"], plain_ms=t["k4_plain"], bound_ms=r["b4"][0],
+                 bound_by=r["b4"][1], products_matmul_ms=t["k4_matmul"], **common),
+            dict(name=f"K5 fused field backward (distillation, student {tag} call of one step)",
+                 replaces="nerf_workspaces_explorer_tpu/ops/pallas_train.py:237", launches=runs[lib]["backward"],
+                 max_abs_err=r["k5_abs"], max_rel_err=r["k5_rel"], deterministic=True, ms=t["k5"],
+                 kernel_ms=t["k5_kernel"], graph_ms=t["k5_graph"], kernel_graph_ms=t["k5_kernel_graph"],
+                 plain_ms=t["k5_plain"], bound_ms=r["b5"][0], bound_by=r["b5"][1],
+                 design_bytes_bound_ms=r["b5_design"], products_matmul_ms=t["k5_matmul"], **common),
+        ]
+    return entries
 
 
 def launches_equal(got: dict, want: dict) -> bool:
@@ -1512,7 +1796,10 @@ def main() -> int:
     # 7. Training.
     train_kernels = train_phase(card, device)
 
-    # 8. The kernels line, then the result line.
+    # 8. Distillation.
+    distill_kernels = distill_phase(card, device)
+
+    # 9. The kernels line, then the result line.
     src = f"{PACKAGE}/csrc/"
     kernels = [
         dict(name="K1 fused render, density-only (coarse pass)", route="cuda", source=src + "fused_render.cu",
@@ -1531,7 +1818,7 @@ def main() -> int:
              max_abs_err=k3_err, ms=t["k3"], plain_ms=t["k3_plain"], bound_ms=b3, bound_by=by3,
              library_ms=None, ms_eps0=t["k3_eps0"], dense_bound_ms=b3_dense, held_against_plain=True,
              products_matmul_ms=t["products_matmul"], **st3),
-    ] + preset_kernels + train_kernels + probe_kernels
+    ] + preset_kernels + train_kernels + distill_kernels + probe_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

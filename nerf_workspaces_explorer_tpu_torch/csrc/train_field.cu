@@ -1,6 +1,7 @@
 // The fused NeRF training field for Hopper (sm_90a): forward (K4) and
 // backward (K5) of encode + MLP over free sample points, built once per
-// network shape (the stock 8x256@10f/4f net; the 2x64@6f/2f proposal net).
+// network shape (the stock 8x256@10f/4f net; the 2x64@6f/2f proposal net;
+// the distilled students 6x192@10f/4f and 4x128@8f/4f).
 //
 // Replaces: nerf_workspaces_explorer_tpu/ops/pallas_train.py::_fwd_kernel
 //   (via _run_fwd) and ::_bwd_kernel (via _run_bwd), the custom-VJP field
@@ -50,13 +51,31 @@
 //     in 48- and 16-deep k-steps over zero pad columns, its view layer is
 //     an m64n32 product, and its dW blocks are one warpgroup of 64 x 64.
 //     At ~0.3 MFLOP a point it is held by latency, not by the tensor cores.
+//   - The students (the turbo preset's nets, trained by distillation) run
+//     the same kernels at widths 192 and 128: 2 x 0.27 MFLOP (6x192@10f)
+//     and 2 x 0.08 MFLOP (4x128@8f) a point forward, so at a step's
+//     196,608 fine points their bound is ~0.1 ms and ~0.03 ms (K4) at the
+//     bf16 peak, K5 about three times that. What the widths change: a
+//     192-wide layer is 384 bytes deep (three slabs) and its view layer 192
+//     (a full slab, then a 64-byte one: `product` issues two k-steps
+//     there); the point encoding at F = 8 has 51 columns (laid out as 56,
+//     one 64-deep k-step over zero pads). Shared memory sets the ring: a
+//     slab stage is WIDTH x 128 bytes, so the ring holds 3 stages at 256, 5
+//     at 192 (220 KB in all) and 8 below. The dW blocks stay two
+//     warpgroups of 64 rows with every column: 192 columns are three
+//     64-column blocks of a stage, a count that is not a power of two, so
+//     the stage loader divides there where the other widths shift; a
+//     192-row dW takes two 128-row blocks, the second half empty (loads of
+//     zeros, no stores). A depth-6 student with the default skip takes it
+//     at layer 5, inside its trunk; a depth-4 one has none.
 
 #include "hopper.cuh"
 
 // One library per network shape: this file compiles with -DFIELD_WIDTH=W,
 // -DFIELD_PTS_FREQS=F and -DFIELD_VIEW_FREQS=V for each shape the training
-// path runs (ops/_build.py::FIELD_SHAPES): the stock 8x256@10f/4f net and
-// the 2x64@6f/2f proposal net. The defaults are the stock net's.
+// path runs (ops/_build.py::FIELD_SHAPES): the stock 8x256@10f/4f net, the
+// 2x64@6f/2f proposal net and the 6x192@10f/4f and 4x128@8f/4f students.
+// The defaults are the stock net's.
 #ifndef FIELD_WIDTH
 #define FIELD_WIDTH 256
 #endif
@@ -79,7 +98,7 @@
 #define GH_SIGMA 8
 #define MAXD 16
 #define MAX_FIELD_SLABS 160   // slabs of one tile's weight stream (backward, 16 layers: 139)
-#define FRING (WIDTH >= 256 ? 3 : 8)  // weight ring stages (a 2x64 tile streams 7 small slabs)
+#define FRING (WIDTH >= 256 ? 3 : WIDTH >= 192 ? 5 : 8)  // weight ring stages, as many as shared memory holds
 #define FSTAGE (WIDTH * 128)  // the largest slab: WIDTH rows x 128 bytes
 #define BITW(N) (((N) + 63) / 64)  // ReLU-mask words of a thread's N / 2 accumulators
 #define DW_BP 64              // points per stage of the dW products
@@ -87,7 +106,7 @@
 #define DW_TILE (DW_BP * 128)  // one 64-column block of a stage: 64 points x 128 bytes
 #define DW_N WIDTH            // dW columns of a block (every dW has at most WIDTH)
 #define DW_HB (DW_N / 64)     // H column blocks of a stage
-#define DW_HB_LOG2 (DW_HB == 4 ? 2 : 0)
+#define DW_HB_LOG2 (DW_HB == 4 ? 2 : DW_HB == 2 ? 1 : 0)  // where DW_HB is a power of two
 #define DW_WG (WIDTH >= 128 ? 2 : 1)  // consumer warpgroups of a dW block, 64 dW rows each
 #define DW_WG_LOG2 (DW_WG == 2 ? 1 : 0)
 #define DW_M (64 * DW_WG)     // dW rows of a block
@@ -95,8 +114,9 @@
 #define DW_STAGE ((DW_WG + DW_HB) * DW_TILE)  // G: DW_WG column blocks, H: DW_HB
 #define MAX_JOBS 24
 
-static_assert(WIDTH == 256 || WIDTH == 64, "the field kernels are tiled for widths 64 and 256");
-static_assert(DW_HB == (1 << DW_HB_LOG2) && DW_WG == (1 << DW_WG_LOG2), "dW tiling");
+static_assert(WIDTH == 256 || WIDTH == 192 || WIDTH == 128 || WIDTH == 64,
+              "the field kernels are tiled for widths 64, 128, 192 and 256");
+static_assert((DW_HB == 3 || DW_HB == (1 << DW_HB_LOG2)) && DW_WG == (1 << DW_WG_LOG2), "dW tiling");
 
 using namespace rk;
 typedef StreamT<MAX_FIELD_SLABS> FieldStream;
@@ -615,9 +635,9 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
 // blockIdx.y, +chunk), into part[blockIdx.y][out0 + ...]. Each stage holds
 // 64 points of G (DW_WG column blocks) and H (DW_HB), point-major rows of
 // 128 bytes as the global arrays hold them, loaded by cp.async into the
-// swizzled positions; out-of-range values load as zeros. At width 256 a
-// block is 128 x 256 (two warpgroups); at width 64, where every dW is at
-// most 64 x 64, one warpgroup of 64 x 64.
+// swizzled positions; out-of-range values load as zeros. At widths 128-256
+// a block is 128 x WIDTH (two warpgroups); at width 64, where every dW is
+// at most 64 x 64, one warpgroup of 64 x 64.
 __global__ void __launch_bounds__(DW_THREADS, 1)
 field_dw_kernel(const __grid_constant__ DwJobs jobs, int n, int chunk, float* __restrict__ part,
                 long long part_stride) {
@@ -641,7 +661,11 @@ field_dw_kernel(const __grid_constant__ DwJobs jobs, int n, int chunk, float* __
       cp_async16(a0 + cb * DW_TILE + swz(pt, 16 * ch), ok ? jb.g + (size_t)(pb + pt) * jb.ldg + col : jb.g, ok);
     }
     for (int v = tid; v < DW_BP * 8 * DW_HB; v += DW_THREADS) {
+#if DW_HB == 3
+      const int pt = v / (8 * DW_HB), cb = (v >> 3) % DW_HB, ch = v & 7;
+#else
       const int pt = v >> (3 + DW_HB_LOG2), cb = (v >> 3) & (DW_HB - 1), ch = v & 7;
+#endif
       const int col = 64 * cb + 8 * ch;
       const bool ok = pb + pt < end && col < jb.k;
       cp_async16(b0 + cb * DW_TILE + swz(pt, 16 * ch), ok ? jb.h + (size_t)(pb + pt) * jb.ldh + col : jb.h, ok);

@@ -4,7 +4,9 @@ Replica images.
 Counterpart of `nerf_workspaces_explorer_tpu/data/synthetic.py`: the blob
 orbit scene (`make_synthetic_scene`) and the room walkthrough
 (`make_room_scene_splits`, the reference's every-5th / +2 split rule over a
-figure-eight tour of a textured room). Scenes are numpy, drawn from a seed
+figure-eight tour of a textured room), and the room's off-tour poses that
+distillation trains on and is gated on (`room_coverage_poses`,
+`room_grid_poses`). Scenes are numpy, drawn from a seed
 exactly as the JAX package draws them; ground truth is dense-marched in
 torch on the caller's device through the same compositing the model uses.
 With `cache_dir`, rendered splits are memoized as uint8 rgb and float16
@@ -245,6 +247,49 @@ def walkthrough_poses(n_frames: int, half=(2.5, 1.4, 3.0), seed: int = 0) -> np.
         0.85 * hz * np.sin(phi),
     ], axis=-1)
     return np.stack([_look_at(eye[k], target[k]) for k in range(n_frames)]).astype(np.float32)
+
+
+def room_grid_poses(
+    half=(2.5, 1.4, 3.0),
+    grid: int = 3,
+    yaws=(0.0, 90.0, 180.0, 270.0),
+    y: float = -0.1,
+    margin: float = 0.45,
+) -> np.ndarray:
+    """A `grid` x `grid` lattice of positions over the room's floor crossed
+    with fixed yaw headings, off the walkthrough tour: the held-out probe
+    views a distilled student is gated on (JAX `room_grid_poses`)."""
+    hx, _, hz = (float(h) for h in half)
+    xs = np.linspace(-hx * (1 - margin), hx * (1 - margin), grid)
+    zs = np.linspace(-hz * (1 - margin), hz * (1 - margin), grid)
+    poses = []
+    for x in xs:
+        for z in zs:
+            for yaw in yaws:
+                a = np.radians(yaw)
+                forward = np.array([np.sin(a), 0.12, np.cos(a)])
+                forward /= np.linalg.norm(forward)
+                right = np.cross(np.array([0.0, -1.0, 0.0]), forward)
+                right /= np.linalg.norm(right)
+                down = np.cross(forward, right)
+                c2w = np.eye(4, dtype=np.float64)
+                c2w[:3, 0], c2w[:3, 1], c2w[:3, 2] = right, down, forward
+                c2w[:3, 3] = np.array([x, y, z])
+                poses.append(c2w)
+    return np.stack(poses).astype(np.float32)
+
+
+def room_coverage_poses(half=(2.5, 1.4, 3.0)) -> np.ndarray:
+    """Off-tour coverage views for distilling an interior: a 4 x 4 position
+    lattice crossed with 45-degree-offset yaws at two camera heights, apart
+    from the probe grid of `room_grid_poses` by construction (JAX
+    `room_coverage_poses`)."""
+    half = np.asarray(half, dtype=np.float32)
+    yaws = (45.0, 135.0, 225.0, 315.0)
+    return np.concatenate([
+        room_grid_poses(half=half, grid=4, yaws=yaws, y=-0.3),
+        room_grid_poses(half=half, grid=4, yaws=yaws, y=0.15),
+    ])
 
 
 def _quantize(rgb: np.ndarray, depth: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -191,8 +191,8 @@ class NeRFRenderer:
             self._turbo_path = turbo_sidecar_path(ckpt_path)
             if not os.path.exists(self._turbo_path):
                 raise RuntimeError(
-                    f"turbo sidecar {self._turbo_path} not found - distill one first with the "
-                    f"JAX package: python -m nerf_workspaces_explorer_tpu.cli.distill --office {office_name}"
+                    f"turbo sidecar {self._turbo_path} not found - distill one first: "
+                    f"python -m nerf_workspaces_explorer_tpu_torch.cli.distill --office {office_name}"
                 )
             # The student's architecture and serving settings come from the
             # sidecar, before any weights load.

@@ -49,9 +49,10 @@ RENDER_SHAPES = {(64, 6): False, (128, 8): True, (192, 10): True, (256, 10): Tru
 ABLATION_SHAPES = ((128, 8),)
 
 # The network shapes (width, point frequencies, view frequencies) the
-# training field (K4/K5) is built for: the stock 8x256 net and the 2x64
-# proposal net.
-FIELD_SHAPES = ((256, 10, 4), (64, 6, 2))
+# training field (K4/K5) is built for: the stock 8x256 net, the 2x64
+# proposal net, and the two distilled students (train/distill.py): the
+# default 6x192@10f and the opt-in 4x128@8f.
+FIELD_SHAPES = ((256, 10, 4), (64, 6, 2), (192, 10, 4), (128, 8, 4))
 
 def field_library(width: int, pts_freqs: int, view_freqs: int) -> str:
     """The name of the training field's library for one network shape."""

@@ -14,8 +14,9 @@ them), the trunk stops at layer 0, and points and view directions get zero
 cotangents (importance depths are detached and rays are data).
 
 Two kernels, `csrc/train_field.cu`, every product a bf16 wgmma, built once
-per network shape of `KERNEL_SHAPES` (the stock 8x256@10f/4f net and the
-2x64@6f/2f proposal net):
+per network shape of `KERNEL_SHAPES` (the stock 8x256@10f/4f net, the
+2x64@6f/2f proposal net, and the distilled students 6x192@10f/4f and
+4x128@8f/4f; any other shape raises on the card):
   - K4 `field_forward` (replaces `pallas_train.py::_fwd_kernel`);
   - K5 `field_backward` (replaces `::_bwd_kernel`): recompute + input-
     gradient chain, split-K weight-gradient products and an ordered
@@ -56,7 +57,7 @@ from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
 
 # The network shapes (width, point frequencies, view frequencies) the
 # training field kernels are built for, one library each: the stock 8x256
-# net and the 2x64 proposal net.
+# net, the 2x64 proposal net and the two students.
 KERNEL_SHAPES = _build.FIELD_SHAPES
 
 # Launches: K4 calls, K5 calls, and the kernels K5 launches (BACKWARD_KERNELS

@@ -20,7 +20,7 @@ rather than written out by hand:
 import os
 
 WIDTHS = (16, 32, 64, 96, 128, 144, 192, 208, 256)  # every N the K-major products issue
-MN_WIDTHS = (64, 256)  # every N the MN-major products issue
+MN_WIDTHS = (64, 128, 192, 256)  # every N the MN-major products issue (the dW widths)
 BT_WIDTHS = (128,)  # every N the B-transposed products issue
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "nerf_workspaces_explorer_tpu_torch", "csrc", "wgmma.cuh")

@@ -6,7 +6,9 @@ gives the JAX kernel's inputs (`pallas_train._build_kernel_inputs`) exactly,
 with zeros in the padding; the training step's pack from the leaves
 (`_pack_leaves`, one gather) holds the same values, and its gradient gather
 is `grads_to_tree`. Covers the skip at layer 5, no skip, a skip at layer 2
-of a 4-layer net, and the 2x64@6f/2f proposal net (no skip)."""
+of a 4-layer net, the 2x64@6f/2f proposal net (no skip), and the distilled
+students: 6x192@10f (its skip at layer 5, and 192-wide layers that end in a
+64-byte slab after full ones) and 4x128@8f (no skip, a 56-column encoding)."""
 
 import jax
 import numpy as np
@@ -25,7 +27,8 @@ from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
 torch.set_num_threads(2)
 
 SPECS = {"8x256-skip5": dict(), "8x256-no-skip": dict(skips=()), "4x256-skip2": dict(depth=4, skips=(1,)),
-         "2x64-proposal": "proposal"}
+         "2x64-proposal": "proposal", "6x192@10f-skip5": dict(depth=6, width=192),
+         "4x128@8f": dict(depth=4, width=128, input_ch=51)}
 
 
 def _specs(name):
@@ -50,7 +53,7 @@ def _expected_tables(depth, skip_layer, width=256, enc=64, venc=32):
     out from the kernels' note: a matrix [rows, K] of bf16 takes ceil(2 K /
     128) slabs; its k_bytes are 2 K rounded up to the 32-byte k-step. enc
     and venc are the encodings' padded widths (64 and 32 at 10 and 4
-    frequencies, 40 and 16 at 6 and 2)."""
+    frequencies, 56 at 8, 40 and 16 at 6 and 2)."""
     w, half = width, width // 2
     kb = lambda k: -(-2 * k // 32) * 32  # noqa: E731
     trunk = [("w0", w, kb(enc))]
@@ -90,7 +93,7 @@ def test_slab_order_and_bytes(name):
     _, _, spec, inputs, meta = _nets(name)
     ws = ff.pack_field_stream(inputs, meta)
     skip = spec.skips[0] + 1 if spec.skips else -1
-    enc, venc = (40, 16) if spec.width == 64 else (64, 32)
+    enc, venc = -(-spec.input_ch // 8) * 8, -(-spec.input_ch_views // 8) * 8
     want_fwd, want_bwd = _expected_tables(spec.depth, skip, spec.width, enc, venc)
     for table, want in ((ws.layout.forward, want_fwd), (ws.layout.backward, want_bwd)):
         assert [(e[0], e[3], e[4]) for e in table] == want

@@ -22,6 +22,8 @@ from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
 torch.set_num_threads(2)
 
 SMALL = dict(depth=4, width=64, input_ch=39, input_ch_views=15)  # F = 6 / 2
+# The distilled students (train/distill.py), each a field library of its own.
+STUDENTS = {"6x192@10f": dict(depth=6, width=192), "4x128@8f": dict(depth=4, width=128, input_ch=51)}
 BF16_ATOL = 5e-3  # bf16 weights (tests/test_pallas_train.py:40)
 BF16_GRAD_REL = 0.08  # bf16 recompute + bf16 grad products (:54-56)
 
@@ -104,6 +106,25 @@ def test_fused_field_at_the_proposal_shape_matches_jax_kernels():
         assert _rel(a, b) < BF16_GRAD_REL, (i, _rel(a, b))
 
 
+@pytest.mark.parametrize("student", STUDENTS)
+def test_fused_field_at_the_student_shapes_matches_jax_kernels(student):
+    """Each distilled student's shape (its own field library on the card):
+    forward within the bf16 bound, every gradient leaf within rel 0.08 of
+    JAX's interpret-mode kernels, as the 4x64 and proposal cases."""
+    spec_kwargs = STUDENTS[student]
+    params, mine = _trees(spec_kwargs, seed=14)
+    pts, vd, tgt = _inputs(15)
+    jfield = jpt.make_field_train_fn(JSpec(**spec_kwargs), row_tile=128, interpret=True)
+    spec = NerfMLPSpec(**spec_kwargs)
+    out, grads = _port_grads(lambda p, x, v: ff.fused_field(p, spec, x, v), mine, pts, vd, tgt)
+    ref_out, ref_grads = _jax_grads(jfield, params, pts, vd, tgt)
+    np.testing.assert_allclose(out, ref_out, atol=BF16_ATOL)
+    assert len(grads) == len(ref_grads)
+    for i, (a, b) in enumerate(zip(grads, ref_grads)):
+        assert a.shape == b.shape
+        assert _rel(a, b) < BF16_GRAD_REL, (i, _rel(a, b))
+
+
 def test_fused_field_matches_f32_reference():
     """The fused field against JAX's fp32 encode + MLP on the inputs of the
     JAX package's own kernel test (tests/test_pallas_train.py:20-56), to
@@ -149,7 +170,7 @@ def test_plain_f32_field_matches_jax():
         assert _rel(a, b) < 1e-4
 
 
-@pytest.mark.parametrize("spec_kwargs", [SMALL, dict()], ids=["4x64", "8x256"])
+@pytest.mark.parametrize("spec_kwargs", [SMALL, dict(), *STUDENTS.values()], ids=["4x64", "8x256", *STUDENTS])
 def test_kernel_inputs_match_jax(spec_kwargs):
     params, mine = _trees(spec_kwargs, seed=5)
     ref, ref_meta = jpt._build_kernel_inputs(params, JSpec(**spec_kwargs))
@@ -201,6 +222,25 @@ def test_pullback_matches_jax():
     ref = jpt._grads_to_pytree({k: jnp.asarray(v) for k, v in kgrads.items()}, params, jmeta)
     mine_tree = ff.grads_to_tree({k: torch.from_numpy(v) for k, v in kgrads.items()}, meta)
     a = tree_leaves(mine_tree)
+    b = jax.tree_util.tree_leaves(ref)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert [g.shape for g in a] == [p.shape for p in tree_leaves(mine)]
+
+
+@pytest.mark.parametrize("student", STUDENTS)
+def test_pullback_matches_jax_at_student_shapes(student):
+    """`grads_to_tree` equals `_grads_to_pytree` for each student: the
+    6x192@10f skip split at layer 5, the 4x128@8f encoding's 51 of 56 rows."""
+    spec_kwargs = STUDENTS[student]
+    params, mine = _trees(spec_kwargs, seed=12)
+    _, meta = ff.build_kernel_inputs(mine, NerfMLPSpec(**spec_kwargs))
+    rng = np.random.default_rng(13)
+    kgrads = {k: rng.normal(size=s).astype(np.float32) for k, s in ff.grad_shapes(meta).items()}
+    _, jmeta = jpt._build_kernel_inputs(params, JSpec(**spec_kwargs))
+    ref = jpt._grads_to_pytree({k: jnp.asarray(v) for k, v in kgrads.items()}, params, jmeta)
+    a = tree_leaves(ff.grads_to_tree({k: torch.from_numpy(v) for k, v in kgrads.items()}, meta))
     b = jax.tree_util.tree_leaves(ref)
     assert len(a) == len(b)
     for x, y in zip(a, b):

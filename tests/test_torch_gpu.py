@@ -258,10 +258,20 @@ def _field_setup(device, n, seed=0, skips=(4,), spec=None):
     return ff, inputs, meta, pts, views, g_raw.to(device)
 
 
+# The distilled students (train/distill.py): the default 6x192@10f (its
+# skip at layer 5, inside the trunk) and the opt-in 4x128@8f (the default
+# skip lies past its depth), each through its own field library.
+STUDENTS = {
+    "student-6x192": dict(depth=6, width=192),
+    "student-4x128": dict(depth=4, width=128, input_ch=51),
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [8192, 5000, 1, 127, 129, 4097],
                          ids=["aligned", "ragged", "n1", "n127", "n129", "n4097"])
-@pytest.mark.parametrize("skips", [(4,), (), "proposal"], ids=["skip", "no-skip", "proposal-2x64"])
+@pytest.mark.parametrize("skips", [(4,), (), "proposal", *STUDENTS],
+                         ids=["skip", "no-skip", "proposal-2x64", *STUDENTS])
 def test_field_kernels_match_plain(cuda, n, skips):
     """K4 within 1e-3 and every K5 gradient within rel 5e-2 of the plain
     versions: the same bf16 algorithm, whose fp32 sums run in other orders,
@@ -270,11 +280,14 @@ def test_field_kernels_match_plain(cuda, n, skips):
     whose sums cancel) the plain version itself moves by up to rel 2.2e-2
     when only its sums run in fp64 instead of fp32; the kernel read up to
     2.3e-2 on the H100. "proposal" is the 2x64@6f/2f net of
-    `render/proposal.py` (no skip), through its own library."""
+    `render/proposal.py` (no skip), the students those of `STUDENTS`, each
+    through its own library."""
     from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
 
     if skips == "proposal":
         ff, inputs, meta, pts, views, g_raw = _field_setup(cuda, n, spec=proposal_spec(6))
+    elif skips in STUDENTS:
+        ff, inputs, meta, pts, views, g_raw = _field_setup(cuda, n, spec=NerfMLPSpec(**STUDENTS[skips]))
     else:
         ff, inputs, meta, pts, views, g_raw = _field_setup(cuda, n, skips=skips)
     before = dict(ff.LAUNCHES)
@@ -329,9 +342,26 @@ def test_proposal_field_backward_is_deterministic(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("student", STUDENTS)
+def test_student_field_backward_is_deterministic(cuda, student):
+    """Each student's K5 and K4 give the same bits twice, at a distillation
+    step's 196,608 fine points."""
+    ff, inputs, meta, pts, views, g_raw = _field_setup(cuda, 196_608, seed=4, spec=NerfMLPSpec(**STUDENTS[student]))
+    a = ff.field_backward(inputs, meta, pts, views, g_raw)
+    b = ff.field_backward(inputs, meta, pts, views, g_raw)
+    fa = ff.field_forward(inputs, meta, pts, views)
+    fb = ff.field_forward(inputs, meta, pts, views)
+    torch.cuda.synchronize()
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+    assert torch.equal(fa, fb)
+
+
+@pytest.mark.gpu
 def test_field_kernels_refuse_unbuilt_shapes(cuda):
     """A net whose (width, frequencies) has no library raises, forward and
-    backward."""
+    backward: 4x128 at the stock 10 frequencies is not the 4x128@8f
+    student."""
     ff, inputs, meta, pts, views, g_raw = _field_setup(cuda, 256, spec=NerfMLPSpec(depth=4, width=128))
     with pytest.raises(ValueError, match="built for"):
         ff.field_forward(inputs, meta, pts, views)
@@ -858,3 +888,44 @@ def test_render_kernel_launches_are_bit_equal(cuda, mode, density_only):
         lives.append(live)
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1]) and torch.equal(lives[0], lives[1])
+
+
+@pytest.mark.gpu
+def test_distill_student_on_the_card_serves_a_turbo_sidecar(cuda, tmp_path):
+    """A few distillation steps of the 6x192@10f student on the card (the
+    teacher's views through K1-K3, K4/K5 through the student's library and
+    the proposal net's), its sidecar written and served by the turbo
+    renderer: a finite frame, one density pass, placement and fine pass."""
+    from nerf_workspaces_explorer_tpu_torch.core.config import ExperimentConfig, FrameworkConfig, RenderingConfig
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import room_grid_poses
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer, settings_from_config, spec_from_config
+    from nerf_workspaces_explorer_tpu_torch.ops import _build
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+    from nerf_workspaces_explorer_tpu_torch.train import distill as dist
+
+    room = os.path.join(ROOT, "assets", "bench", "room_proposal.npz")
+    teacher, _, meta = load_checkpoint(room)
+    near, far = (float(x) for x in meta["depth_range"])
+    cfg = FrameworkConfig(experiment=ExperimentConfig(image_width=32, image_height=24),
+                          rendering=RenderingConfig(depth_range=(near, far)))
+    settings = settings_from_config(cfg).for_eval()._replace(use_proposal=True)
+    poses = room_grid_poses(grid=2)
+    student = _build.field_library(192, 10, 4)
+    before = {k: dict(v) for k, v in ff.SHAPE_LAUNCHES.items()}
+    params, s_cfg, report = dist.distill_student(
+        teacher, spec_from_config(cfg), settings, poses, height=24, width=32, near=near, far=far, steps=6,
+        n_holdout=2, log_every=0, save_dir=str(tmp_path / "run"), device=cuda)
+    assert ff.SHAPE_LAUNCHES[student]["forward"] - before[student]["forward"] == 6
+    assert ff.SHAPE_LAUNCHES[student]["backward"] - before[student]["backward"] == 6
+    assert sorted(params) == ["fine", "proposal"] and report["psnr_vs_teacher"] == report["psnr_vs_teacher"]
+    ckpt = str(tmp_path / "room.npz")
+    dist.save_turbo_checkpoint(dist.turbo_sidecar_path(ckpt), params, s_cfg, report=report, teacher=room, step=6)
+    r = NeRFRenderer("tokyo", ckpt, config=cfg, precision="fast", preset="turbo", device=cuda)
+    r.initialize_models()
+    before = (dict(fr.LAUNCHES), dict(im.LAUNCHES))
+    frame = r.render_pose(poses[0])
+    torch.cuda.synchronize()
+    assert frame.shape == (24, 32, 3) and bool(torch.isfinite(frame).all())
+    assert fr.LAUNCHES["density_only"] - before[0]["density_only"] == 1
+    assert fr.LAUNCHES["full"] - before[0]["full"] == 1
+    assert im.LAUNCHES["importance_only"] - before[1]["importance_only"] == 1
