@@ -6,9 +6,9 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `nerf_workspaces_explorer_tpu_torch/
-csrc/` and drives the port's paths in this order: serving, the strip-
-pipelined frame, the presets, the two profiling scripts' kernels, training,
-distillation.
+csrc/` and drives the port's paths in this order: serving, the explorer
+app, the strip-pipelined frame, the presets, the two profiling scripts'
+kernels, training from a Replica-layout sequence, training, distillation.
 
 Serving: holds K1-K3 against their plain PyTorch versions on the card at the
 main path's shapes (one 320x240 frame: 76,800 rays, 8x256 coarse+fine nets
@@ -20,6 +20,32 @@ the median of 5 such readings and one CUDA graph of 20), then serves floor-plan 
 the fp32 parity render (SSIM >= 0.99, the repo's gate for bf16 serving,
 reports/reference_parity_320x240.md) and that every kernel of the path ran
 once per frame.
+
+App: the real `app/gui_qt.py` and `app/gui_tk.py` classes on the duck-
+typed toolkits of `tests/fake_toolkits.py` (a PPM `PhotoImage` stand-in and
+a root whose `after` queues, pumped on this thread), over office_tokyo and
+office_geneve served from synth_hier at the reference preset, precision
+"fast": the placeholders that `ensure_assets` writes into a temporary
+directory read back byte-equal; landing, explorer, a click on the plan at
+serving's spots, the four turn buttons, both back flows, each installed
+frame byte-equal to `Workspace.render_image` of the same click and K1, K2,
+K3 once for each full frame (the preview's launches counted apart); on Tk's
+worker threads the same, two overlapping requests (only the later frame
+installed, equal to its serial render) and a failing render raised on the
+UI thread; warm ms from click to installed frame (median of 6) beside
+`Workspace.render_image`'s.
+
+Replica: 100 frames of the room walkthrough at Replica's 640x480 (ground
+truth marched at REPLICA_GT_SAMPLES; 100 of a Sequence_1's ~900 frames,
+for time) written by `utils/png.py` in Replica's layout (8-bit RGB,
+16-bit millimetre depth, `traj_w_c.txt`; frame i's rows all filter i % 5,
+every 10th frame's rows cycling through the five); every file decodes
+exactly to what was written; `Trainer("office_tokyo")` with no data loads
+the splits (every 5th frame, +2) resized to 320x240, which equal the
+loader's resize of the files, then takes 300 steps through K4/K5 (two K4
+and two K5 calls a step, the loss falling) and the same 300 as CUDA-graph
+replays of 10 (losses equal to eager to 1e-6); decode and resize s a
+frame, load s a split and ms a step printed.
 
 Strips: serves the main path's first click as a strip-pipelined frame
 (`render_pose_uint8_pipelined`, 6 strips of 40 rows): bytes equal to the
@@ -122,7 +148,9 @@ failure raises and exits nonzero; without a CUDA card, or outside the
 repository, it exits 2 and prints no result.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -1584,6 +1612,384 @@ def int4_phase(card: str, device: torch.device):
             plain_ms=t["plain"], bound_ms=bound[0], bound_by=bound[1], library_ms=t["lib"], held_against_plain=True))
     return entries
 
+APP_TIMED_CLICKS = 6  # GUI clicks timed warm, each from the click to its installed full frame
+REPLICA_SIZE = (640, 480)  # width, height of a Replica frame (the dataset's renders)
+REPLICA_FRAMES = 100  # of a Sequence_1's ~900
+REPLICA_GT_SAMPLES = 64  # the room recipe marches 320; 64 keeps 100 frames at 640x480 to seconds
+REPLICA_TRAIN_SIZE = (320, 240)  # the stock config's image size: the loader resizes to it
+MIXED_FILTER_EVERY = 10  # every 10th frame's rows cycle through the five PNG filters
+
+
+class PPMPhoto:
+    """Stands in for tk.PhotoImage(data=<PPM bytes>, format="PPM"); keeps
+    the pixels it was handed."""
+
+    def __init__(self, data, format):
+        magic, size, maxval, pixels = data.split(b"\n", 3)
+        require(format == "PPM" and magic == b"P6" and maxval == b"255", "gui_tk handed Tk a malformed PPM")
+        self.width, self.height = map(int, size.split())
+        self.pixels = np.frombuffer(pixels, np.uint8).reshape(self.height, self.width, 3)
+
+
+def queued_root(base):
+    """A fake Tk root whose after() queues, as Tk's does: posted callbacks
+    run when this (the UI) thread pumps, not on the worker that posted."""
+    import queue
+
+    class QueuedRoot(base):
+        def __init__(self):
+            super().__init__()
+            self.posted = queue.Queue()
+
+        def after(self, _ms, callback):
+            self.posted.put(callback)
+
+        def pump(self, until, timeout=120.0):
+            deadline = time.time() + timeout
+            while not until():
+                self.posted.get(timeout=max(0.0, deadline - time.time()))()
+
+    return QueuedRoot()
+
+
+def app_phase(card: str, device: torch.device) -> dict:
+    """The explorer app (module docstring): the real gui_qt and gui_tk
+    classes on duck-typed toolkits (tests/fake_toolkits.py), synth_hier at
+    the reference preset, precision "fast"; returns the K1-K3 launches of
+    the full frames and of the previews."""
+    import importlib
+    import threading
+    import types
+
+    from nerf_workspaces_explorer_tpu_torch.app import assets
+    from nerf_workspaces_explorer_tpu_torch.app import workspace as ws
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_render as fr
+    from nerf_workspaces_explorer_tpu_torch.ops import importance_merge as im
+    from nerf_workspaces_explorer_tpu_torch.utils.png import read_png
+    # By path: a `tests` package installed on the machine would shadow the checkout's tests/.
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from fake_toolkits import QtEvent, TkEvent, TkRoot, install_fake_pyqt5, make_fake_tk, restore_modules
+
+    out_dir = os.path.join(HERE, "build", "torch_kernels", "smoke_app")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ws.ASSETS_DIR = os.path.join(out_dir, "workspaces")  # placeholders here, not in the checkout's assets/
+    spots = {}
+    for cls_name, rel_x, rel_y, *_ in CLICKS:
+        spots.setdefault(cls_name, (rel_x, rel_y))
+    offices = [getattr(ws, name)(ckpt_path=CKPT, precision="fast", device=device) for name in spots]
+    for office in offices:
+        paths = assets.ensure_assets(office)
+        h, w = office.floor_plan_scale
+        want = {"floor_plan": assets.make_floor_plan(office.name, h, w),
+                "floor_plan_coordinate_systems": assets.make_coordinate_systems_plan(office.name, h, w),
+                "thumbnail": assets.make_thumbnail(office.name, seed=hash(office.name) % 1000)}
+        for key, array in want.items():
+            require(paths[key].startswith(out_dir) and np.array_equal(read_png(paths[key]), array),
+                    f"{office.name} {key}: the placeholder does not read back byte-equal")
+    print(f"app assets: {3 * len(offices)} placeholders written by utils/png.py under a temporary directory "
+          f"read back byte-equal", flush=True)
+
+    counters = (fr.LAUNCHES, im.LAUNCHES)
+    calls = []  # (kind, launches) of every render the GUIs asked for
+
+    def kernels():
+        return {"K1": fr.LAUNCHES["density_only"], "K2": im.LAUNCHES["importance_merge"],
+                "K3": fr.LAUNCHES["full"]}
+
+    for office in offices:
+        for kind in ("render_image", "render_image_preview"):
+            def counted(*args, _f=getattr(office, kind), _kind=kind):
+                before = kernels()
+                with contextlib.redirect_stdout(io.StringIO()):  # render_image's console trace
+                    frame = _f(*args)
+                after = kernels()
+                calls.append((_kind, {k: after[k] - before[k] for k in after}))
+                return frame
+            setattr(office, kind, counted)
+
+    def serial(office, args):
+        """Workspace.render_image of the same click, on this thread."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            return type(office).render_image(office, *args)
+
+    # Qt: synchronous on the UI thread, a preview then the full frame.
+    previous = install_fake_pyqt5()
+    sys.modules.pop(f"{PACKAGE}.app.gui_qt", None)
+    images = []
+    qpixmap = sys.modules["PyQt5.QtGui"].QPixmap
+    from_image = qpixmap.fromImage
+    qpixmap.fromImage = staticmethod(lambda image: images.append(image) or from_image(image))
+    try:
+        gui_qt = importlib.import_module(f"{PACKAGE}.app.gui_qt")
+        zero_launches(*counters)
+        calls.clear()
+        landing = gui_qt.LandingPage(offices)
+        qt_ms, qt_frames = [], 0
+        for office in offices:
+            explorer = gui_qt.WorkspaceExplorer(landing, office)
+            (rel_x, rel_y), (h, w) = spots[type(office).__name__], office.floor_plan_scale
+            for i in range(5):  # the plan at serving's spot, then the four turn buttons
+                calls.clear()
+                if i == 0:
+                    explorer._plan.mousePressEvent(QtEvent(round(rel_x * w), round(rel_y * h)))
+                    require(explorer.state.render_args() == (rel_x, rel_y, 0, 0), f"Qt click gave "
+                            f"{explorer.state.render_args()}")
+                    buttons = {b.text(): b for b in explorer._view_widgets if hasattr(b, "click")}
+                else:
+                    buttons["←↑→↓"[i - 1]].click()
+                want = serial(office, explorer.state.render_args())
+                require(np.array_equal(explorer.frame_shown, want) and images[-1].data == want.tobytes(),
+                        f"Qt {office.name} {explorer.state.render_args()}: the installed frame is not "
+                        "Workspace.render_image's")
+                require([k for k, _ in calls] == ["render_image_preview", "render_image"]
+                        and calls[1][1] == {"K1": 1, "K2": 1, "K3": 1},
+                        f"Qt click launches {calls}: K1, K2 and K3 once for the full frame")
+                qt_frames += 1
+            for _ in range(APP_TIMED_CLICKS if office is offices[0] else 0):
+                t0 = time.perf_counter()
+                buttons["←"].click()
+                qt_ms.append((time.perf_counter() - t0) * 1e3)
+            explorer._return_to_floor_plan()
+            require(explorer.state.render_args() == (0.0, 0.0, 0, 0) and explorer._plan in explorer._layout.items,
+                    "Qt back to the floor plan")
+            explorer._return_to_landing_page()
+            require(landing.isVisible() and not explorer.isVisible(), "Qt back to the landing page")
+        qt_launches = kernels()
+    finally:
+        qpixmap.fromImage = staticmethod(from_image)
+        sys.modules.pop(f"{PACKAGE}.app.gui_qt", None)
+        restore_modules(previous)
+    preview = [c for k, c in calls if k == "render_image_preview"][-1]
+    print(f"app qt: {qt_frames} clicks (the plan at serving's spots, then the four turn buttons) on "
+          f"{', '.join(o.name for o in offices)}, each installed frame byte-equal to Workspace.render_image; K1, "
+          f"K2, K3 once per full frame; a preview launches {preview}; launches over the flow {qt_launches}; "
+          "toolkit: tests/fake_toolkits.py", flush=True)
+
+    # Tk: a worker thread per request, frames installed on the UI thread.
+    try:
+        import tkinter  # noqa: F401
+    except ImportError:  # gui_tk's module constants need the names alone
+        stub = types.ModuleType("tkinter")
+        vars(stub).update(vars(make_fake_tk()))
+        sys.modules["tkinter"] = stub
+    gui_tk = importlib.import_module(f"{PACKAGE}.app.gui_tk")
+    fake_tk = make_fake_tk()
+    fake_tk.PhotoImage = PPMPhoto
+    gui_tk.tk = fake_tk
+    gui_tk.BTN_MAIN = {**gui_tk.BTN_MAIN, "relief": fake_tk.FLAT}
+    gui_tk.BTN_CAMERA = {**gui_tk.BTN_CAMERA, "relief": fake_tk.FLAT}
+    root = queued_root(TkRoot)
+    landing = gui_tk.LandingPage(root, offices[:1])
+    office = offices[0]
+    thumb = root.find(lambda w: "<Button-1>" in w.bindings)[0]
+    thumb.bindings["<Button-1>"](TkEvent(10, 10))
+    plan = [w for w in root.find(lambda w: "<Button-1>" in w.bindings) if w is not thumb][0]
+    explorer = plan.bindings["<Button-1>"].__self__
+    installed = []
+    install = explorer._install_frame
+    explorer._install_frame = lambda image: installed.append(image) or install(image)
+    main_thread = threading.get_ident()
+    (rel_x, rel_y), (h, w) = spots[type(office).__name__], office.floor_plan_scale
+
+    def request(action):
+        """One request, pumped until its full frame is installed; the frame
+        against the serial render of the same click on this thread."""
+        installed.clear()
+        calls.clear()
+        t0 = time.perf_counter()
+        action()
+        root.pump(lambda: len(installed) == 2)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = serial(office, explorer.state.render_args())
+        require(np.array_equal(installed[1], want) and np.array_equal(explorer.frame_shown, want),
+                f"Tk {explorer.state.render_args()}: the worker's frame is not the main thread's")
+        require(calls[1][1] == {"K1": 1, "K2": 1, "K3": 1}, f"Tk launches {calls}")
+        return ms
+
+    zero_launches(*counters)
+    request(lambda: plan.bindings["<Button-1>"](TkEvent(round(rel_x * w), round(rel_y * h))))
+    button = lambda text: root.find(lambda b: b.kwargs.get("text") == text and not b.destroyed)[0]  # noqa: E731
+    for text in ("←", "↑", "→", "↓"):
+        request(button(text).invoke)
+    tk_ms = [request(button("←").invoke) for _ in range(APP_TIMED_CLICKS)]
+    tk_launches = kernels()
+    require(threading.get_ident() == main_thread, "pumped off the UI thread")
+
+    # Two overlapping requests: the first mid-render when the second comes.
+    entered, release = threading.Event(), threading.Event()
+    counted_render = office.render_image
+
+    def held(*args):
+        entered.set()
+        require(release.wait(120), "the held render was never released")
+        return counted_render(*args)
+
+    office.render_image = held
+    installed.clear()
+    explorer.state.turn_up()
+    first = explorer._request_render()
+    require(entered.wait(120), "the first request did not start")
+    office.render_image = counted_render
+    explorer.state.turn_down()
+    second = explorer._request_render()
+    release.set()
+    for t in (first, second):
+        t.join(120)
+        require(not t.is_alive(), "a Tk worker did not finish")
+    while not root.posted.empty():
+        root.posted.get()()
+    later = serial(office, explorer.state.render_args())
+    require(len(installed) == 2 and np.array_equal(installed[-1], later),
+            f"overlapping Tk requests installed {len(installed)} frames, the last equal to the later request's "
+            f"serial frame: {np.array_equal(installed[-1], later) if installed else None}")
+
+    # A failing render in the worker raises on the UI thread.
+    def failing(*args):
+        raise RuntimeError("render failed on purpose")
+
+    office.render_image_preview = failing
+    worker = explorer._request_render()
+    worker.join(120)
+    try:
+        root.posted.get(timeout=120)()
+        raise AssertionError("a failing render in the Tk worker did not raise on the UI thread")
+    except RuntimeError as exc:
+        require("on purpose" in str(exc), f"the UI thread raised {exc!r}")
+    office.render_image_preview = type(office).render_image_preview.__get__(office)
+    button("Back to Floor Plan").invoke()
+    require(explorer._view_frame is None and explorer.state.render_args() == (0.0, 0.0, 0, 0),
+            "Tk back to the floor plan")
+    button("Explore another workspace").invoke()
+    require(landing.frame.packed, "Tk back to the landing page")
+
+    for o in offices:
+        del o.render_image, o.render_image_preview  # the counting wrappers
+    render_ms = []
+    for _ in range(APP_TIMED_CLICKS):
+        t0 = time.perf_counter()
+        serial(office, (rel_x, rel_y, -30, 0))
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    office.render_image_preview(rel_x, rel_y, -30, 0)
+    preview_ms = (time.perf_counter() - t0) * 1e3
+    med = lambda xs: float(np.median(xs))  # noqa: E731
+    print(f"app tk: {len(tk_ms) + 5} requests on worker threads, each frame byte-equal to the main thread's "
+          f"render; launches {tk_launches}; of two overlapping requests only the later frame installed (equal to "
+          f"its serial render); a failing render raised on the UI thread", flush=True)
+    print(f"app: warm ms from click to installed full frame (median of {APP_TIMED_CLICKS}): Qt {med(qt_ms):.2f} "
+          f"(synchronous: preview + full frame), Tk {med(tk_ms):.2f} (worker thread, preview + full frame); "
+          f"Workspace.render_image {med(render_ms):.2f}, one preview {preview_ms:.2f}; card {card}", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"qt": qt_launches, "tk": tk_launches, "preview": preview, "qt_ms": med(qt_ms), "tk_ms": med(tk_ms),
+            "render_ms": med(render_ms)}
+
+
+def replica_phase(card: str, device: torch.device) -> dict:
+    """Training from a Replica-layout sequence (module docstring); returns
+    the K4/K5 launches of its eager run."""
+    from nerf_workspaces_explorer_tpu_torch.data import replica
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import render_room_ground_truth, room_scene, walkthrough_poses
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
+    from nerf_workspaces_explorer_tpu_torch.utils import png
+
+    w, h = REPLICA_SIZE
+    root = os.path.join(HERE, "build", "torch_kernels", "smoke_replica")
+    shutil.rmtree(root, ignore_errors=True)
+    scene_dir = os.path.join(root, "office0", "Sequence_1")  # Replica's own name for office_tokyo
+    t0 = time.time()
+    poses = walkthrough_poses(REPLICA_FRAMES)
+    rgb, depth = render_room_ground_truth(room_scene(), poses, h, w, near=0.1, far=8.0,
+                                          n_samples=REPLICA_GT_SAMPLES, device=device)
+    rgb8 = np.round(np.clip(rgb, 0.0, 1.0) * 255.0).astype(np.uint8)
+    depth_mm = np.clip(np.round(depth * 1000.0), 0, 65535).astype(np.uint16)
+    gt_s = time.time() - t0
+    # Frame i: every row with filter i % 5, or every 10th frame rows cycling
+    # through the five.
+    filters = [np.arange(h) % 5 if i % MIXED_FILTER_EVERY == MIXED_FILTER_EVERY - 1 else i % 5
+               for i in range(REPLICA_FRAMES)]
+    t0 = time.time()
+    replica.write_sequence(scene_dir, rgb8, depth_mm, poses, filters)
+    write_s = time.time() - t0
+
+    # Every file decodes exactly to what was written (the loader's readers).
+    decode = {name: [] for name in (*png.FILTERS, "mixed")}
+    for i in range(REPLICA_FRAMES):
+        t0 = time.perf_counter()
+        got_rgb = replica.imread_rgb(os.path.join(scene_dir, "rgb", f"rgb_{i}.png"))
+        got_depth = replica.imread_depth(os.path.join(scene_dir, "depth", f"depth_{i}.png"))
+        decode["mixed" if np.ndim(filters[i]) else png.FILTERS[filters[i]]].append(time.perf_counter() - t0)
+        require(np.array_equal(got_rgb, rgb8[i] / 255.0) and np.array_equal(got_depth, depth_mm[i] / 1000.0),
+                f"frame {i}: the decoded PNGs differ from the arrays written")
+    t0 = time.perf_counter()
+    replica.resize_bilinear(rgb8[0] / 255.0, *REPLICA_TRAIN_SIZE)
+    replica.resize_bilinear(depth_mm[0] / 1000.0, *REPLICA_TRAIN_SIZE)
+    resize_s = time.perf_counter() - t0
+
+    # Trainer(office) with no data loads the sequence itself.
+    cfg = train_config()
+    replica.DATASETS_PATH = root
+    t0 = time.time()
+    trainer = Trainer("office_tokyo", cfg, device=device, save_dir=os.path.join(root, "run"),
+                      enable_tensorboard=False)
+    load_s = time.time() - t0
+    data = trainer._train_data, trainer._test_data
+    train_ids, test_ids = replica.split_ids(REPLICA_FRAMES)
+    tw, th = REPLICA_TRAIN_SIZE
+    require(train_ids == list(range(0, REPLICA_FRAMES, 5)) and test_ids == [i + 2 for i in train_ids], "split ids")
+    for split, ids in zip(data, (train_ids, test_ids)):
+        require(split.rgb.shape == (len(ids), th, tw, 3) and np.array_equal(split.camera_pose, poses[ids]),
+                f"a split's shape {split.rgb.shape} or poses: every 5th frame trains, +2 tests")
+        k = len(ids) // 2
+        want = replica.resize_bilinear(rgb8[ids[k]] / 255.0, tw, th).astype(np.float32)
+        require(np.array_equal(split.rgb[k], want), f"frame {ids[k]}: the split's rgb is not its resized file")
+    trainer.setup()
+
+    def run(tr, steps_per_call):
+        losses, ms = [], []
+        for step in range(0, TRAIN_STEPS, steps_per_call):
+            t0 = time.perf_counter()
+            if steps_per_call == 1:
+                losses.append(float(tr.step(step)["total_loss"]))
+            else:
+                losses.extend(tr.step_many(step)["total_loss_steps"].tolist())
+            ms.append((time.perf_counter() - t0) * 1e3 / steps_per_call)
+        k = TRAIN_WINDOW
+        first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+        require(np.isfinite(losses).all() and last < first, f"replica K={steps_per_call}: loss {first} -> {last}")
+        return losses, first, last, float(np.median(ms[1:]))
+
+    zero_launches(ff.LAUNCHES)
+    losses, first, last, warm = run(trainer, 1)
+    launches = dict(ff.LAUNCHES)
+    want = {"forward": 2 * TRAIN_STEPS, "backward": 2 * TRAIN_STEPS,
+            "backward_kernels": 2 * ff.BACKWARD_KERNELS * TRAIN_STEPS}
+    require(launches == want, f"replica K4/K5 launches {launches}, expected {want}")
+    graphed = Trainer("office_tokyo", cfg, train_data=data[0], test_data=data[1], device=device,
+                      save_dir=os.path.join(root, "graphed"), enable_tensorboard=False, steps_per_call=GRAPH_K)
+    graphed.setup()
+    zero_launches(ff.LAUNCHES)
+    g_losses, g_first, g_last, g_warm = run(graphed, GRAPH_K)
+    g_diff = max(abs(a - b) for a, b in zip(g_losses, losses))
+    require(graphed.graph_captured and g_diff <= 1e-6, f"replica graph: captured {graphed.graph_captured}, "
+            f"losses against eager |diff| {g_diff}")
+    n = len(train_ids) + len(test_ids)
+    med = lambda xs: float(np.median(xs)) if xs else float("nan")  # noqa: E731
+    print(f"replica sequence: {REPLICA_FRAMES} frames of the room walkthrough at {w}x{h} (ground truth "
+          f"{REPLICA_GT_SAMPLES} samples, {gt_s:.1f} s), written by utils/png.py ({write_s:.1f} s, rgb 8-bit and "
+          f"depth 16-bit mm, filters i % 5, every {MIXED_FILTER_EVERY}th frame all five by row); every file decoded "
+          f"exactly; decode s/frame (rgb + depth) " + ", ".join(f"{k} {med(v):.4f}" for k, v in decode.items())
+          + f"; resize to {tw}x{th} s/frame (rgb + depth) {resize_s:.4f}; card {card}", flush=True)
+    print(f"replica load: Trainer('office_tokyo') with no data loaded {len(train_ids)} train / {len(test_ids)} test "
+          f"frames (every 5th, +2) in {load_s:.2f} s ({load_s / 2:.2f} s per split, {load_s / n:.4f} s per frame)",
+          flush=True)
+    print(f"replica train: {TRAIN_STEPS} steps eager, loss first {TRAIN_WINDOW} {first:.5f} -> last {last:.5f}, "
+          f"warm ms/step {warm:.2f}, K4/K5 launches {launches}; at steps_per_call={GRAPH_K} (CUDA graph) loss "
+          f"{g_first:.5f} -> {g_last:.5f}, |diff| to eager {g_diff:.1e}, warm ms/step {g_warm:.2f}; card {card}",
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "ms_step": warm, "ms_step_graph": g_warm}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1779,10 +2185,13 @@ def main() -> int:
           f"parity warm ms/frame {', '.join(f'{x:.1f}' for x in parity_ms)}; launches {launches}; "
           f"card {card}", flush=True)
 
-    # 4. The strip-pipelined frame.
+    # 4. The explorer app: the GUIs' flows on duck-typed toolkits.
+    app = app_phase(card, device)
+
+    # 5. The strip-pipelined frame.
     strips_phase(card, device, pose)
 
-    # 5. The serving presets and precisions.
+    # 6. The serving presets and precisions.
     preset_kernels = presets_phase(card, device, dict(
         weights=weights, z_c=z_c, o_ph=o_ph, d_ph=d_ph, dist_c=dist_c, z_f=z_f, dist_f=dist_f, venc=venc,
         s_c=s_c, s_f=s_f, coarse_bytes=ray_bytes + 3 * s_c * n_rays * 4, floor=t["floor"],
@@ -1790,34 +2199,41 @@ def main() -> int:
         fine_bytes=ray_bytes + 2 * s_f * n_rays * 4 + 32 * n_rays * 2 + 8 * n_rays * 4,
         parity_frames=refs, fast_office=offices[CLICKS[0][0]][0], fast_frames=frames))
 
-    # 6. The fine-pass ablation (K8) and the int4 probe (K9).
+    # 7. The fine-pass ablation (K8) and the int4 probe (K9).
     probe_kernels = ablation_phase(card, device) + int4_phase(card, device)
 
-    # 7. Training.
+    # 8. Training from a Replica-layout sequence, then training.
+    rep = replica_phase(card, device)
     train_kernels = train_phase(card, device)
+    for entry, key in zip(train_kernels[:2], ("forward", "backward")):
+        entry["replica_launches"] = rep["launches"][key]
+        entry["replica_step_ms"], entry["replica_step_ms_graph"] = rep["ms_step"], rep["ms_step_graph"]
 
-    # 8. Distillation.
+    # 9. Distillation.
     distill_kernels = distill_phase(card, device)
 
-    # 9. The kernels line, then the result line.
+    # 10. The kernels line, then the result line.
     src = f"{PACKAGE}/csrc/"
     kernels = [
         dict(name="K1 fused render, density-only (coarse pass)", route="cuda", source=src + "fused_render.cu",
              replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598", launches=launches["K1"],
              max_abs_err=k1_err, ms=t["k1"], plain_ms=t["k1_plain"], bound_ms=b1, bound_by=by1,
-             library_ms=None, ms_eps0=t["k1_eps0"], dense_bound_ms=b1_dense, held_against_plain=True),
+             library_ms=None, ms_eps0=t["k1_eps0"], dense_bound_ms=b1_dense, held_against_plain=True,
+             app_launches_qt=app["qt"]["K1"], app_launches_tk=app["tk"]["K1"]),
         dict(name="K2 importance merge", route="cuda", source=src + "importance_merge.cu",
              replaces="nerf_workspaces_explorer_tpu/ops/pallas_sampling.py:47", launches=launches["K2"],
              max_abs_err=k2_err, ms=t["k2"], plain_ms=t["k2_plain"], bound_ms=b2, bound_by=by2,
              library_ms=None, boundary_flips=k2_flips, boundary_flips_off_u1_rows=k2_flips_rest,
              ms_median_of_5=t["k2_median"], graph_ms=t["k2_graph"], launch_floor_ms=t["floor"],
              launch_floor_median_ms=t["floor_median"], launch_floor_graph_ms=t["floor_graph"],
-             held_against_plain=True),
+             held_against_plain=True, app_launches_qt=app["qt"]["K2"], app_launches_tk=app["tk"]["K2"]),
         dict(name="K3 fused render, full (fine pass)", route="cuda", source=src + "fused_render.cu",
              replaces="nerf_workspaces_explorer_tpu/ops/pallas_render.py:598", launches=launches["K3"],
              max_abs_err=k3_err, ms=t["k3"], plain_ms=t["k3_plain"], bound_ms=b3, bound_by=by3,
              library_ms=None, ms_eps0=t["k3_eps0"], dense_bound_ms=b3_dense, held_against_plain=True,
-             products_matmul_ms=t["products_matmul"], **st3),
+             products_matmul_ms=t["products_matmul"], app_launches_qt=app["qt"]["K3"],
+             app_launches_tk=app["tk"]["K3"], app_click_ms_qt=app["qt_ms"], app_click_ms_tk=app["tk_ms"],
+             app_render_image_ms=app["render_ms"], **st3),
     ] + preset_kernels + train_kernels + distill_kernels + probe_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))

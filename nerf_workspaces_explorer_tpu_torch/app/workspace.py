@@ -1,10 +1,11 @@
 """Workspace models: floor-plan click -> world camera pose -> rendered view.
 
 Counterpart of `nerf_workspaces_explorer_tpu/app/workspace.py` (reference
-application/workspace.py:13-196), without a GUI. Each of the four offices
-hardcodes its floor-plan -> world calibration: x'/z' extents, camera height
-y=-0.5, the angle between the floor-plan axes and the Replica world axes
-(divided out via cos), and an initial pitch of -90 degrees.
+application/workspace.py:13-196); the GUIs (`app.gui_qt`, `app.gui_tk`)
+drive it. Each of the four offices hardcodes its floor-plan -> world
+calibration: x'/z' extents, camera height y=-0.5, the angle between the
+floor-plan axes and the Replica world axes (divided out via cos), and an
+initial pitch of -90 degrees.
 
 Reference quirks kept exactly:
   - new_york maps rel_x -> x' and rel_y -> z' (reference workspace.py:125-126)
@@ -26,6 +27,7 @@ from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
 
 PROJECT_PATH = os.path.normpath(os.path.join(os.path.dirname(__file__), "..", ".."))
 FINAL_MODELS_DIR = os.path.join(PROJECT_PATH, "final_models")
+ASSETS_DIR = os.path.join(PROJECT_PATH, "assets", "workspaces")
 
 
 class Workspace(metaclass=ABCMeta):
@@ -45,6 +47,7 @@ class Workspace(metaclass=ABCMeta):
         self._name = name
         self._floor_plan_scale = floor_plan_scale
         self._office_name = name.replace(" ", "_").lower()
+        self._folder_path = os.path.join(ASSETS_DIR, self._office_name)
         self._model_path = ckpt_path if ckpt_path is not None else _find_checkpoint(self._office_name)
         self._nerf_inference = (
             renderer
@@ -65,6 +68,11 @@ class Workspace(metaclass=ABCMeta):
     @property
     def office_name(self) -> str:
         return self._office_name
+
+    @property
+    def folder_path(self) -> str:
+        """The office's GUI assets (thumbnail, floor plans): `app.assets`."""
+        return self._folder_path
 
     @property
     def floor_plan_scale(self) -> HW:

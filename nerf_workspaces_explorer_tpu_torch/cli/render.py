@@ -2,8 +2,9 @@
 
 Counterpart of `nerf_workspaces_explorer_tpu/cli/render.py`: the GUI's render
 path without a display, one view from floor-plan relative coordinates or a
-camera tour streamed through `render_poses_uint8_stream`. Runs on the CUDA
-card unless given `--device cpu`.
+camera tour streamed through `render_poses_uint8_stream`, written as PNGs
+(`utils.png`; the JAX CLI's tour mp4 needs imageio, which the port does not
+use). Runs on the CUDA card unless given `--device cpu`.
 
 Usage:
     # one view from floor-plan relative coordinates:
@@ -61,6 +62,7 @@ def main(argv=None) -> None:
     from nerf_workspaces_explorer_tpu_torch.app.workspace import WORKSPACE_CLASSES
     from nerf_workspaces_explorer_tpu_torch.core.config import load_config
     from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+    from nerf_workspaces_explorer_tpu_torch.utils.png import write_png
 
     if office not in WORKSPACE_CLASSES:
         raise RuntimeError(f"Office {office} unknown.")
@@ -87,14 +89,12 @@ def main(argv=None) -> None:
     workspace.initialize_models(allow_random_init=args.random_init)
 
     os.makedirs(args.out, exist_ok=True)
-    import imageio
-
     if not args.tour:
         start = time.perf_counter()
         image = workspace.render_image(args.rel_x, args.rel_y, args.hangle, args.vangle)
         elapsed = time.perf_counter() - start
         path = os.path.join(args.out, f"{office}_x{args.rel_x}_y{args.rel_y}_h{args.hangle}_v{args.vangle}.png")
-        imageio.imwrite(path, image)
+        write_png(path, image)
         print(f"Rendered {path} in {elapsed:.2f}s")
         return
 
@@ -113,11 +113,7 @@ def main(argv=None) -> None:
     frames = list(workspace.renderer.render_poses_uint8_stream(poses, lookahead=3))
     elapsed = time.perf_counter() - start
     for i, frame in enumerate(frames):
-        imageio.imwrite(os.path.join(args.out, f"{office}_tour_{i:03d}.png"), frame)
-    try:
-        imageio.mimwrite(os.path.join(args.out, f"{office}_tour.mp4"), frames, fps=10)
-    except (ValueError, OSError):
-        pass
+        write_png(os.path.join(args.out, f"{office}_tour_{i:03d}.png"), frame)
     print(f"Rendered {len(frames)}-frame tour in {elapsed:.2f}s ({elapsed / len(frames):.2f}s/frame) -> {args.out}")
 
 

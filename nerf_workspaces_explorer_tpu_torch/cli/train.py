@@ -1,10 +1,13 @@
-"""Training CLI of the port: a NeRF trained on an analytic synthetic scene.
+"""Training CLI of the port: a NeRF trained on an office's Replica sequence,
+or with `--synthetic` on an analytic scene.
 
 Counterpart of `nerf_workspaces_explorer_tpu/cli/train.py` (reference
 nerf/train.py:11-56: `--office` whitelist, config load, handler setup, the
-per-step wall-clock print), its `--synthetic` path. Runs on `cuda` (the
-fused K4/K5 field kernels) unless given `--device cpu` (plain PyTorch).
-`--mesh` and the Replica loader are not ported and raise.
+per-step wall-clock print). Without `--synthetic` the Trainer loads
+`replica_dataset/<office>/Sequence_1` (`data.replica.ReplicaDataset`, at
+the config's image size). Runs on `cuda` (the fused K4/K5 field kernels)
+unless given `--device cpu` (plain PyTorch). `--mesh` is not ported and
+raises.
 `--steps-per-call K` advances the stretches between cadence boundaries K
 steps a call: on `cuda` a replay of a CUDA graph of K steps, on the CPU K
 eager steps (the same trajectory as one step a call). `--proposal` trains a
@@ -16,6 +19,7 @@ writes final_models/<office>/model.npz and the reference's model.ckpt
 (which has no slot for a proposal net: refused with `--proposal`).
 
 Usage:
+    python -m nerf_workspaces_explorer_tpu_torch.cli.train --office tokyo
     python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --scene room
     python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --scene room \\
         --steps-per-call 10
@@ -50,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--iterations", type=int, default=None)
     parser.add_argument("--resume", type=str, default=None, help="checkpoint to resume")
     parser.add_argument("--synthetic", action="store_true",
-                        help="train on a synthetic scene (required: the Replica loader is not ported)")
+                        help="train on a synthetic scene instead of the office's Replica sequence")
     parser.add_argument("--synthetic-size", type=int, default=64, help="image width (height 3/4 of it)")
     parser.add_argument("--synthetic-views", type=int, nargs=2, default=(8, 2),
                         metavar=("N_TRAIN", "N_TEST"), help="--scene orbit view counts")
@@ -95,9 +99,6 @@ def main(argv=None) -> None:
     for name, off in UNPORTED.items():
         if getattr(args, name) != off:
             raise NotImplementedError(f"--{name.replace('_', '-')} is not ported to the PyTorch trainer yet")
-    if not args.synthetic:
-        raise NotImplementedError("the Replica loader is not ported: train with --synthetic")
-
     office_name = str(args.office).lower().strip().replace(" ", "_")
     if office_name not in AVAILABLE_OFFICES:
         raise RuntimeError(f"Office {office_name} not available for training.")
@@ -132,8 +133,9 @@ def main(argv=None) -> None:
         )
         print(f"(--steps-per-call {args.steps_per_call}: console print cadence raised to every "
               f"{args.steps_per_call} steps)")
+    train_data = test_data = None  # without --synthetic the Trainer loads the Replica sequence
     size = args.synthetic_size
-    if args.scene == "room":
+    if args.synthetic and args.scene == "room":
         near, far = 0.1, 8.0
         config = dataclasses.replace(
             config, rendering=dataclasses.replace(config.rendering, depth_range=(near, far))
@@ -144,7 +146,7 @@ def main(argv=None) -> None:
         )
         print(f"room scene: {len(train_data)} train / {len(test_data)} test views at "
               f"{size}x{size * 3 // 4}")
-    else:
+    elif args.synthetic:
         near, far = config.rendering.depth_range
         n_train, n_test = args.synthetic_views
         train_data, test_data, _ = make_synthetic_scene(

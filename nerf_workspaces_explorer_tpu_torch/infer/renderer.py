@@ -224,6 +224,10 @@ class NeRFRenderer:
         self._quant = None
 
     @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
     def config(self) -> FrameworkConfig:
         return self._config
 

@@ -6,8 +6,9 @@ NeRFReplicaTrainingHandler, nerf/training/nerf_replica_training_handler.py:
 24-618, and the loop of nerf/train.py:30-56). Cadences and metric names are
 the reference's: console print every `step_log_print`, TensorBoard scalars
 and sigma histograms every `step_log_tensorboard`, train/test eval renders
-(PNG, mp4, batch PSNR/MSE) every `step_render_{train,test}`, checkpoints
-every `step_save_ckpt`.
+(PNG, batch PSNR/MSE; the JAX trainer's mp4 needs imageio, which the port
+does not use) every `step_render_{train,test}`, checkpoints every
+`step_save_ckpt`.
 
 On `cuda` the field is the fused K4/K5 kernels (`field_impl="auto"`) and
 eval renders go through the fused serving path (K1-K3 on the current
@@ -73,6 +74,7 @@ from nerf_workspaces_explorer_tpu_torch.train.step import (
     train_steps,
 )
 from nerf_workspaces_explorer_tpu_torch.utils.metrics import to8b
+from nerf_workspaces_explorer_tpu_torch.utils.png import write_png
 from nerf_workspaces_explorer_tpu_torch.utils.viz import depth2rgb
 
 EXPERIMENTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "experiments")
@@ -164,7 +166,10 @@ class Trainer:
             TensorboardWriter(self._save_dir, cfg.to_dict()) if enable_tensorboard else None
         )
         if train_data is None or test_data is None:
-            ReplicaDataset(office_name)  # raises: the loader is not ported
+            dataset = ReplicaDataset(
+                office_name, image_height=cfg.experiment.image_height, image_width=cfg.experiment.image_width
+            )
+            train_data, test_data = dataset.train, dataset.test
         self._train_data, self._test_data = train_data, test_data
         self._img_h, self._img_w = int(train_data.rgb.shape[1]), int(train_data.rgb.shape[2])
         self._state: Optional[TrainState] = None
@@ -404,31 +409,8 @@ class Trainer:
         images = np.concatenate(images, axis=0)
         if save_dir is not None:
             for i, rgb in enumerate(images):
-                self._write_png(os.path.join(save_dir, f"rgb_{i:03d}.png"), to8b(rgb))
-            self._write_mp4(os.path.join(save_dir, "rgb.mp4"), to8b(images))
+                write_png(os.path.join(save_dir, f"rgb_{i:03d}.png"), to8b(rgb))
         return images
-
-    @staticmethod
-    def _write_png(path: str, image: np.ndarray) -> None:
-        try:
-            import imageio
-        except ImportError:  # optional, as in the JAX package
-            return
-        imageio.imwrite(path, image)
-
-    _warned_mp4 = False
-
-    @classmethod
-    def _write_mp4(cls, path: str, images: np.ndarray) -> None:
-        try:
-            import imageio
-
-            imageio.mimwrite(path, images, fps=30, quality=8)
-        except (ImportError, ValueError, OSError) as exc:
-            if not cls._warned_mp4:
-                cls._warned_mp4 = True
-                print(f"(mp4 export unavailable — {type(exc).__name__}: "
-                      f"PNG frames are written where imageio is installed)")
 
     def _eval_split(self, tag: str, rays: RayBundle, gt: np.ndarray, global_step: int,
                     subdir: str) -> float:

@@ -12,6 +12,7 @@ JAX nor the JAX package, so it runs on a machine without them:
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -929,3 +930,112 @@ def test_distill_student_on_the_card_serves_a_turbo_sidecar(cuda, tmp_path):
     assert fr.LAUNCHES["density_only"] - before[0]["density_only"] == 1
     assert fr.LAUNCHES["full"] - before[0]["full"] == 1
     assert im.LAUNCHES["importance_only"] - before[1]["importance_only"] == 1
+
+
+def _tk_explorer_on_the_card(cuda, tmp_path, monkeypatch):
+    """The tkinter explorer (duck-typed toolkit, a root that queues as Tk's
+    does) over Office Tokyo served from synth_hier at precision "fast"."""
+    import importlib
+    import sys
+    import types
+
+    from fake_toolkits import TkEvent, make_fake_tk  # tests/ is on the path under pytest
+    from test_torch_gui import PPMPhoto, QueuedRoot
+
+    from nerf_workspaces_explorer_tpu_torch.app import workspace as ws
+
+    try:
+        import tkinter  # noqa: F401
+    except ImportError:  # a machine without Tk: gui_tk's module constants need the names alone
+        stub = types.ModuleType("tkinter")
+        vars(stub).update(vars(make_fake_tk()))
+        monkeypatch.setitem(sys.modules, "tkinter", stub)
+    gui_tk = importlib.import_module("nerf_workspaces_explorer_tpu_torch.app.gui_tk")
+    fake_tk = make_fake_tk()
+    fake_tk.PhotoImage = PPMPhoto
+    monkeypatch.setattr(gui_tk, "tk", fake_tk)
+    monkeypatch.setattr(gui_tk, "BTN_MAIN", {**gui_tk.BTN_MAIN, "relief": fake_tk.FLAT})
+    monkeypatch.setattr(gui_tk, "BTN_CAMERA", {**gui_tk.BTN_CAMERA, "relief": fake_tk.FLAT})
+    monkeypatch.setattr(ws, "ASSETS_DIR", str(tmp_path / "workspaces"))
+    workspace = ws.OfficeTokyoWorkspace(ckpt_path=CKPT, precision="fast", device=cuda)
+    root = QueuedRoot()
+    landing = gui_tk.LandingPage(root, [workspace])
+    gui_tk.WorkspaceExplorer(root, landing, workspace)
+    plan = [w for w in root.find(lambda w: "<Button-1>" in w.bindings) if w.kwargs.get("image") is not None][-1]
+    explorer = plan.bindings["<Button-1>"].__self__
+    installed = []
+    original = explorer._install_frame
+    explorer._install_frame = lambda image: installed.append(image) or original(image)
+    plan.bindings["<Button-1>"](TkEvent(300, 300))
+    root.pump(lambda: len(installed) == 2)  # the preview, then the full frame
+    explorer._install_frame = original
+    return root, explorer, workspace
+
+
+@pytest.mark.gpu
+def test_tk_worker_frame_equals_main_thread_frame(cuda, tmp_path, monkeypatch):
+    """A frame rendered on the Tk worker thread (its own current stream and
+    device) is byte-equal to the same click rendered on this thread."""
+    root, explorer, workspace = _tk_explorer_on_the_card(cuda, tmp_path, monkeypatch)
+    np.testing.assert_array_equal(explorer.frame_shown, workspace.render_image(0.5, 0.5, 0, 0))
+    explorer.state.turn_left()
+    worker = explorer._request_render()
+    worker.join(60)
+    assert not worker.is_alive()
+    while root.queue.qsize():
+        root.queue.get()()
+    np.testing.assert_array_equal(explorer.frame_shown, workspace.render_image(0.5, 0.5, -30, 0))
+
+
+@pytest.mark.gpu
+def test_tk_overlapping_requests_install_the_later_frame(cuda, tmp_path, monkeypatch):
+    root, explorer, workspace = _tk_explorer_on_the_card(cuda, tmp_path, monkeypatch)
+    workers = []
+    for turn in (explorer.state.turn_left, explorer.state.turn_up, explorer.state.turn_right):
+        turn()
+        workers.append(explorer._request_render())
+    for w in workers:
+        w.join(60)
+        assert not w.is_alive()
+    installed = []
+    original = explorer._install_frame
+    explorer._install_frame = lambda image: installed.append(image) or original(image)
+    while root.queue.qsize():
+        root.queue.get()()
+    assert installed and len(installed) <= 2  # the last request's preview and frame
+    np.testing.assert_array_equal(installed[-1], workspace.render_image(0.5, 0.5, 0, 30))
+
+
+@pytest.mark.gpu
+def test_trainer_on_a_replica_sequence_on_the_card(cuda, tmp_path, monkeypatch):
+    """Trainer(office) with no data: the Replica-layout room sequence
+    (64x48 PNGs, every row filter, resized to 32x24) through K4/K5."""
+    import dataclasses
+
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.data import replica
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import render_room_ground_truth, room_scene, walkthrough_poses
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
+
+    n = 18
+    poses = walkthrough_poses(n)
+    rgb, depth = render_room_ground_truth(room_scene(), poses, 48, 64, device=cuda)
+    replica.write_sequence(str(tmp_path / "office0" / "Sequence_1"),
+                           np.round(np.clip(rgb, 0, 1) * 255).astype(np.uint8),
+                           np.clip(np.round(depth * 1000), 0, 65535).astype(np.uint16), poses,
+                           filters=[i % 5 for i in range(n)])
+    monkeypatch.setattr(replica, "DATASETS_PATH", str(tmp_path))
+    cfg = load_config(office_name="tokyo")
+    cfg = dataclasses.replace(
+        cfg, experiment=dataclasses.replace(cfg.experiment, image_width=32, image_height=24),
+        rendering=dataclasses.replace(cfg.rendering, depth_range=(0.1, 8.0)),
+        logging=dataclasses.replace(cfg.logging, step_log_print=0, step_save_ckpt=0, step_render_test=0,
+                                    step_render_train=0))
+    trainer = Trainer("office_tokyo", cfg, save_dir=str(tmp_path / "run"), enable_tensorboard=False, device=cuda)
+    assert trainer.field_impl == "fused" and trainer._train_data.rgb.shape == (4, 24, 32, 3)
+    trainer.setup()
+    before = dict(ff.LAUNCHES)
+    losses = [float(trainer.step(i)["total_loss"]) for i in range(100)]
+    assert ff.LAUNCHES["forward"] - before["forward"] == 200
+    assert np.isfinite(losses).all() and np.mean(losses[-20:]) < np.mean(losses[:20])

@@ -1,5 +1,6 @@
 """Import rules of the PyTorch port: no JAX, nothing of the JAX package, no
-silent CPU fallback."""
+image library (cv2, PIL, imageio: the card's machine has none), no silent
+CPU fallback."""
 
 import ast
 import os
@@ -13,6 +14,9 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "nerf_workspaces_explorer_tpu_torch")
+
+
+FORBIDDEN = ("jax", "jaxlib", "nerf_workspaces_explorer_tpu", "cv2", "PIL", "imageio")
 
 
 def _port_modules():
@@ -39,9 +43,14 @@ def _imported_names(path):
 
 def test_port_imports_without_jax():
     code = (
-        "import sys, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['nerf_workspaces_explorer_tpu'] = None\n"
+        "import sys, importlib, importlib.util\n"
+        "for name in ('jax', 'nerf_workspaces_explorer_tpu', 'cv2', 'PIL', 'imageio'):\n"
+        "    sys.modules[name] = None\n"
+        # app.gui_qt needs PyQt5; without it, the duck-typed stand-in.
+        "if importlib.util.find_spec('PyQt5') is None:\n"
+        f"    sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        "    from fake_toolkits import install_fake_pyqt5\n"
+        "    install_fake_pyqt5()\n"
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
@@ -71,7 +80,7 @@ def test_port_imports_without_jax():
 def test_no_jax_package_imports(path):
     for name in _imported_names(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "nerf_workspaces_explorer_tpu"), (path, name)
+        assert root not in FORBIDDEN, (path, name)
 
 
 def test_renderer_without_device_raises_without_cuda():

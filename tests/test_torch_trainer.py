@@ -184,13 +184,12 @@ def test_train_cli_on_cpu_lowers_loss(tmp_path, capsys):
     assert os.path.isdir(tmp_path / "run" / "test_render" / "step_000020")
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "4"], []], ids=["mesh", "replica"])
+@pytest.mark.parametrize("flag", [["--mesh", "4"]], ids=["mesh"])
 def test_unported_cli_options_raise(flag):
     from nerf_workspaces_explorer_tpu_torch.cli.train import main
 
-    synthetic_flag = [] if not flag else ["--synthetic"]
     with pytest.raises(NotImplementedError, match="not ported"):
-        main(synthetic_flag + flag + ["--device", "cpu"])
+        main(["--synthetic"] + flag + ["--device", "cpu"])
 
 
 def _cli(tmp_path, *flags, iterations=3):
@@ -465,13 +464,16 @@ def test_step_graph_needs_the_capturable_optimizer(tmp_path, orbit):
                      t._schedule)
 
 
-def test_trainer_needs_a_device_or_cuda_and_data(tmp_path, orbit):
+def test_trainer_needs_a_device_or_cuda_and_data(tmp_path, orbit, monkeypatch):
+    from nerf_workspaces_explorer_tpu_torch.data import replica
+
     train, test, _ = orbit
+    monkeypatch.setattr(replica, "DATASETS_PATH", str(tmp_path / "no_dataset"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer("office_tokyo", tiny_config(), train_data=train, test_data=test,
                     save_dir=str(tmp_path / "r"), enable_tensorboard=False)
-    with pytest.raises(NotImplementedError, match="Replica loader is not ported"):
+    with pytest.raises(FileNotFoundError, match="no Replica sequence for 'office_tokyo'"):
         Trainer("office_tokyo", tiny_config(), save_dir=str(tmp_path / "r2"),
                 enable_tensorboard=False, device="cpu")
     with pytest.raises(ValueError, match="field_impl"):
