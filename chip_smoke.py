@@ -8,7 +8,8 @@ Run from the repository root, with no arguments:
 It builds the port's CUDA kernels from `nerf_workspaces_explorer_tpu_torch/
 csrc/` and drives the port's paths in this order: serving, the explorer
 app, the strip-pipelined frame, the presets, the two profiling scripts'
-kernels, training from a Replica-layout sequence, training, distillation.
+kernels, training from a Replica-layout sequence, the device mesh,
+training, distillation.
 
 Serving: holds K1-K3 against their plain PyTorch versions on the card at the
 main path's shapes (one 320x240 frame: 76,800 rays, 8x256 coarse+fine nets
@@ -46,6 +47,20 @@ loader's resize of the files, then takes 300 steps through K4/K5 (two K4
 and two K5 calls a step, the loss falling) and the same 300 as CUDA-graph
 replays of 10 (losses equal to eager to 1e-6); decode and resize s a
 frame, load s a split and ms a step printed.
+
+Mesh: `parallel/dryrun.py::dryrun_multigpu` at full width (8x256 nets, 64
++ 128 samples, the 1,024-ray step; a 320x240 frame of rays) on
+`data_mesh(1)`, on meshes repeating cuda:0 two and four times, and on
+`data_mesh(2)` where the machine has two cards: a data-parallel step (its
+gradient held against the single-device step on the concatenated batch
+with the same draws, rel < 0.08, the fused field's bound), the sharded
+plain render, the fused leg per shard against it, and the int8 + proposal
+serving configuration, a 6x192@10f turbo student and the stride-4 lattice
+each sharded against single (max |err| < 5e-3, and whether the uint8
+frames are byte-equal). Every shard must launch each kernel of its leg
+once (K1/K7 density, K2/K6, K3/K7 full) and K4/K5 twice a step; warm ms of
+the sharded frame and the data-parallel step beside their unsharded
+counterparts.
 
 Strips: serves the main path's first click as a strip-pipelined frame
 (`render_pose_uint8_pipelined`, 6 strips of 40 rows): bytes equal to the
@@ -1884,6 +1899,62 @@ def app_phase(card: str, device: torch.device) -> dict:
             "render_ms": med(render_ms)}
 
 
+MESH_TIME_REPS = 5  # warm readings (median) of the sharded frame and step
+# The kernel counters each leg of the dry run must move, once a shard (the
+# training step: both nets' K4 and K5 calls, twice a shard).
+MESH_LEGS = {
+    "train_step": ("train_field_w256f10v4_forward", "train_field_w256f10v4_backward"),
+    "fused": ("render_density_only", "placement_importance_merge", "render_full"),
+    "serving": ("render_density_only_int8", "placement_importance_merge", "render_full_int8"),
+    "turbo": ("render_density_only_int8", "placement_importance_only", "render_full_int8"),
+    "stride": ("render_density_only_int8", "placement_importance_only", "render_full_int8"),
+}
+# Kernel ID -> the counters of its launches in the mesh phase.
+MESH_COUNTERS = {
+    "K1": ("render_density_only",), "K2": ("placement_importance_merge",), "K3": ("render_full",),
+    "K4": ("train_field_w256f10v4_forward",), "K5": ("train_field_w256f10v4_backward",),
+    "K6": ("placement_importance_only",), "K7": ("render_density_only_int8", "render_full_int8"),
+}
+
+
+def mesh_phase(card: str, device: torch.device) -> dict:
+    """The device mesh (module docstring); returns each kernel counter's
+    launches summed over the phase's dry runs."""
+    from nerf_workspaces_explorer_tpu_torch.parallel import device_count
+    from nerf_workspaces_explorer_tpu_torch.parallel.dryrun import dryrun_multigpu
+
+    t_phase = time.time()
+    meshes = [("data_mesh(1)", dict(n_devices=1)), ("[cuda:0]*2", dict(devices=[device] * 2)),
+              ("[cuda:0]*4", dict(devices=[device] * 4))]
+    if device_count() >= 2:
+        meshes.append(("data_mesh(2)", dict(n_devices=2)))
+    totals: dict = {}
+    for label, kw in meshes:
+        report = dryrun_multigpu(**kw, time_reps=MESH_TIME_REPS)
+        n = report["n_devices"]
+        per_shard = {}
+        for leg, counts in report["launches"].items():
+            per = 2 if leg == "train_step" else 1
+            require(set(counts) == set(MESH_LEGS[leg]) and all(v == per * n for v in counts.values()),
+                    f"mesh {label} {leg}: launches {counts}, expected {MESH_LEGS[leg]} {per} a shard of {n}")
+            per_shard[leg] = {k: v // n for k, v in counts.items()}
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+        require(set(per_shard) == set(MESH_LEGS), f"mesh {label}: legs {sorted(per_shard)}")
+        ms = report["ms"]
+        print(f"mesh {label}: {n} shards; train loss {report['loss']:.5f}, the single-device step on the "
+              f"concatenated batch {report['loss_single']:.5f}, gradient rel {report['grad_rel']:.2e} (limit 0.08); "
+              f"max |err| fused-vs-plain {report['fused_err']:.3e}, int8+proposal serving sharded-vs-single "
+              f"{report['serving_err']:.3e}, turbo {report['turbo_err']:.3e}, stride-4 {report['stride_err']:.3e} "
+              f"(limit 5e-3); uint8 frames byte-equal: serving {report['serving_bytes_equal']}, turbo "
+              f"{report['turbo_bytes_equal']}, stride {report['stride_bytes_equal']}; launches per shard "
+              f"{per_shard}; warm ms (median of {MESH_TIME_REPS}): 320x240 frame sharded {ms['frame_sharded']:.2f} "
+              f"vs unsharded {ms['frame_single']:.2f}, data-parallel step {ms['step_sharded']:.2f} vs single "
+              f"{ms['step_single']:.2f}; card {card}", flush=True)
+    print(f"mesh phase: {time.time() - t_phase:.1f} s", flush=True)
+    return totals
+
+
 def replica_phase(card: str, device: torch.device) -> dict:
     """Training from a Replica-layout sequence (module docstring); returns
     the K4/K5 launches of its eager run."""
@@ -2204,6 +2275,7 @@ def main() -> int:
 
     # 8. Training from a Replica-layout sequence, then training.
     rep = replica_phase(card, device)
+    mesh_launches = mesh_phase(card, device)
     train_kernels = train_phase(card, device)
     for entry, key in zip(train_kernels[:2], ("forward", "backward")):
         entry["replica_launches"] = rep["launches"][key]
@@ -2235,6 +2307,10 @@ def main() -> int:
              app_launches_tk=app["tk"]["K3"], app_click_ms_qt=app["qt_ms"], app_click_ms_tk=app["tk_ms"],
              app_render_image_ms=app["render_ms"], **st3),
     ] + preset_kernels + train_kernels + distill_kernels + probe_kernels
+    for entry in kernels:
+        counters = MESH_COUNTERS.get(entry["name"].split()[0])
+        if counters:  # the kernel's launches over the mesh phase's dry runs
+            entry["mesh_launches"] = sum(mesh_launches.get(c, 0) for c in counters)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

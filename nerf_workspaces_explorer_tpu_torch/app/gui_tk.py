@@ -10,10 +10,12 @@ preview, then the full frame); frames are installed on the UI thread
 through `root.after`, and a frame of a superseded request is dropped.
 
 Differences from the JAX GUI, on purpose:
-  - No PIL. PNG assets decode with `utils.png`, images are resized for
+  - No PIL. PNG assets decode with `utils.png`, the reference's `.jpg`
+    photographs with `utils.jpeg` (baseline JPEG); images are resized for
     display here (bilinear) and reach Tk as `tk.PhotoImage(data=<PPM
-    bytes>, format="PPM")`. A non-PNG asset (the reference's `.jpg`
-    photographs) raises a `ValueError` that names it.
+    bytes>, format="PPM")`. Any other asset, or a JPEG kind the decoder
+    does not read (progressive, CMYK, ...), raises a `ValueError` that
+    names it.
   - Errors show. A failure of `renderer.warmup()` propagates, and an
     exception in the worker is carried to the UI thread and raised there.
     The JAX GUI swallows the warmup's and the preview's errors (`except
@@ -40,7 +42,7 @@ import torch.nn.functional as F
 from nerf_workspaces_explorer_tpu_torch.app.assets import ensure_assets
 from nerf_workspaces_explorer_tpu_torch.app.common import CameraViewState, click_to_relative
 from nerf_workspaces_explorer_tpu_torch.app.workspace import Workspace, make_workspaces
-from nerf_workspaces_explorer_tpu_torch.utils.png import read_rgb
+from nerf_workspaces_explorer_tpu_torch.utils import jpeg, png
 
 BG = "#50505a"
 BTN_MAIN = {"bg": "#4CAF50", "fg": "white", "relief": tk.FLAT, "padx": 10, "pady": 8}
@@ -52,10 +54,14 @@ RENDER_LOCK = threading.Lock()
 
 
 def load_image(path: str) -> np.ndarray:
-    """A PNG asset as uint8 RGB [H, W, 3]."""
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"{path}: the tkinter GUI reads PNG assets only (convert it, or use --backend qt)")
-    return read_rgb(path)
+    """A PNG or JPEG asset as uint8 RGB [H, W, 3], by its extension (JAX
+    gui_tk.py:60, :121 open the same files with PIL)."""
+    ext = path.lower().rsplit(".", 1)[-1]
+    if ext == "png":
+        return png.read_rgb(path)
+    if ext in ("jpg", "jpeg"):
+        return jpeg.read_rgb(path)
+    raise ValueError(f"{path}: the tkinter GUI reads PNG and JPEG assets (convert it, or use --backend qt)")
 
 
 def resized(image: np.ndarray, width: int, height: int) -> np.ndarray:

@@ -6,8 +6,9 @@ nerf/train.py:11-56: `--office` whitelist, config load, handler setup, the
 per-step wall-clock print). Without `--synthetic` the Trainer loads
 `replica_dataset/<office>/Sequence_1` (`data.replica.ReplicaDataset`, at
 the config's image size). Runs on `cuda` (the fused K4/K5 field kernels)
-unless given `--device cpu` (plain PyTorch). `--mesh` is not ported and
-raises.
+unless given `--device cpu` (plain PyTorch). `--mesh N` trains data-
+parallel over the first N cards (`parallel.data_mesh`); with `--device cpu`
+over N shards of the CPU, the port's stand-in for JAX's virtual devices.
 `--steps-per-call K` advances the stretches between cadence boundaries K
 steps a call: on `cuda` a replay of a CUDA graph of K steps, on the CPU K
 eager steps (the same trajectory as one step a call). `--proposal` trains a
@@ -27,6 +28,7 @@ Usage:
         --proposal --fast-preset
     python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --device cpu \\
         --synthetic-size 16 --iterations 40
+    python -m nerf_workspaces_explorer_tpu_torch.cli.train --synthetic --scene room --mesh 2
 """
 
 from __future__ import annotations
@@ -38,9 +40,6 @@ import time
 
 AVAILABLE_OFFICES = ("tokyo", "new_york", "geneve", "belgrade")
 
-# Options of the JAX package's CLI that are not ported, with the value that
-# means "not asked for".
-UNPORTED = {"mesh": 0}
 # Steps traced by --profile (JAX cli/train.py:218-222).
 PROFILE_STEPS = 20
 
@@ -89,16 +88,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="raise in backward on the first NaN (autograd anomaly detection; slow)")
     parser.add_argument("--export-final", action="store_true",
                         help="on completion, save final_models/<office>/model.npz and the reference's model.ckpt")
-    # Not ported: raises when given.
-    parser.add_argument("--mesh", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh", type=int, default=0, help="devices for data parallelism")
     return parser
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    for name, off in UNPORTED.items():
-        if getattr(args, name) != off:
-            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported to the PyTorch trainer yet")
     office_name = str(args.office).lower().strip().replace(" ", "_")
     if office_name not in AVAILABLE_OFFICES:
         raise RuntimeError(f"Office {office_name} not available for training.")
@@ -119,11 +114,16 @@ def main(argv=None) -> None:
     from nerf_workspaces_explorer_tpu_torch.infer.renderer import resolve_device
     from nerf_workspaces_explorer_tpu_torch.obs.debug import enable_nan_debugging
     from nerf_workspaces_explorer_tpu_torch.obs.profiler import trace_context
+    from nerf_workspaces_explorer_tpu_torch.parallel import data_mesh
     from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
 
     if args.nan_debug:
         enable_nan_debugging()
     device = resolve_device(torch.device(args.device))
+    mesh = None
+    if args.mesh > 0:
+        mesh = data_mesh(args.mesh, devices=[device] * args.mesh if device.type == "cpu" else None)
+        device = mesh.devices[0]
     config = load_config(args.config, office_name=office)
     if args.steps_per_call > 1 and 0 < config.logging.step_log_print < args.steps_per_call:
         # A print every step would make every step a cadence boundary and
@@ -158,7 +158,7 @@ def main(argv=None) -> None:
         office, config, train_data=train_data, test_data=test_data, seed=args.seed,
         save_dir=args.save_dir, field_impl=args.field, use_proposal=args.proposal,
         merge_coarse=not args.fast_preset, steps_per_call=args.steps_per_call,
-        eval_max_views=args.eval_max_views, device=device,
+        eval_max_views=args.eval_max_views, device=device, mesh=mesh,
     )
     trainer.setup()
     start_step = 0

@@ -19,6 +19,12 @@ density-pass, placement and fine-pass kernels once each per frame; on `cpu`
 it runs their plain versions (the JAX package refuses int8 without its TPU
 kernel; the port's plain version is the same kernel's arithmetic).
 
+`mesh` (a `parallel.DataMesh`) shards the parity path's rays over its
+devices (`parallel.shard_render`, JAX renderer.py:156-165); frames come
+back on the mesh's first device. A fused precision with a mesh raises: the
+JAX renderer renders those unsharded, its fused path taking precedence
+over the mesh (:129-152).
+
 The preset picks the placement (JAX renderer.py:235-319):
   - "reference": 64 coarse + 128 importance samples merged, as the
     reference;
@@ -64,6 +70,8 @@ from nerf_workspaces_explorer_tpu_torch.ops.quantize import (
     calibrate_model_quant,
     spec_from_net_params,
 )
+from nerf_workspaces_explorer_tpu_torch.parallel.mesh import DataMesh
+from nerf_workspaces_explorer_tpu_torch.parallel.sharding import shard_render
 from nerf_workspaces_explorer_tpu_torch.rays.raygen import create_rays
 from nerf_workspaces_explorer_tpu_torch.render.pipeline import (
     RenderSettings,
@@ -143,9 +151,20 @@ class NeRFRenderer:
             raise ValueError(f"unknown precision {precision!r} ({'|'.join(PRECISIONS)})")
         if preset not in PRESETS:
             raise ValueError(f"unknown preset {preset!r} ({'|'.join(PRESETS)})")
-        if mesh is not None:
-            raise ValueError("mesh: multi-GPU rendering is not ported yet")
         fused = precision != "parity"
+        if mesh is not None:
+            if not isinstance(mesh, DataMesh):
+                raise ValueError(f"mesh must be a parallel.DataMesh (data_mesh()), got {type(mesh).__name__}")
+            if fused:
+                raise ValueError(
+                    f"mesh: precision {precision!r} renders unsharded (the JAX renderer's fused path "
+                    f"ignores its mesh); the mesh shards precision='parity'"
+                )
+            if device is None:
+                device = mesh.devices[0]
+            elif torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first device {mesh.devices[0]}")
+        self._mesh = mesh
         if chunk is not None and fused:
             raise ValueError(
                 "chunk sets the plain pipeline's ray tile; the fused path takes the whole "
@@ -361,6 +380,8 @@ class NeRFRenderer:
             )
             out = {"rgb_fine": fused.rgb, "disp_fine": fused.disp, "acc_fine": fused.acc,
                    "depth_fine": fused.depth} if full else {"rgb_fine": fused}
+        elif self._mesh is not None:
+            out = shard_render(self._params, rays, self._settings, self._mesh, spec=self._spec, chunk=self._chunk)
         else:
             out = render_rays_chunked(self._models, rays, self._settings, chunk=self._chunk)
         if not full:

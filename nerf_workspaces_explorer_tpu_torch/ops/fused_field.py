@@ -480,7 +480,7 @@ _LEAF_INDEX: Dict[tuple, tuple] = {}
 
 def _leaf_indices(template, spec: NerfMLPSpec, meta, device: torch.device):
     """(stream index, gradient index, layout) of one architecture on
-    `device`, built on the CPU once.
+    `device`, built on the CPU once and copied to each device.
 
     The stream index gives, for each bf16 of the packed stream, 1 + its
     position in the concatenated flattened leaves (0: a zero pad), so that
@@ -495,6 +495,11 @@ def _leaf_indices(template, spec: NerfMLPSpec, meta, device: torch.device):
     key = _meta_key(meta) + (str(device),)
     hit = _LEAF_INDEX.get(key)
     if hit is not None:
+        return hit
+    if device.type != "cpu":
+        # Built once on the CPU, copied to each device.
+        stream_index, grad_index, layout = _leaf_indices(template, spec, meta, torch.device("cpu"))
+        hit = _LEAF_INDEX[key] = (stream_index.to(device), grad_index.to(device), layout)
         return hit
     shapes = [tuple(x.shape) for x in tree_leaves(template)]
     sizes = [int(np.prod(s)) for s in shapes]
@@ -518,8 +523,7 @@ def _leaf_indices(template, spec: NerfMLPSpec, meta, device: torch.device):
     flat = torch.arange(n_dw + n_db, dtype=torch.float64)
     tree = grads_to_tree(_split_grads(meta, flat[:n_dw], flat[n_dw:]), meta)
     grad_index = torch.cat([x.reshape(-1) for x in tree_leaves(tree)]).to(torch.int64)
-    hit = _LEAF_INDEX[key] = (stream_index.to(device), grad_index.to(device),
-                              _layout(meta, fwd, bwd, n_elems))
+    hit = _LEAF_INDEX[key] = (stream_index, grad_index, _layout(meta, fwd, bwd, n_elems))
     return hit
 
 

@@ -698,6 +698,33 @@ def weight_stream(kp: KernelParams) -> WeightStream:
     return hit[1]
 
 
+_KP_TENSORS = ("w_layers", "w_skip_enc", "b_layers", "w_fa", "b_fa", "w_view_h", "w_view_enc", "b_view",
+               "w_rgb", "b_rgb")
+
+
+@torch.no_grad()
+def replicate_kernel_params(kp: KernelParams, device: torch.device | str) -> KernelParams:
+    """`kp` on another device: its tensors copied, and its weight stream
+    (packed once, on `kp`'s device) copied into the stream cache for the
+    copy, so the kernels on `device` read the same bytes without packing
+    again. `kp` itself when it is on `device` already."""
+    device = torch.device(device)
+    if kp.w_fa.device == device:
+        return kp
+    moved = kp._replace(**{
+        name: tuple(t.to(device) for t in v) if isinstance(v, tuple) else v.to(device)
+        for name, v in ((n, getattr(kp, n)) for n in _KP_TENSORS)
+    })
+    if device.type == "cuda":
+        ws = weight_stream(kp)
+        raw = torch.empty(ws.buffer.numel() + SLAB_ROW_BYTES, dtype=torch.uint8, device=device)
+        start = -raw.data_ptr() % SLAB_ROW_BYTES
+        buffer = raw[start : start + ws.buffer.numel()]
+        buffer.copy_(ws.buffer)
+        _STREAMS[id(moved)] = (moved, ws._replace(buffer=buffer))
+    return moved
+
+
 def _stream_args(kp: KernelParams, density_only: bool):
     """The stream arguments of the launch entries: (buffer pointer, slab
     offsets, slab bytes, slab count, trunk slab count)."""

@@ -232,11 +232,13 @@ def render_rays_chunked(
     *,
     spec: Optional[NerfMLPSpec] = None,
     chunk: int = 8192,
+    full_outputs: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Render a large flat bundle in `chunk`-ray tiles (reference
     utils/batch_utils.py:7-25; inference chunk 8192). The ray count is padded
     to a multiple of `chunk` by repeating the last ray, as the JAX package
-    does, so every tile has one shape and padded lanes stay finite."""
+    does, so every tile has one shape and padded lanes stay finite.
+    `full_outputs` as `render_ray_bundle`'s."""
     n = rays.origins.shape[0]
     padded = -(-n // chunk) * chunk
 
@@ -245,7 +247,7 @@ def render_rays_chunked(
 
     rays = RayBundle(*(pad(field) for field in rays))
     tiles = [
-        render_ray_bundle(models, rays[i : i + chunk], settings.for_eval(), spec=spec)
+        render_ray_bundle(models, rays[i : i + chunk], settings.for_eval(), spec=spec, full_outputs=full_outputs)
         for i in range(0, padded, chunk)
     ]
     return {k: torch.cat([t[k] for t in tiles], 0)[:n] for k in tiles[0]}

@@ -28,6 +28,16 @@ the training resolution against ground truth downscaled as JAX's
 `fit` advances the stretches between cadence boundaries K steps a call, on
 `cuda` as a replay of a CUDA graph of K steps (`train/step.py::StepGraph`),
 on the CPU as K eager steps; the trajectory is the single steps'.
+
+`mesh` (a `parallel.DataMesh`; JAX `Trainer(mesh=)`) trains data-parallel:
+each step's rays split into one shard a device, each shard drawn from a
+generator seeded from (seed, step, shard) and its image index from (seed,
+step), the shards' gradients summed on the mesh's first device (as JAX's
+step applies them), which holds the state (`train/step.py::
+data_parallel_step`); the rays, colours and parameters are
+copied once to each other device. `steps_per_call` K then takes K eager
+data-parallel steps a call (no CUDA graph). Eval renders and checkpoints
+use the first device's state, so checkpoints keep their format.
 """
 
 from __future__ import annotations
@@ -66,10 +76,15 @@ from nerf_workspaces_explorer_tpu_torch.train.step import (
     StepDraws,
     StepGraph,
     TrainState,
+    check_mesh_rays,
+    data_parallel_step,
+    draw_shards,
     draw_step,
     init_train_state,
     load_optimizer_leaves,
+    mesh_replicas,
     optimizer_leaves,
+    stack_losses,
     train_step,
     train_steps,
 )
@@ -109,9 +124,10 @@ def resize_images(images: np.ndarray, height: int, width: int) -> np.ndarray:
     return out.permute(0, 2, 3, 1).numpy()
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The generator seed of step `step` of a run seeded `seed`."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+def step_seed(seed: int, step: int, *shard: int) -> int:
+    """The generator seed of step `step` of a run seeded `seed` (of one of
+    its shards, given the shard's index)."""
+    return int(np.random.SeedSequence([seed, step, *shard]).generate_state(1)[0])
 
 
 class Trainer:
@@ -134,7 +150,14 @@ class Trainer:
         steps_per_call: int = 1,
         eval_max_views: int = 0,
         device: Optional[str | torch.device] = None,
+        mesh: Any = None,
     ) -> None:
+        if mesh is not None:
+            if device is None:
+                device = mesh.devices[0]
+            elif torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first device {mesh.devices[0]}")
+        self._mesh = mesh
         self._device = resolve_device(device)
         self._office_name = office_name
         self._config = config if config is not None else load_config(office_name=office_name)
@@ -174,10 +197,15 @@ class Trainer:
         self._img_h, self._img_w = int(train_data.rgb.shape[1]), int(train_data.rgb.shape[2])
         self._state: Optional[TrainState] = None
         self._gen = torch.Generator(device=self._device)
+        self._shards: Optional[Dict[str, Any]] = None  # the mesh's per-device copies
 
     @property
     def field_impl(self) -> str:
         return self._field_impl
+
+    @property
+    def mesh(self) -> Any:
+        return self._mesh
 
     @property
     def steps_per_call(self) -> int:
@@ -239,10 +267,13 @@ class Trainer:
         return {"coarse": self._spec, "fine": self._spec}
 
     def initialize_models(self) -> None:
+        if self._mesh is not None:
+            check_mesh_rays(self._config.rendering.n_rays, self._mesh)
         prop = self._net_specs().get("proposal")
         self._state = init_train_state(self._spec, self._schedule, self._device, seed=self._seed,
                                        proposal_spec=prop)
         self._graph = None
+        self._shards = None
 
     def initialize_rays(self) -> None:
         """Per-image ray bundles on the device (reference :243-263): the
@@ -274,15 +305,43 @@ class Trainer:
         return draw_step(self._gen, n_img, hw, self._config.rendering.n_rays, self._settings,
                          self._device)
 
+    def _mesh_shards(self) -> Dict[str, Any]:
+        """Per distinct device of the mesh: the parameters (the state's own
+        on the first), the training rays and colours, a generator."""
+        if self._shards is None:
+            devices = self._mesh.distinct_devices
+            self._shards = dict(
+                params=mesh_replicas(self.state, self._mesh),
+                rays={d: RayBundle(*(f.to(d) for f in self.rays_train)) for d in devices},
+                rgbs={d: self._train_rgbs.to(d) for d in devices},
+                gens={d: torch.Generator(device=d) for d in devices},
+            )
+        return self._shards
+
+    def _data_parallel_step(self, global_step: int) -> Dict[str, Any]:
+        """Step `global_step` over the mesh, its draws seeded from (seed,
+        step) for the image and (seed, step, shard) for each shard."""
+        sh = self._mesh_shards()
+        n_img, hw = self._train_rgbs.shape[0], self._train_rgbs.shape[1]
+        seeds = [step_seed(self._seed, global_step, i) for i in range(self._mesh.size)]
+        draws = draw_shards(sh["gens"], seeds, step_seed(self._seed, global_step), n_img, hw,
+                            self._config.rendering.n_rays, self._settings, self._mesh)
+        self._state, metrics = data_parallel_step(self.state, sh["params"], sh["rays"], sh["rgbs"], draws,
+                                                  self._settings, self._spec, self._schedule, self._mesh)
+        return metrics
+
     def step(self, global_step: int) -> Dict[str, Any]:
         """One optimization step plus cadenced logging, eval and checkpoints."""
         cfg = self._config
         with self.timer.phase("train_step"):
-            draws = self._draws(global_step)
-            self._state, metrics = train_step(
-                self.state, self.rays_train, self._train_rgbs, draws, self._settings,
-                self._spec, self._schedule,
-            )
+            if self._mesh is not None:
+                metrics = self._data_parallel_step(global_step)
+            else:
+                draws = self._draws(global_step)
+                self._state, metrics = train_step(
+                    self.state, self.rays_train, self._train_rgbs, draws, self._settings,
+                    self._spec, self._schedule,
+                )
 
         log = cfg.logging
         if log.step_log_print > 0 and global_step % log.step_log_print == 0:
@@ -316,8 +375,11 @@ class Trainer:
         dispatch): on `cuda` a replay of a CUDA graph of K steps (captured
         at its first call), on the CPU K eager steps. Returns the last
         step's metrics, plus every step's total loss as `total_loss_steps`
-        [K]."""
+        [K]. Over a mesh, K eager data-parallel steps."""
         k = self._steps_per_call
+        if self._mesh is not None:
+            with self.timer.phase("train_step"):
+                return stack_losses([self._data_parallel_step(global_step + i) for i in range(k)])
         with self.timer.phase("train_step"):
             draws = [self._draws(global_step + i) for i in range(k)]
             args = (self.rays_train, self._train_rgbs, draws, self._settings, self._spec,
@@ -470,6 +532,7 @@ class Trainer:
             state = load_optimizer_leaves(state, opt_leaves)
         self._state = state._replace(step=step)
         self._graph = None  # a captured graph holds the optimizer state's old tensors
+        self._shards = None  # the other devices' copies of the old parameters
         return step
 
     def export_results(self, out_dir: Optional[str] = None) -> list:

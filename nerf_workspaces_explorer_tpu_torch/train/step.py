@@ -16,6 +16,12 @@ noise and importance quantiles) are made by `draw_step` from a generator
 that the caller seeds, or handed in by a test, so both packages can take the
 same step.
 
+Over a device mesh (`parallel/mesh.py`) `data_parallel_step` is JAX's
+`make_train_step(mesh=)`: every shard takes its own pixels of one shared
+image and its own render draws (`draw_shards`), renders and takes its
+gradients on its device, and one Adam update applies their sum, as JAX's
+step does (`data_parallel_grads`).
+
 On `cuda` the optimizer is capturable and its rate a device tensor, so that
 `StepGraph` can capture K steps as one CUDA graph and replay them (the
 counterpart of the JAX package's `lax.scan` over steps, `make_train_step(
@@ -35,7 +41,9 @@ from nerf_workspaces_explorer_tpu_torch.models.mlp import (
     NerfMLPSpec,
     init_nerf_params,
     tree_leaves,
+    tree_unflatten,
 )
+from nerf_workspaces_explorer_tpu_torch.parallel.sharding import on_device, tree_to
 from nerf_workspaces_explorer_tpu_torch.rays.raygen import RayBundle
 from nerf_workspaces_explorer_tpu_torch.render.pipeline import (
     RenderDraws,
@@ -221,7 +229,134 @@ def train_step(
     return state._replace(step=state.step + 1), metrics
 
 
-def _stack_losses(steps: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+def check_mesh_rays(n_rays: int, mesh) -> int:
+    """Rays per shard of a data-parallel step; `n_rays` must divide by the
+    mesh size (JAX step.py:239-241)."""
+    if n_rays % mesh.size != 0:
+        raise ValueError(f"n_rays={n_rays} not divisible by mesh size {mesh.size}")
+    return n_rays // mesh.size
+
+
+def draw_shards(
+    gens: Dict[torch.device, torch.Generator], seeds: List[int], img_seed: int, n_img: int, hw: int,
+    n_rays: int, settings: RenderSettings, mesh,
+) -> List[StepDraws]:
+    """One data-parallel step's draws (JAX step.py:249-256): one image index
+    for every shard, from a generator seeded `img_seed`, and per shard its
+    own pixels and render draws, from `seeds[i]`, on the shard's device
+    (`gens` holds a generator per distinct device)."""
+    per_shard = check_mesh_rays(n_rays, mesh)
+    first = mesh.devices[0]
+    img_idx = torch.randint(0, n_img, (), generator=gens[first].manual_seed(img_seed), device=first)
+    draws = []
+    for device, seed in zip(mesh.devices, seeds):
+        gen = gens[device].manual_seed(seed)
+        pix_idx = torch.randint(0, hw, (per_shard,), generator=gen, device=device)
+        draws.append(StepDraws(img_idx.to(device), pix_idx, draw_render_randoms(gen, per_shard, settings, device)))
+    return draws
+
+
+def mesh_replicas(state: TrainState, mesh) -> Dict[torch.device, Dict[str, Any]]:
+    """The state's parameters on each distinct device of the mesh: the
+    state's own tree on the first, a copy with leaves of its own elsewhere
+    (`data_parallel_step` refreshes them after each update)."""
+    first = mesh.devices[0]
+    if tree_leaves(state.params)[0].device != first:
+        raise ValueError(f"the state's parameters are on {tree_leaves(state.params)[0].device}, "
+                         f"the mesh starts at {first}")
+    out = {first: state.params}
+    for device in mesh.distinct_devices[1:]:
+        with torch.no_grad():
+            tree = tree_to(state.params, device)
+        out[device] = tree_unflatten(tree, [x.detach().requires_grad_(True) for x in tree_leaves(tree)])
+    return out
+
+
+def data_parallel_grads(
+    replicas: Dict[torch.device, Dict[str, Any]],
+    rays: Dict[torch.device, RayBundle],
+    rgbs: Dict[torch.device, torch.Tensor],
+    draws: List[StepDraws],
+    settings: RenderSettings,
+    spec: NerfMLPSpec,
+    mesh,
+) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """Each shard's sample, render, loss and gradients on its device, then
+    the gradient JAX's data-parallel step applies, formed on the mesh's
+    first device in shard order (no atomics, no collective library), and
+    the step's metrics.
+
+    That gradient is the SUM over shards of each shard's gradient, n times
+    the gradient of the concatenated batch's mean loss. JAX's step writes
+    `pmean(jax.grad(loss)(params))` inside `shard_map` (step.py:258-266),
+    but there `jax.grad` of the replicated parameters already sums the
+    shards' gradients (it transposes their implicit broadcast into a psum),
+    so the `pmean` of that replicated sum returns it unchanged. Adam is
+    scale-free up to its eps, so the sum trains as the mean would with eps
+    / n; the port takes the sum to take JAX's steps.
+    Scalar metrics are each shard's, averaged (a true `pmean`);
+    `trans_coarse` and `trans_fine` are concatenated in shard order (JAX's
+    `P(axis_name)` out-spec).
+
+    replicas, rays, rgbs: per distinct device, the parameter tree (leaf
+    tensors), the training rays [N_img, H*W] and colours [N_img, H*W, 3].
+    Gradients come from `torch.autograd.grad`, not `.backward()`: shards of
+    one device share its leaves, whose `.grad` would sum them silently."""
+    if len(draws) != mesh.size:
+        raise ValueError(f"{len(draws)} shards' draws for a mesh of {mesh.size}")
+    train_settings = settings._replace(train=True)
+    grads, metrics = [], []
+    for device, d in zip(mesh.devices, draws):
+        with on_device(device):
+            params = replicas[device]
+            sampled, gt = sample_training_rays(rays[device], rgbs[device], d.img_idx, d.pix_idx)
+            loss, m = loss_and_metrics(params, sampled, gt, train_settings, spec, d.render)
+            grads.append(torch.autograd.grad(loss, tree_leaves(params)))
+            metrics.append(m)
+    first = mesh.devices[0]
+
+    def total(xs):
+        out = xs[0].to(first, copy=True)
+        for x in xs[1:]:
+            out += x.to(first)
+        return out
+
+    out = {k: (total([m[k] for m in metrics]) / mesh.size if metrics[0][k].ndim == 0
+               else torch.cat([m[k].to(first) for m in metrics], 0)) for k in metrics[0]}
+    return [total(g) for g in zip(*grads)], out
+
+
+def data_parallel_step(
+    state: TrainState,
+    replicas: Dict[torch.device, Dict[str, Any]],
+    rays: Dict[torch.device, RayBundle],
+    rgbs: Dict[torch.device, torch.Tensor],
+    draws: List[StepDraws],
+    settings: RenderSettings,
+    spec: NerfMLPSpec,
+    schedule: ExponentialDecay,
+    mesh,
+) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One data-parallel step (JAX step.py:232-304): `data_parallel_grads`
+    (the shards' summed gradient, as JAX applies it), then one Adam update
+    of the state's parameters on the mesh's first device at lr(state.step) (`replicas[mesh.devices[0]]` is the state's own
+    tree), then each other device's replica refreshed from them."""
+    set_learning_rate(state.optimizer, schedule(state.step))
+    grads, metrics = data_parallel_grads(replicas, rays, rgbs, draws, settings, spec, mesh)
+    leaves = tree_leaves(state.params)
+    for p, g in zip(leaves, grads):
+        p.grad = g
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        for device, tree in replicas.items():
+            if device != mesh.devices[0]:
+                for dst, src in zip(tree_leaves(tree), leaves):
+                    dst.copy_(src)
+    return state._replace(step=state.step + 1), metrics
+
+
+def stack_losses(steps: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     """The last step's metrics, with every step's total loss as
     `total_loss_steps` [K]."""
     out = dict(steps[-1])
@@ -244,7 +379,7 @@ def train_steps(
     for d in draws:
         state, m = train_step(state, rays, rgbs, d, settings, spec, schedule)
         steps.append(m)
-    return state, _stack_losses(steps)
+    return state, stack_losses(steps)
 
 
 def _draw_tensors(d: StepDraws) -> List[torch.Tensor]:
@@ -312,7 +447,7 @@ class StepGraph:
                 for group in state.optimizer.param_groups:
                     group["lr"].copy_(self._lr[i])
                 steps.append(apply_step(state, rays, rgbs, self._draws[i], settings, spec))
-            self._metrics = _stack_losses(steps)
+            self._metrics = stack_losses(steps)
         self.graph = graph
         return state_after, metrics
 

@@ -184,13 +184,93 @@ def test_kernel_inputs_match_jax(spec_kwargs):
     assert ff.grad_shapes(meta) == jpt._grad_shapes(ref_meta)
 
 
-@pytest.mark.parametrize("skips", [(4,), (1,)], ids=["no-skip", "skip2"])
-def test_kernel_layout_backward_matches_jax_kernel(skips):
+# The four network shapes the training field is built for
+# (`ops/_build.py::FIELD_SHAPES`), at their full width and frequencies:
+# the 2x64@6f/2f proposal net, the stock 8x256@10f/4f net and the two
+# students.
+LIBRARY_SHAPES = {
+    "2x64@6f": dict(depth=2, width=64, input_ch=39, input_ch_views=15, skips=()),
+    "8x256@10f": dict(),
+    "6x192@10f": dict(depth=6, width=192),
+    "4x128@8f": dict(depth=4, width=128, input_ch=51),
+}
+LAYOUT_CASES = [(name, dict(SMALL, skips=skips), 6, True)  # 4x64
+                for name, skips in (("no-skip", (4,)), ("skip2", (1,)))]
+LAYOUT_CASES += [(f"{name}-seed{seed}", kw, seed, False) for name, kw in LIBRARY_SHAPES.items() for seed in (0, 1, 2)]
+# Each leaf's excess over the strict bound is at most this factor times the
+# flipped units' contributions (see the test's docstring).
+FLIP_FACTOR = 1.0
+
+
+def _jax_activations(ref_in, ref_meta, pts, vd, tile=128):
+    """The JAX kernels' recomputed activations [N, width] per trunk layer
+    and of the view layer, from `_forward_from_refs` jitted on the kernel's
+    128-point tiles: the arithmetic the interpret-mode kernel runs (its raw
+    output is checked bit-equal)."""
+    names, n = list(ref_in), pts.shape[0]
+    padded = -(-n // tile) * tile
+
+    @jax.jit
+    def forward(p, v, *values):
+        inputs = dict(zip(names, values))
+        return jpt._forward_from_refs(p, v, lambda k: inputs[k], ref_meta)
+
+    pp, vv = (np.pad(x.T, ((0, 0), (0, padded - n))) for x in (pts, vd))
+    tiles = [forward(jnp.asarray(pp[:, t:t + tile]), jnp.asarray(vv[:, t:t + tile]), *ref_in.values())
+             for t in range(0, padded, tile)]
+    cat = lambda xs: np.concatenate([np.asarray(x.astype(jnp.float32)) for x in xs], 1)[:, :n].T  # noqa: E731
+    hs = [cat([a["hs"][i] for a, _ in tiles]) for i in range(ref_meta["n_layers"])]
+    return hs, cat([a["hv"] for a, _ in tiles]), cat([raw for _, raw in tiles]).T
+
+
+def _flip_contribution(inputs, meta, acts, g, jhs, jhv):
+    """Sum over the (point, unit) pairs whose ReLU mask differs between the
+    two packages' recomputes of |g| * max(1, |h|): g the cotangent that
+    reaches the unit before its mask, h the largest input activation of
+    its layer at that point, both from the plain version."""
+    w = {k: v.float() for k, v in inputs.items()}
+    feat, venc, hs, feature, hv = (acts[k] for k in ("feat", "venc", "hs", "feature", "hv"))
+    gt = g.T
+    zeros = torch.zeros_like(gt)
+    g_hv = ff._bf(torch.cat([gt[:, 0:3], zeros[:, :5]], 1)) @ w["w_rgb"]
+    h_in = torch.maximum(feature.abs().amax(1), venc.abs().amax(1))
+    total = float((g_hv.abs() * torch.clamp(h_in, min=1.0)[:, None] * ((hv > 0) != torch.from_numpy(jhv > 0))).sum())
+    g_feature = ff._bf(ff._bf(g_hv * (hv > 0)) @ w["w_view_h"])
+    g_h = g_feature @ w["w_feature"] + ff._bf(torch.cat([gt[:, 3:4], zeros[:, :7]], 1)) @ w["w_alpha"]
+    for i in range(meta["n_layers"] - 1, -1, -1):
+        h_in = (feat if i == 0 else hs[i - 1]).abs().amax(1)
+        if i >= 1 and (i - 1) in meta["skips"]:
+            h_in = torch.maximum(h_in, feat.abs().amax(1))
+        flips = (hs[i] > 0) != torch.from_numpy(jhs[i] > 0)
+        total += float((g_h.abs() * torch.clamp(h_in, min=1.0)[:, None] * flips).sum())
+        g_c = ff._bf(g_h * (hs[i] > 0))
+        if i > 0:
+            g_h = g_c @ w[f"w{i}"]
+    return total
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES, ids=[c[0] for c in LAYOUT_CASES])
+def test_kernel_layout_backward_matches_jax_kernel(case):
     """K5's plain version against the JAX backward kernel on the same
     kernel-layout inputs (both bf16 with fp32 sums, summed in other orders),
-    and K4's against the forward kernel."""
-    spec_kwargs = dict(SMALL, skips=skips)
-    params, mine = _trees(spec_kwargs, seed=6)
+    and K4's against the forward kernel, at 4x64 with and without a skip
+    and at each of the four library shapes over three init seeds.
+
+    Where both recomputes give every ReLU the same mask, every gradient leaf
+    agrees to rel 2e-2. The two sum a pre-activation in other orders, so one
+    that lies within fp32 rounding of zero can pass a unit in one package
+    and mask it in the other: a flip. The flips are found by comparing each
+    package's recomputed activations. A flip of unit j at point p moves the
+    leaves by that pair's own terms: the layer's dW row j by g * h_in (g the
+    cotangent reaching the unit, h_in the layer's inputs at p), its bias by
+    g, and the layers below by the same g carried through one weight row
+    (|w| < 1 at these nets). So each leaf's excess over the strict bound is
+    held to FLIP_FACTOR (1) times the sum over the flipped pairs of
+    |g| * max(1, |h_in|), from the plain version's activations; the 2e-2
+    bound itself is not loosened. The two 4x64 cases are held strictly:
+    they must have no flip."""
+    _, spec_kwargs, seed, strict = case
+    params, mine = _trees(spec_kwargs, seed=seed)
     pts, vd, _ = _inputs(4, n=300)  # not a multiple of the 128-point tile
     g = np.random.default_rng(5).normal(size=(8, 300)).astype(np.float32)
     g[4:] = 0.0
@@ -198,16 +278,26 @@ def test_kernel_layout_backward_matches_jax_kernel(skips):
     ref_meta = dict(ref_meta)
     ref_raw = np.asarray(jpt._run_fwd(ref_in, ref_meta, jnp.asarray(pts.T), jnp.asarray(vd.T), 128, True))
     ref = jpt._run_bwd(ref_in, ref_meta, jnp.asarray(pts.T), jnp.asarray(vd.T), jnp.asarray(g), 128, True)
+    jhs, jhv, jraw = _jax_activations(ref_in, ref_meta, pts, vd)
+    np.testing.assert_array_equal(jraw, ref_raw)  # the recompute is the kernel's arithmetic
     inputs, meta = ff.build_kernel_inputs(mine, NerfMLPSpec(**spec_kwargs))
     pts_t, vd_t = torch.from_numpy(pts.T.copy()), torch.from_numpy(vd.T.copy())
     raw = ff.field_forward(inputs, meta, pts_t, vd_t)
     np.testing.assert_allclose(raw.numpy(), ref_raw, atol=1e-3)
+    acts, _ = ff._forward_acts(inputs, meta, pts_t, vd_t)
+    n_flips = sum(int(((h > 0) != torch.from_numpy(j > 0)).sum()) for h, j in zip(acts["hs"], jhs))
+    n_flips += int(((acts["hv"] > 0) != torch.from_numpy(jhv > 0)).sum())
+    if strict:
+        assert n_flips == 0
+    contribution = _flip_contribution(inputs, meta, acts, torch.from_numpy(g), jhs, jhv) if n_flips else 0.0
     kgrads = ff.field_backward(inputs, meta, pts_t, vd_t, torch.from_numpy(g))
     assert list(kgrads) == jpt._grad_names(ref_meta)
     for name, a in kgrads.items():
-        b = np.asarray(ref[name])
+        b = np.asarray(ref[name], np.float64)
         assert a.shape == b.shape, name
-        assert _rel(a.numpy(), b) < 2e-2, (name, _rel(a.numpy(), b))
+        err = float(np.abs(a.numpy() - b).max())
+        excess = err - 2e-2 * float(np.abs(b).max())
+        assert excess <= FLIP_FACTOR * contribution, (name, _rel(a.numpy(), b), n_flips, excess, contribution)
 
 
 def test_pullback_matches_jax():

@@ -1039,3 +1039,132 @@ def test_trainer_on_a_replica_sequence_on_the_card(cuda, tmp_path, monkeypatch):
     losses = [float(trainer.step(i)["total_loss"]) for i in range(100)]
     assert ff.LAUNCHES["forward"] - before["forward"] == 200
     assert np.isfinite(losses).all() and np.mean(losses[-20:]) < np.mean(losses[:20])
+
+
+def _mesh_frame(device, h=240, w=320):
+    """A 320x240 frame of rays into synth_hier's scene."""
+    from nerf_workspaces_explorer_tpu_torch.rays.raygen import create_rays
+
+    pose = torch.eye(4)
+    pose[:3, 3] = torch.tensor([0.3, -0.2, 0.5])
+    return create_rays(pose[None].to(device), h, w, w / 2.0, w / 2.0, (w - 1) / 2.0, (h - 1) / 2.0, 0.1,
+                       6.0).reshape(h * w)
+
+
+def _mesh_step_inputs(device, mesh, seed=0):
+    """A stock-config data-parallel step's inputs on `mesh`: the state, its
+    replicas, rays, colours and each shard's draws of 1,024 rays."""
+    from nerf_workspaces_explorer_tpu_torch.parallel.sharding import tree_to
+    from nerf_workspaces_explorer_tpu_torch.rays.raygen import create_rays
+    from nerf_workspaces_explorer_tpu_torch.render.pipeline import RenderSettings
+    from nerf_workspaces_explorer_tpu_torch.train import step as tstep
+
+    settings = RenderSettings(raw_noise_std=1.0, field_impl="fused")
+    schedule = tstep.ExponentialDecay()
+    state = tstep.init_train_state(NerfMLPSpec(), schedule, device, seed=seed)
+    poses = torch.eye(4).repeat(2, 1, 1)
+    poses[1, :3, 3] = torch.tensor([0.2, -0.1, 0.3])
+    rays = create_rays(poses.to(device), 16, 16, 8.0, 8.0, 7.5, 7.5, 0.1, 6.0)
+    rgbs = torch.rand((2, 256, 3), generator=torch.Generator().manual_seed(seed)).to(device)
+    devices = mesh.distinct_devices
+    gens = {d: torch.Generator(device=d) for d in devices}
+
+    def draws(step):
+        return tstep.draw_shards(gens, [seed * 100 + step * 10 + i for i in range(mesh.size)], step, 2, 256, 1024,
+                                 settings, mesh)
+
+    return (state, tstep.mesh_replicas(state, mesh), {d: tree_to(rays, d) for d in devices},
+            {d: rgbs.to(d) for d in devices}, draws, settings, schedule)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4])
+def test_mesh_repeating_the_card_shards_like_one(cuda, k):
+    """`shard_render`'s fused leg over a mesh repeating cuda:0 k times: each
+    shard launches K1, K2 and K3 once, and the frame equals the unsharded
+    one (76,800 / k rays are whole 32-ray blocks, so every block stops at
+    the same sample)."""
+    from nerf_workspaces_explorer_tpu_torch.parallel import data_mesh, shard_render
+    from nerf_workspaces_explorer_tpu_torch.render.pipeline import RenderSettings
+
+    kp = _kernel_params(cuda)
+    rays = _mesh_frame(cuda)
+    single = fr.render_rays_fused(kp, rays, RenderSettings(), early_stop_eps=1e-3)
+    mesh = data_mesh(devices=[cuda] * k)
+    before = (dict(fr.LAUNCHES), dict(im.LAUNCHES))
+    out = shard_render(kp, rays, RenderSettings(), mesh, use_fused=True)["rgb_fine"]
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES["density_only"] - before[0]["density_only"] == k
+    assert fr.LAUNCHES["full"] - before[0]["full"] == k
+    assert im.LAUNCHES["importance_merge"] - before[1]["importance_merge"] == k
+    assert torch.equal(out, single)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4])
+def test_mesh_step_on_a_repeated_card(cuda, k):
+    """A data-parallel step over cuda:0 k times through K4/K5: its gradient
+    over k equals the single-device gradient of the shards' concatenated
+    batch (same draws) to the fused field's rel 0.08, and each shard makes
+    two K4 and two K5 calls; after the first step, a step makes no host
+    sync (torch.cuda.set_sync_debug_mode("error"))."""
+    from nerf_workspaces_explorer_tpu_torch.models.mlp import tree_leaves
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+    from nerf_workspaces_explorer_tpu_torch.parallel import data_mesh
+    from nerf_workspaces_explorer_tpu_torch.render.pipeline import RenderDraws
+    from nerf_workspaces_explorer_tpu_torch.train import step as tstep
+
+    mesh = data_mesh(devices=[cuda] * k)
+    state, replicas, rays, rgbs, draws, settings, schedule = _mesh_step_inputs(cuda, mesh)
+    d = draws(0)
+    grads, _ = tstep.data_parallel_grads(replicas, rays, rgbs, d, settings, NerfMLPSpec(), mesh)
+    joined = tstep.StepDraws(d[0].img_idx, torch.cat([x.pix_idx for x in d]),
+                             RenderDraws(*(torch.cat([getattr(x.render, f) for x in d]) for f in RenderDraws._fields)))
+    first = mesh.devices[0]
+    sampled, gt = tstep.sample_training_rays(rays[first], rgbs[first], joined.img_idx, joined.pix_idx)
+    loss, _ = tstep.loss_and_metrics(state.params, sampled, gt, settings._replace(train=True), NerfMLPSpec(),
+                                     joined.render)
+    single = torch.autograd.grad(loss, tree_leaves(state.params))
+    for a, b in zip(grads, single):
+        assert float((a / k - b).abs().max() / b.abs().max()) < 0.08
+    before = dict(ff.SHAPE_LAUNCHES["train_field_w256f10v4"])
+    state, _ = tstep.data_parallel_step(state, replicas, rays, rgbs, d, settings, NerfMLPSpec(), schedule, mesh)
+    torch.cuda.synchronize()
+    after = ff.SHAPE_LAUNCHES["train_field_w256f10v4"]
+    assert after["forward"] - before["forward"] == 2 * k and after["backward"] - before["backward"] == 2 * k
+    d = draws(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = tstep.data_parallel_step(state, replicas, rays, rgbs, d, settings, NerfMLPSpec(), schedule, mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.step == 2 and bool(torch.isfinite(m["total_loss"]))
+
+
+@pytest.mark.gpu
+def test_mesh_on_two_cards(cuda):
+    """`data_mesh(2)` on two cards: each shard runs under its card (the
+    ctypes launches use the current device), the fused frame equals the
+    single card's, and a data-parallel step leaves the second card's
+    replica equal to the updated parameters."""
+    from nerf_workspaces_explorer_tpu_torch.models.mlp import tree_leaves
+    from nerf_workspaces_explorer_tpu_torch.parallel import data_mesh, device_count, shard_render
+    from nerf_workspaces_explorer_tpu_torch.render.pipeline import RenderSettings
+    from nerf_workspaces_explorer_tpu_torch.train import step as tstep
+
+    if device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    mesh = data_mesh(2)
+    kp = _kernel_params(mesh.devices[0])
+    rays = _mesh_frame(mesh.devices[0])
+    single = fr.render_rays_fused(kp, rays, RenderSettings(), early_stop_eps=1e-3)
+    out = shard_render(kp, rays, RenderSettings(), mesh, use_fused=True)["rgb_fine"]
+    assert out.device == mesh.devices[0] and torch.equal(out, single)
+    state, replicas, rays_d, rgbs, draws, settings, schedule = _mesh_step_inputs(mesh.devices[0], mesh)
+    state, m = tstep.data_parallel_step(state, replicas, rays_d, rgbs, draws(0), settings, NerfMLPSpec(), schedule,
+                                        mesh)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(m["total_loss"])) and m["trans_fine"].shape[0] == 1024
+    for a, b in zip(tree_leaves(replicas[mesh.devices[1]]), tree_leaves(state.params)):
+        assert a.device == mesh.devices[1] and torch.equal(a.detach().cpu(), b.detach().cpu())

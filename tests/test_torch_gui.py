@@ -8,6 +8,7 @@ GUIs swallow shown: a warmup or preview error propagates, and a worker's
 exception is raised on the UI thread."""
 
 import importlib
+import os
 import queue
 import sys
 import threading
@@ -380,10 +381,49 @@ def test_gui_tk_warmup_error_propagates(gui_tk):
 
 
 def test_gui_tk_reads_png_assets_only(gui_tk, tmp_path):
-    with pytest.raises(ValueError, match="thumbnail.jpg"):
-        gui_tk.load_image(str(tmp_path / "thumbnail.jpg"))
+    """`load_image` reads PNG and JPEG assets by their extension (the name
+    is from when it read PNG only) and refuses any other extension; the PPM
+    bytes and the display resize."""
+    from PIL import Image
+
+    from nerf_workspaces_explorer_tpu_torch.utils import jpeg, png
+
     image = np.arange(5 * 7 * 3, dtype=np.uint8).reshape(5, 7, 3)
+    png.write_png(str(tmp_path / "plan.png"), image)
+    np.testing.assert_array_equal(gui_tk.load_image(str(tmp_path / "plan.png")), image)
+    for name in ("thumbnail.jpg", "thumbnail.JPEG"):
+        Image.fromarray(image).save(tmp_path / name, "JPEG")
+        np.testing.assert_array_equal(gui_tk.load_image(str(tmp_path / name)),
+                                      jpeg.read_rgb(str(tmp_path / name)))
+    with pytest.raises(ValueError, match="thumbnail.bmp"):
+        gui_tk.load_image(str(tmp_path / "thumbnail.bmp"))
     assert gui_tk.ppm_bytes(image) == b"P6\n7 5\n255\n" + image.tobytes()
     np.testing.assert_array_equal(gui_tk.resized(image, 7, 5), image)
     big = gui_tk.resized(image, 14, 10)
     assert big.shape == (10, 14, 3) and big.dtype == np.uint8
+
+
+def test_gui_tk_installs_jpg_plan_and_thumbnail(gui_tk):
+    """With the reference's `.jpg` assets in the workspace folder (which
+    `ensure_assets` takes before the PNG placeholders), the Tk flow shows
+    them, decoded by `utils/jpeg.py`: the landing page's thumbnail and the
+    explorer's floor plan are their pixels, resized for display."""
+    from PIL import Image
+
+    from nerf_workspaces_explorer_tpu_torch.app.assets import make_floor_plan, make_thumbnail
+    from nerf_workspaces_explorer_tpu_torch.utils import jpeg
+
+    workspace = tiny_workspace()
+    folder = workspace.folder_path
+    os.makedirs(folder, exist_ok=True)
+    h, w = workspace.floor_plan_scale
+    thumb_path, plan_path = os.path.join(folder, "thumbnail.jpg"), os.path.join(folder, "floor_plan.jpg")
+    Image.fromarray(make_thumbnail(workspace.name, seed=3)).save(thumb_path, "JPEG", quality=90)
+    Image.fromarray(make_floor_plan(workspace.name, h // 2, w // 2)).save(plan_path, "JPEG", subsampling=2)
+    root, landing, plan, explorer = _open(gui_tk, workspace, QueuedRoot())
+    thumb = jpeg.read_rgb(thumb_path)
+    scale = min(1.0, gui_tk.THUMBNAIL_BOX / thumb.shape[1], gui_tk.THUMBNAIL_BOX / thumb.shape[0])
+    want = gui_tk.resized(thumb, round(thumb.shape[1] * scale), round(thumb.shape[0] * scale))
+    np.testing.assert_array_equal(landing._photos[0].pixels, want)
+    np.testing.assert_array_equal(explorer._plan_photo.pixels, gui_tk.resized(jpeg.read_rgb(plan_path), w, h))
+    assert not os.path.exists(os.path.join(folder, "thumbnail.png"))

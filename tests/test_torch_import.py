@@ -93,11 +93,13 @@ def test_renderer_without_device_raises_without_cuda():
 
 
 def test_unported_options_raise():
-    """Options the JAX renderer has and the port leaves out raise: mesh and a
-    chunk override of the fused path; so do unknown precisions and a turbo
-    preset without a checkpoint. nan_debug and the strip path are ported:
-    they build, and the strip path asks for weights first."""
+    """Options the port refuses raise: a chunk override of the fused path, a
+    mesh that is not a `DataMesh`, and a mesh with a fused precision (the
+    JAX renderer renders those unsharded); so do unknown precisions and a
+    turbo preset without a checkpoint. nan_debug and the strip path are
+    ported: they build, and the strip path asks for weights first."""
     from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+    from nerf_workspaces_explorer_tpu_torch.parallel import data_mesh
 
     with pytest.raises(ValueError, match="precision"):
         NeRFRenderer("tokyo", precision="int4", device="cpu")
@@ -105,6 +107,8 @@ def test_unported_options_raise():
         NeRFRenderer("tokyo", preset="turbo", device="cpu")
     with pytest.raises(ValueError, match="mesh"):
         NeRFRenderer("tokyo", mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh: precision 'fast' renders unsharded"):
+        NeRFRenderer("tokyo", precision="fast", mesh=data_mesh(devices=["cpu"] * 2), device="cpu")
     with pytest.raises(ValueError, match="chunk"):
         NeRFRenderer("tokyo", precision="int8", chunk=4096, device="cpu")
     r = NeRFRenderer("tokyo", nan_debug=True, device="cpu")

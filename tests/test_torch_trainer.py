@@ -184,11 +184,15 @@ def test_train_cli_on_cpu_lowers_loss(tmp_path, capsys):
     assert os.path.isdir(tmp_path / "run" / "test_render" / "step_000020")
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "4"]], ids=["mesh"])
+@pytest.mark.parametrize("flag", [["--mesh", "3", "--synthetic-size", "16"]], ids=["mesh"])
 def test_unported_cli_options_raise(flag):
+    """`--mesh` was the CLI's last unported option; ported, it raises where
+    the mesh cannot take the batch: the config's 1024 rays do not split
+    over 3 shards (JAX step.py:239-241). The mesh itself is tested in
+    tests/test_torch_parallel.py."""
     from nerf_workspaces_explorer_tpu_torch.cli.train import main
 
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="not divisible by mesh size 3"):
         main(["--synthetic"] + flag + ["--device", "cpu"])
 
 
