@@ -9,7 +9,7 @@ It builds the port's CUDA kernels from `nerf_workspaces_explorer_tpu_torch/
 csrc/` and drives the port's paths in this order: serving, the explorer
 app, the strip-pipelined frame, the presets, the two profiling scripts'
 kernels, training from a Replica-layout sequence, the device mesh,
-training, distillation.
+training, distillation, the serving quality gate.
 
 Serving: holds K1-K3 against their plain PyTorch versions on the card at the
 main path's shapes (one 320x240 frame: 76,800 rays, 8x256 coarse+fine nets
@@ -155,6 +155,22 @@ student's shorter run; the sidecar written with `save_turbo_checkpoint`,
 its metadata read back equal, served at the turbo preset (bf16) at 320x240
 on the room's spot (warm ms a frame, one K1, K6 and K3 a frame, SSIM >=
 0.99 against its parity frame at stride 1).
+
+Quality: `scripts/validate_quality_torch.py` at the JAX gate's recipe and
+thresholds (`--steps 3000 --proposal --fast-preset --prop-subsample 4`: the
+96x128 orbit, 12 train / 3 test views, the stock config; seed 0), its legs
+counted: each trains through K4/K5 (one step a call at every 500th, CUDA-
+graph replays of 10 between) and renders the test views through K1/K2/K3,
+the int8 set through K7 and the fast preset through K6/K7; per leg the test
+PSNR/SSIM against ground truth, the fused and int8 fidelities against the
+fp32 pipeline, the fast-preset PSNRs, ms a step and launches. Every gate
+that holds this run's models and kernels must pass (PSNR, fused and int8
+fidelity, fast-preset and stride drops). The proposal-against-hierarchical
+drop compares two independent trainings on three test views; its gap moves
+by more than the gate's 0.7 dB from one Trainer seed to the next
+(`scripts/quality_seed_spread_torch.py`), so the phase prints the gate's
+verdict as it is and trains both legs again at seeds 1-3: the mean gap over
+seeds 0-3 must stay above -0.7 dB.
 
 Its last two lines are a JSON object with one entry per kernel (K1-K9; the
 new K1/K3 shapes, each served K7 mode, each K8 row and K9 leg, and K4/K5 at
@@ -2062,6 +2078,89 @@ def replica_phase(card: str, device: torch.device) -> dict:
     return {"launches": launches, "ms_step": warm, "ms_step_graph": g_warm}
 
 
+QUALITY_ARGS = ["--steps", "3000", "--proposal", "--fast-preset", "--prop-subsample", "4"]  # the JAX gate's recipe
+QUALITY_SPREAD_SEEDS = (1, 2, 3)  # further Trainer seeds of both legs, beside the gate's seed 0
+PROPOSAL_DROP = "proposal test PSNR"  # the start of the gate's one failure that compares two trainings
+# Kernel ID -> its counters (ops/fused_render.py, ops/importance_merge.py, ops/fused_field.py LAUNCHES).
+QUALITY_COUNTERS = {
+    "K1": ("render", "density_only"), "K2": ("placement", "importance_merge"), "K3": ("render", "full"),
+    "K4": ("field", "forward"), "K5": ("field", "backward"), "K6": ("placement", "importance_only"),
+    "K7": ("render", "density_only_int8", "full_int8"),
+}
+
+
+def quality_phase(card: str) -> dict:
+    """The serving quality gate and the spread of its proposal comparison
+    (module docstring); returns each kernel's launches summed over the
+    gate's legs."""
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_render as fr
+    from nerf_workspaces_explorer_tpu_torch.ops import importance_merge as im
+
+    t_phase = time.time()
+    vq = _script("validate_quality_torch")
+    counters = {"render": fr.LAUNCHES, "placement": im.LAUNCHES, "field": ff.LAUNCHES}
+    legs = {}
+    run_leg = vq.run_leg
+
+    def counted_leg(name, *args, **kwargs):
+        zero_launches(*counters.values(), *ff.SHAPE_LAUNCHES.values())
+        leg = run_leg(name, *args, **kwargs)
+        leg["launches"] = {k: sum(counters[c][key] for key in keys) for k, (c, *keys) in QUALITY_COUNTERS.items()}
+        leg["field_libraries"] = {lib: dict(v) for lib, v in ff.SHAPE_LAUNCHES.items() if any(v.values())}
+        legs[name] = leg
+        return leg
+
+    vq.run_leg = counted_leg
+    out = os.path.join(HERE, "build", "torch_kernels", "smoke_quality")
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        code = vq.main(QUALITY_ARGS + ["--out", out, "--report", os.path.join(out, "report.md")])
+    finally:
+        vq.run_leg = run_leg
+    args = vq.build_parser().parse_args(QUALITY_ARGS + ["--out", out])
+    with contextlib.redirect_stdout(io.StringIO()):  # the gate printed its lines above
+        failures = vq.gate_failures(args, legs["hier"], legs["prop"])
+    require((code == 0) == (not failures), f"quality gate: exit {code}, failures {failures}")
+    steps = int(QUALITY_ARGS[1])
+    totals = {}
+    for name, leg in legs.items():
+        n = leg["launches"]
+        require(n["K4"] > 0 and n["K5"] > 0, f"quality {name}: no K4/K5 launch in training {n}")
+        require(all(n[k] > 0 for k in ("K1", "K2", "K3", "K6", "K7")), f"quality {name}: a render kernel did "
+                f"not launch {n}")
+        fast = "; ".join(f"fast n_importance={k} PSNR {v['psnr']:.2f} (strided {v.get('psnr_sub', float('nan')):.2f})"
+                         for k, v in sorted(leg["fast"].items(), reverse=True))
+        print(f"quality {name}: test PSNR {leg['psnr']:.2f} dB (min {leg['psnr_min']:.2f}), SSIM {leg['ssim']:.4f} "
+              f"(min {leg['ssim_min']:.4f}); fused vs fp32 SSIM {leg['fidelity']:.5f}, int8 vs fp32 SSIM "
+              f"{leg['fidelity_int8']:.5f}; {fast}; {steps} steps in {leg['train_s']:.1f} s, "
+              f"{leg['train_s'] * 1e3 / max(steps, 1):.2f} ms/step (one step a call at every 500th, CUDA-graph replays of "
+              f"{vq.STEPS_PER_CALL} between); launches {n} (K4/K5: the steps taken eagerly or captured, replays "
+              f"uncounted; by library {leg['field_libraries']}); card {card}", flush=True)
+        for k, v in n.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # Every gate that holds this run's models and kernels must pass. The
+    # proposal-vs-hierarchical drop compares two independent trainings on
+    # three test views, whose gap moves by more than its 0.7 dB from one
+    # Trainer seed to the next; it is held on the mean over seeds 0-3.
+    others = [f for f in failures if not f.startswith(PROPOSAL_DROP)]
+    require(not others, f"the quality gate failed at {' '.join(QUALITY_ARGS)}: {others}")
+    sp = _script("quality_seed_spread_torch")
+    args.device = torch.device("cuda")
+    rows = sp.spread(args, QUALITY_SPREAD_SEEDS, *sp.orbit_scene(args))
+    gaps = [legs["prop"]["psnr"] - legs["hier"]["psnr"]] + [r["gap"] for r in rows]
+    mean_gap = float(np.mean(gaps))
+    print(f"quality gate at {' '.join(QUALITY_ARGS)} (seed 0, the JAX gate's thresholds): "
+          f"{'PASSED' if not failures else 'FAILED: ' + '; '.join(failures)}; prop - hier test PSNR over seeds "
+          f"0, {', '.join(map(str, QUALITY_SPREAD_SEEDS))}: {', '.join(f'{g:+.2f}' for g in gaps)} dB, mean "
+          f"{mean_gap:+.2f} (held at > -{args.max_psnr_drop}); card {card}", flush=True)
+    require(mean_gap > -args.max_psnr_drop, f"the proposal leg trails the hierarchical by {-mean_gap:.2f} dB on "
+            f"the mean over seeds (allowed {args.max_psnr_drop})")
+    print(f"quality phase: {time.time() - t_phase:.1f} s", flush=True)
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2284,7 +2383,10 @@ def main() -> int:
     # 9. Distillation.
     distill_kernels = distill_phase(card, device)
 
-    # 10. The kernels line, then the result line.
+    # 10. The serving quality gate at the JAX package's default recipe.
+    quality_launches = quality_phase(card)
+
+    # 11. The kernels line, then the result line.
     src = f"{PACKAGE}/csrc/"
     kernels = [
         dict(name="K1 fused render, density-only (coarse pass)", route="cuda", source=src + "fused_render.cu",
@@ -2311,6 +2413,8 @@ def main() -> int:
         counters = MESH_COUNTERS.get(entry["name"].split()[0])
         if counters:  # the kernel's launches over the mesh phase's dry runs
             entry["mesh_launches"] = sum(mesh_launches.get(c, 0) for c in counters)
+        if entry["name"].split()[0] in quality_launches:  # its launches over the quality gate's legs
+            entry["quality_launches"] = quality_launches[entry["name"].split()[0]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

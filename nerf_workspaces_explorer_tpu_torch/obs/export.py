@@ -1,5 +1,5 @@
 """Training-curve export (a copy of `nerf_workspaces_explorer_tpu/obs/export.py`,
-which imports nothing of JAX).
+which imports nothing of JAX, whose reader also takes the port's scalar sink).
 
 Parity target: the reference publishes its results as TensorBoard-exported
 SVG curves under nerf/results/office_*/ (9 per office: Train_Loss_*,
@@ -10,8 +10,13 @@ the repo in the same reviewable form.
 
 from __future__ import annotations
 
+import glob
+import importlib.util
+import json
 import os
 from typing import Dict, List, Mapping, Sequence, Tuple
+
+from nerf_workspaces_explorer_tpu_torch.obs.tb import SCALARS_FILE
 
 # The reference's nine published chart names (SURVEY.md §2 component 22),
 # mapped to our TensorBoard tags.
@@ -99,8 +104,34 @@ def export_training_curves(
     return written
 
 
+def _read_scalars_file(path: str) -> Dict[str, List[Tuple[int, float]]]:
+    out: Dict[str, List[Tuple[int, float]]] = {}
+    with open(path) as f:
+        for line in f:
+            if line.strip():
+                rec = json.loads(line)
+                out.setdefault(rec["tag"], []).append((int(rec["step"]), float(rec["value"])))
+    return out
+
+
 def scalars_from_tensorboard_logs(log_dir: str) -> Dict[str, List[Tuple[int, float]]]:
-    """Read scalar history back from TensorBoard event files."""
+    """Read scalar history back from a run's `tensorboard_logs` directory:
+    from TensorBoard event files where there are some and `tensorboard` is
+    importable, else from the scalar sink's JSON lines (`obs/tb.py`), else
+    {}. Event files with no `tensorboard` to read them and no JSON lines
+    raise ImportError."""
+    events = glob.glob(os.path.join(log_dir, "events.out.tfevents.*"))
+    sink = os.path.join(log_dir, SCALARS_FILE)
+    if events and importlib.util.find_spec("tensorboard") is not None:
+        return _scalars_from_events(log_dir)
+    if os.path.exists(sink):
+        return _read_scalars_file(sink)
+    if events:
+        return _scalars_from_events(log_dir)  # ImportError: no tensorboard to read them
+    return {}
+
+
+def _scalars_from_events(log_dir: str) -> Dict[str, List[Tuple[int, float]]]:
     from tensorboard.backend.event_processing.event_accumulator import (
         EventAccumulator,
     )

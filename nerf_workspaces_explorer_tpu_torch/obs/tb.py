@@ -3,13 +3,18 @@
 
 Parity target: reference nerf/visualisation/tensorboard_writer.py:10-35
 (SummaryWriter wrapper under `<experiment>/tensorboard_logs`, config text
-dump, write_scalars, write_histogram). Degrades to an in-memory no-op sink
-when no SummaryWriter backend is importable, so training never hard-depends
-on TensorBoard.
+dump, write_scalars, write_histogram). Degrades to a scalar-only sink when
+no SummaryWriter backend is importable, so training never hard-depends on
+TensorBoard. That sink keeps its history in memory and, on `flush` and
+`close`, writes it under the log directory as JSON lines (`SCALARS_FILE`:
+one {"tag", "step", "value"} object a scalar), which
+`obs.export.scalars_from_tensorboard_logs` reads where there are no event
+files, so a finished run's scalars outlive its process either way.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -18,10 +23,16 @@ import torch
 import yaml
 
 
-class _NullSummaryWriter:
-    """Records scalar history in memory; ignores everything else."""
+# The scalar sink's history, under the log directory.
+SCALARS_FILE = "scalars.jsonl"
 
-    def __init__(self) -> None:
+
+class _NullSummaryWriter:
+    """Records scalar history in memory and, given a log directory, writes
+    it there as JSON lines on `flush`/`close`; ignores everything else."""
+
+    def __init__(self, log_dir: Optional[str] = None) -> None:
+        self.log_dir = log_dir
         self.scalars: Dict[str, List] = {}
 
     def add_scalar(self, tag: str, value, step: int) -> None:
@@ -37,10 +48,19 @@ class _NullSummaryWriter:
         pass
 
     def flush(self) -> None:
-        pass
+        """Rewrite the history file with every scalar recorded so far."""
+        if self.log_dir is None:
+            return
+        os.makedirs(self.log_dir, exist_ok=True)
+        path = os.path.join(self.log_dir, SCALARS_FILE)
+        with open(path + ".tmp", "w") as f:
+            for tag, series in self.scalars.items():
+                for step, value in series:
+                    f.write(json.dumps({"tag": tag, "step": int(step), "value": value}) + "\n")
+        os.replace(path + ".tmp", path)
 
     def close(self) -> None:
-        pass
+        self.flush()
 
 
 def _make_summary_writer(log_dir: str):
@@ -49,7 +69,7 @@ def _make_summary_writer(log_dir: str):
 
         return SummaryWriter(log_dir=log_dir)
     except Exception:
-        return _NullSummaryWriter()
+        return _NullSummaryWriter(log_dir)
 
 
 class TensorboardWriter:

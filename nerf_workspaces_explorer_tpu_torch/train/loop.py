@@ -25,9 +25,10 @@ the training resolution against ground truth downscaled as JAX's
 `jax.image.resize(..., "bilinear")` does (antialiased).
 
 `steps_per_call` K > 1 (JAX `Trainer(steps_per_call=)`, `lax.scan` there):
-`fit` advances the stretches between cadence boundaries K steps a call, on
-`cuda` as a replay of a CUDA graph of K steps (`train/step.py::StepGraph`),
-on the CPU as K eager steps; the trajectory is the single steps'.
+`fit` advances K steps a call wherever K fit up to the next cadence
+boundary, on `cuda` as a replay of a CUDA graph of K steps
+(`train/step.py::StepGraph`), on the CPU as K eager steps; the trajectory
+is the single steps'.
 
 `mesh` (a `parallel.DataMesh`; JAX `Trainer(mesh=)`) trains data-parallel:
 each step's rays split into one shard a device, each shard drawn from a
@@ -332,7 +333,6 @@ class Trainer:
 
     def step(self, global_step: int) -> Dict[str, Any]:
         """One optimization step plus cadenced logging, eval and checkpoints."""
-        cfg = self._config
         with self.timer.phase("train_step"):
             if self._mesh is not None:
                 metrics = self._data_parallel_step(global_step)
@@ -342,7 +342,13 @@ class Trainer:
                     self.state, self.rays_train, self._train_rgbs, draws, self._settings,
                     self._spec, self._schedule,
                 )
+        self._cadence(global_step, metrics)
+        return metrics
 
+    def _cadence(self, global_step: int, metrics: Dict[str, Any]) -> None:
+        """The logging, eval and checkpoint actions due at `global_step`,
+        given that step's metrics."""
+        cfg = self._config
         log = cfg.logging
         if log.step_log_print > 0 and global_step % log.step_log_print == 0:
             s = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
@@ -367,7 +373,6 @@ class Trainer:
             self.render_test_images(global_step)
         if log.step_save_ckpt > 0 and global_step % log.step_save_ckpt == 0:
             self.save_models_checkpoint(global_step)
-        return metrics
 
     def step_many(self, global_step: int) -> Dict[str, Any]:
         """Steps global_step .. global_step + K - 1 (K = `steps_per_call`) in
@@ -410,10 +415,15 @@ class Trainer:
     def fit(self, n_iterations: Optional[int] = None, *, start_step: int = 0) -> None:
         """Run the main loop (reference nerf/train.py:48-56).
 
-        With `steps_per_call` K > 1, stretches between cadence boundaries
-        advance K steps a call (`step_many`); steps ON a boundary go through
-        `step()`, so every cadence action still fires at its exact step. The
-        trajectory is the same either way (JAX `Trainer.fit`)."""
+        With `steps_per_call` K > 1, the steps advance K a call
+        (`step_many`) wherever K of them fit before the next cadence
+        boundary (a step at which a logging, eval or checkpoint action is
+        due), the boundary included: the boundary's actions then run after
+        the call on its last step's metrics, so every action fires at its
+        exact step and a cadence of K (the train CLI raises the print's to
+        K) leaves whole K-step calls. The rest go one step a call. The
+        trajectory is the same either way. (JAX `Trainer.fit` ends each
+        K-step run before a boundary, so a cadence of K leaves it none.)"""
         total = n_iterations if n_iterations is not None else self._config.training.n_iterations
         k = self._steps_per_call
         if k <= 1:
@@ -430,14 +440,13 @@ class Trainer:
             )
         i = start_step
         while i < total:
-            self.step(i)
-            i += 1
-            boundary = min(((i // v + (1 if i % v else 0)) * v for v in intervals), default=total)
-            boundary = min(max(boundary, i), total)
-            while boundary - i >= k:
-                self.step_many(i)
+            # The next boundary at or after step i (or the last step).
+            last = min(min((-(-i // v) * v for v in intervals), default=total - 1), total - 1)
+            while last - i + 1 >= k:
+                metrics = self.step_many(i)
                 i += k
-            while i < boundary:
+                self._cadence(i - 1, metrics)
+            while i <= last:
                 self.step(i)
                 i += 1
 
@@ -544,10 +553,11 @@ class Trainer:
 
         out_dir = out_dir or os.path.join(self._save_dir, "results")
         writer = getattr(self._tb, "summary_writer", None) if self._tb else None
+        if writer is not None:
+            self._tb.flush()  # event files, or the scalar sink's history file
         if writer is not None and getattr(writer, "scalars", None):
-            scalars = writer.scalars  # the null writer's in-memory history
+            scalars = writer.scalars  # the scalar sink's in-memory history
         elif writer is not None:
-            self._tb.flush()
             try:
                 scalars = scalars_from_tensorboard_logs(os.path.join(self._save_dir, "tensorboard_logs"))
             except ImportError:

@@ -1168,3 +1168,90 @@ def test_mesh_on_two_cards(cuda):
     assert bool(torch.isfinite(m["total_loss"])) and m["trans_fine"].shape[0] == 1024
     for a, b in zip(tree_leaves(replicas[mesh.devices[1]]), tree_leaves(state.params)):
         assert a.device == mesh.devices[1] and torch.equal(a.detach().cpu(), b.detach().cpu())
+
+
+def _script(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_gpu_{name[:-3]}", os.path.join(ROOT, "scripts", name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_quality_gate_on_the_card(cuda, tmp_path, monkeypatch):
+    """`scripts/validate_quality_torch.py` at 200 steps on a 48x64 orbit with
+    the proposal leg, the fast preset, the strided placement and a short
+    turbo leg: each leg's renders launch K1/K2/K3 once a test view (and K2
+    for the int8 render's merged placement), K6 and K7 for the int8 and
+    fast-preset renders, its training K4/K5; the
+    fidelities hold 0.99 and the PSNRs are finite. (200 steps cannot meet
+    the PSNR thresholds, which are not asserted.)"""
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+
+    vq = _script("validate_quality_torch.py")
+    counters = {"K1": (fr.LAUNCHES, "density_only"), "K2": (im.LAUNCHES, "importance_merge"),
+                "K3": (fr.LAUNCHES, "full"), "K4": (ff.LAUNCHES, "forward"), "K5": (ff.LAUNCHES, "backward"),
+                "K6": (im.LAUNCHES, "importance_only")}
+    legs = {}
+
+    def counted(fn, name):
+        def run(*args, **kwargs):
+            before = {k: d[key] for k, (d, key) in counters.items()}
+            before["K7"] = fr.LAUNCHES["density_only_int8"] + fr.LAUNCHES["full_int8"]
+            leg = fn(*args, **kwargs)
+            n = {k: d[key] - before[k] for k, (d, key) in counters.items()}
+            n["K7"] = fr.LAUNCHES["density_only_int8"] + fr.LAUNCHES["full_int8"] - before["K7"]
+            legs[name or args[0]] = (leg, n)
+            return leg
+        return run
+
+    monkeypatch.setattr(vq, "run_leg", counted(vq.run_leg, None))
+    monkeypatch.setattr(vq, "run_turbo_leg", counted(vq.run_turbo_leg, "turbo"))
+    vq.main(["--steps", "200", "--height", "48", "--width", "64", "--proposal", "--fast-preset",
+             "--prop-subsample", "4", "--turbo", "--turbo-steps", "100", "--out", str(tmp_path),
+             "--report", str(tmp_path / "report.md")])
+    n_views, n_fast = 3, 2 * 2 * 3  # two counts, exact and strided, three views
+    for name in ("hier", "prop"):
+        leg, n = legs[name]
+        assert n["K4"] > 0 and n["K5"] > 0, (name, n)
+        assert {k: n[k] for k in ("K1", "K2", "K3", "K6", "K7")} == {
+            "K1": n_views, "K2": n_views + 1, "K3": n_views, "K6": n_fast, "K7": 2 + 2 * n_fast}, (name, n)
+        assert leg["fidelity"] >= 0.99 and leg["fidelity_int8"] >= 0.99, (name, leg)
+        assert all(np.isfinite(leg[k]) for k in ("psnr", "psnr_min", "ssim", "ssim_min")), (name, leg)
+    turbo, n = legs["turbo"]
+    assert all(n[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")), n
+    assert all(np.isfinite(turbo[k]) for k in ("psnr", "psnr_sub", "teacher_psnr", "psnr_vs_teacher")), turbo
+    assert (tmp_path / "report.md").exists()
+
+
+@pytest.mark.gpu
+def test_plain_field_steps_as_graph_replays(cuda, tmp_path):
+    """`--field plain --steps-per-call K` (the long-horizon study's fp32
+    run): the plain field's steps captured and replayed as a CUDA graph take
+    the eager steps' losses."""
+    import dataclasses
+
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
+
+    cfg = load_config(office_name="tokyo")
+    cfg = dataclasses.replace(cfg, logging=dataclasses.replace(
+        cfg.logging, step_log_print=0, step_log_tensorboard=2**31 - 1, step_save_ckpt=0, step_render_test=0,
+        step_render_train=0))
+    train, test, _ = make_synthetic_scene(n_train=8, n_test=2, height=48, width=64, device=cuda)
+    k, calls = 10, 3
+    eager = Trainer("office_tokyo", cfg, train_data=train, test_data=test, save_dir=str(tmp_path / "eager"),
+                    enable_tensorboard=False, field_impl="plain", device=cuda)
+    eager.setup()
+    losses = [float(eager.step(i)["total_loss"]) for i in range(k * calls)]
+    graphed = Trainer("office_tokyo", cfg, train_data=train, test_data=test, save_dir=str(tmp_path / "graph"),
+                      enable_tensorboard=False, field_impl="plain", steps_per_call=k, device=cuda)
+    graphed.setup()
+    got = []
+    for c in range(calls):
+        got += graphed.step_many(c * k)["total_loss_steps"].tolist()
+    assert graphed.graph_captured
+    assert np.abs(np.array(got) - np.array(losses)).max() <= 1e-6

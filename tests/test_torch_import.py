@@ -71,7 +71,10 @@ def test_port_imports_without_jax():
      os.path.join(ROOT, "scripts", "profile_torch_placement_eps.py"),
      os.path.join(ROOT, "scripts", "profile_torch_fine_ablation.py"),
      os.path.join(ROOT, "scripts", "probe_int4_torch.py"),
-     os.path.join(ROOT, "scripts", "time_torch_int4.py")]
+     os.path.join(ROOT, "scripts", "time_torch_int4.py"),
+     os.path.join(ROOT, "scripts", "validate_quality_torch.py"),
+     os.path.join(ROOT, "scripts", "long_horizon_study_torch.py"),
+     os.path.join(ROOT, "scripts", "collect_long_run_report_torch.py")]
     + sorted(
         os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")
     ),

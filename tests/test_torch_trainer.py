@@ -412,16 +412,19 @@ def test_step_many_takes_the_single_steps(tmp_path, orbit):
     _assert_same_state(a, b)
 
 
-def test_fit_with_steps_per_call_keeps_the_cadence(tmp_path, orbit, capsys):
-    """fit() with K = 4 and a print every 5 steps: the prints at steps 0, 5
-    and 10 as with K = 1, the stretches between them as K-step calls, the
-    same parameters and moments after 13 steps; a cadence under K warns."""
+@pytest.mark.parametrize("k", [4, 5])
+def test_fit_with_steps_per_call_keeps_the_cadence(tmp_path, orbit, capsys, k):
+    """fit() with K = 4 or 5 and a print every 5 steps: the prints at steps
+    0, 5 and 10 as with K = 1, the stretches between them as K-step calls
+    (at K = 5 each ending on the printed step, its print after the call),
+    the same parameters and moments after 13 steps; a cadence under K
+    warns."""
     cfg = tiny_config(step_log_print=5)
     a = _trainer(tmp_path / "a", orbit, config=cfg)
     a.setup()
     a.fit(13)
     out_a = capsys.readouterr().out
-    b = _trainer(tmp_path / "b", orbit, config=cfg, steps_per_call=4)
+    b = _trainer(tmp_path / "b", orbit, config=cfg, steps_per_call=k)
     b.setup()
     calls = []
     step_many = b.step_many
