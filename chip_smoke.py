@@ -57,10 +57,15 @@ with the same draws, rel < 0.08, the fused field's bound), the sharded
 plain render, the fused leg per shard against it, and the int8 + proposal
 serving configuration, a 6x192@10f turbo student and the stride-4 lattice
 each sharded against single (max |err| < 5e-3, and whether the uint8
-frames are byte-equal). Every shard must launch each kernel of its leg
-once (K1/K7 density, K2/K6, K3/K7 full) and K4/K5 twice a step; warm ms of
-the sharded frame and the data-parallel step beside their unsharded
-counterparts.
+frames are byte-equal); then three calls of K = 10 data-parallel steps as
+`StepGraph` replays (`Trainer(mesh=, steps_per_call=10)`'s path: one graph
+of the ten steps on one card) against the same steps eagerly, losses equal
+to 1e-6. Every shard must launch each kernel of its leg once (K1/K7
+density, K2/K6, K3/K7 full) and K4/K5 twice a step (the graph leg's first
+call: its ten warm-up steps and the capture; its replays launch nothing
+through the wrappers); warm ms of the sharded frame and the data-parallel
+step beside their unsharded counterparts, and of a K = 10 graph call over
+10 beside the graphed single-device step.
 
 Strips: serves the main path's first click as a strip-pipelined frame
 (`render_pose_uint8_pipelined`, 6 strips of 40 rows): bytes equal to the
@@ -1916,6 +1921,7 @@ def app_phase(card: str, device: torch.device) -> dict:
 
 
 MESH_TIME_REPS = 5  # warm readings (median) of the sharded frame and step
+MESH_GRAPH_K = 10  # data-parallel steps a graph call in the mesh phase's graph leg
 # The kernel counters each leg of the dry run must move, once a shard (the
 # training step: both nets' K4 and K5 calls, twice a shard).
 MESH_LEGS = {
@@ -1924,7 +1930,11 @@ MESH_LEGS = {
     "serving": ("render_density_only_int8", "placement_importance_merge", "render_full_int8"),
     "turbo": ("render_density_only_int8", "placement_importance_only", "render_full_int8"),
     "stride": ("render_density_only_int8", "placement_importance_only", "render_full_int8"),
+    # the first graph call: K warm-up steps and the capture of K, both nets twice a step
+    "train_graph": ("train_field_w256f10v4_forward", "train_field_w256f10v4_backward"),
+    "train_graph_replays": (),  # a replay launches nothing through the wrappers
 }
+MESH_PER_SHARD = {"train_step": 2, "train_graph": 2 * 2 * MESH_GRAPH_K}
 # Kernel ID -> the counters of its launches in the mesh phase.
 MESH_COUNTERS = {
     "K1": ("render_density_only",), "K2": ("placement_importance_merge",), "K3": ("render_full",),
@@ -1946,17 +1956,18 @@ def mesh_phase(card: str, device: torch.device) -> dict:
         meshes.append(("data_mesh(2)", dict(n_devices=2)))
     totals: dict = {}
     for label, kw in meshes:
-        report = dryrun_multigpu(**kw, time_reps=MESH_TIME_REPS)
+        report = dryrun_multigpu(**kw, time_reps=MESH_TIME_REPS, graph_steps=MESH_GRAPH_K)
         n = report["n_devices"]
         per_shard = {}
         for leg, counts in report["launches"].items():
-            per = 2 if leg == "train_step" else 1
+            per = MESH_PER_SHARD.get(leg, 1)
             require(set(counts) == set(MESH_LEGS[leg]) and all(v == per * n for v in counts.values()),
                     f"mesh {label} {leg}: launches {counts}, expected {MESH_LEGS[leg]} {per} a shard of {n}")
             per_shard[leg] = {k: v // n for k, v in counts.items()}
             for k, v in counts.items():
                 totals[k] = totals.get(k, 0) + v
         require(set(per_shard) == set(MESH_LEGS), f"mesh {label}: legs {sorted(per_shard)}")
+        require(report["graph_loss_err"] <= 1e-6, f"mesh {label}: graphed steps' losses {report['graph_loss_err']}")
         ms = report["ms"]
         print(f"mesh {label}: {n} shards; train loss {report['loss']:.5f}, the single-device step on the "
               f"concatenated batch {report['loss_single']:.5f}, gradient rel {report['grad_rel']:.2e} (limit 0.08); "
@@ -1966,7 +1977,10 @@ def mesh_phase(card: str, device: torch.device) -> dict:
               f"{report['turbo_bytes_equal']}, stride {report['stride_bytes_equal']}; launches per shard "
               f"{per_shard}; warm ms (median of {MESH_TIME_REPS}): 320x240 frame sharded {ms['frame_sharded']:.2f} "
               f"vs unsharded {ms['frame_single']:.2f}, data-parallel step {ms['step_sharded']:.2f} vs single "
-              f"{ms['step_single']:.2f}; card {card}", flush=True)
+              f"{ms['step_single']:.2f}; K = {MESH_GRAPH_K} graph: losses vs eager max |diff| "
+              f"{report['graph_loss_err']:.1e} (limit 1e-6), a call / {MESH_GRAPH_K}: data-parallel step "
+              f"{ms['step_sharded_graph']:.3f} vs graphed single-device step {ms['step_single_graph']:.3f} ms; "
+              f"card {card}", flush=True)
     print(f"mesh phase: {time.time() - t_phase:.1f} s", flush=True)
     return totals
 

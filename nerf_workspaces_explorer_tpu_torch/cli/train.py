@@ -10,8 +10,9 @@ unless given `--device cpu` (plain PyTorch). `--mesh N` trains data-
 parallel over the first N cards (`parallel.data_mesh`); with `--device cpu`
 over N shards of the CPU, the port's stand-in for JAX's virtual devices.
 `--steps-per-call K` advances the steps K a call up to each cadence
-boundary: on `cuda` a replay of a CUDA graph of K steps, on the CPU K eager
-steps (the same trajectory as one step a call). `--proposal` trains a
+boundary: on `cuda` a replay of a CUDA graph of K steps (with `--mesh N`,
+of K data-parallel steps), on the CPU K eager steps (the same trajectory
+as one step a call). `--proposal` trains a
 2x64 proposal net in the coarse net's place (the interlevel loss),
 `--fast-preset` the fine net on importance-only placement; `--profile DIR`
 traces the first 20 steps with `torch.profiler` into DIR/trace.json,

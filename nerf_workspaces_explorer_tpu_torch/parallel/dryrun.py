@@ -13,13 +13,20 @@ order and with its gate (every sharded-against-single comparison under
   - the serving configuration, the 2x64 proposal net and the int8 kernels
     (`ops/quantize.py`), sharded against single;
   - a turbo student (6x192@10f, importance-only placement, 48 samples)
-    sharded against single, and on the stride-4 placement lattice.
+    sharded against single, and on the stride-4 placement lattice;
+  - with `graph_steps` K, calls of K data-parallel steps as a `StepGraph`
+    (`Trainer(mesh=, steps_per_call=K)`'s path; on the CPU K eager steps of
+    the same body) against the same steps taken eagerly, losses equal to
+    1e-6.
 On the card each leg's kernel launches are counted, so a caller can check
-that every shard went through the kernels.
+that every shard went through the kernels (a graph's replays launch
+through no wrapper: its launches are those of its first call, the warm-up
+steps and the capture).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -37,8 +44,11 @@ from nerf_workspaces_explorer_tpu_torch.rays.raygen import create_rays
 from nerf_workspaces_explorer_tpu_torch.render.pipeline import RenderDraws, RenderSettings
 from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
 from nerf_workspaces_explorer_tpu_torch.train.step import (
+    DataParallelBody,
     ExponentialDecay,
     StepDraws,
+    StepGraph,
+    apply_step,
     data_parallel_grads,
     data_parallel_step,
     draw_shards,
@@ -47,11 +57,14 @@ from nerf_workspaces_explorer_tpu_torch.train.step import (
     loss_and_metrics,
     mesh_replicas,
     sample_training_rays,
+    take_steps,
     train_step,
 )
 
 TOLERANCE = 5e-3  # sharded against single (__graft_entry__.py:223, :266, :294)
 FIELD_GRAD_REL = 0.08  # the fused field's gradients (tests/test_pallas_train.py:54-56)
+GRAPH_LOSS_ATOL = 1e-6  # replayed against eager steps: the same arithmetic
+GRAPH_CALLS = 3  # the first captures, the rest replay
 STRIDE = 4  # the turbo preset's placement lattice
 TURBO_STUDENT = NerfMLPSpec(depth=6, width=192, input_ch=embedding_output_dim(10),
                             input_ch_views=embedding_output_dim(4))
@@ -102,14 +115,19 @@ def dryrun_multigpu(
     n_rays: int = 1024,
     seed: int = 0,
     time_reps: int = 0,
+    graph_steps: int = 0,
 ) -> Dict[str, Any]:
     """Run the dry run over `data_mesh(n_devices, devices=devices)` and
     print its one line; raise on a failed check. The frame is `height` x
     `width` rays, whose rows must split over the mesh into blocks the
     stride-4 lattice divides; the step takes `n_rays` rays, which must split
-    over the mesh. With `time_reps` > 0 the report also holds warm ms (host
-    clock, synchronized) of the sharded fused frame and of a data-parallel
-    step against their single-device counterparts, the median of that many.
+    over the mesh. With `graph_steps` K > 0 it also takes GRAPH_CALLS calls
+    of K data-parallel steps through a `StepGraph` (on `cuda`) against the
+    same steps eagerly. With `time_reps` > 0 the report also holds warm ms
+    (host clock, synchronized) of the sharded fused frame and of a
+    data-parallel step against their single-device counterparts, the median
+    of that many, and with K > 0 those of a K-step graph call over K, over
+    the mesh and on the first device alone.
 
     Returns a report: the loss, each comparison's max |err|, whether the
     uint8 frames are byte-equal, and each leg's kernel launches."""
@@ -211,25 +229,73 @@ def dryrun_multigpu(
     sharded_against_single("stride", turbo, turbo_settings._replace(proposal_subsample=STRIDE), turbo_quant,
                            grid_hw=(height, width))
 
+    # 5. K data-parallel steps a call as graph replays against eager steps.
+    graphed = None
+    if graph_steps > 0:
+        graphed = _graph_leg(report, mesh, spec, train_settings, schedule, seed, rays_d, rgbs_d, gens, n_img,
+                             size * size, n_rays, graph_steps)
+
     if time_reps > 0:
         report["ms"] = _timings(mesh, params, frame, eval_settings, state, shard_params, rays_d, rgbs_d, gens,
-                                seeds, train_settings, spec, schedule, rays_train, rgbs, n_rays, time_reps)
+                                seeds, train_settings, spec, schedule, rays_train, rgbs, n_rays, time_reps, graphed)
 
     print(
         f"dryrun_multigpu({n}) OK: train loss {loss:.4f}, sharded render {report['plain_shape']}, "
         f"fused-vs-plain max err {report['fused_err']:.4e}, int8+proposal serving sharded-vs-single max err "
         f"{report['serving_err']:.4e}, turbo ({student_spec.depth}x{student_spec.width} student) sharded-vs-single "
-        f"max err {report['turbo_err']:.4e}, strided-placement sharded-vs-single max err {report['stride_err']:.4e}",
+        f"max err {report['turbo_err']:.4e}, strided-placement sharded-vs-single max err {report['stride_err']:.4e}"
+        + (f", {GRAPH_CALLS} calls of {graph_steps} graphed data-parallel steps vs eager max |loss diff| "
+           f"{report['graph_loss_err']:.1e}" if graph_steps > 0 else ""),
         flush=True,
     )
     return report
 
 
+def _graph_leg(report, mesh, spec, settings, schedule, seed, rays_d, rgbs_d, gens, n_img, hw, n_rays, k):
+    """GRAPH_CALLS calls of K data-parallel steps from a fresh state: eagerly
+    (`take_steps` of a `DataParallelBody`), then through a `StepGraph` on
+    `cuda` (the first call's warm-up steps and capture, then replays; on the
+    CPU `take_steps` again), with the same draws; every loss equal to
+    GRAPH_LOSS_ATOL. Adds the losses' max |diff| and the graph's launches
+    to the report; returns what the timings go on replaying."""
+    first = mesh.devices[0]
+
+    def draws(step):
+        shard_seeds = [int(s) for s in np.random.SeedSequence([seed, 6, step]).generate_state(mesh.size)]
+        return draw_shards(gens, shard_seeds, seed + 7 + step, n_img, hw, n_rays, settings, mesh)
+
+    calls = [[draws(c * k + i) for i in range(k)] for c in range(GRAPH_CALLS)]
+    losses = {}
+    for leg in ("eager", "graph"):
+        state = init_train_state(spec, schedule, first, seed=seed + 8)
+        body = DataParallelBody(state, mesh_replicas(state, mesh), rays_d, rgbs_d, settings, spec, mesh)
+        graph = StepGraph(k) if leg == "graph" and first.type == "cuda" else None
+        losses[leg] = []
+        for c, call in enumerate(calls):
+            if c <= 1:
+                before = _launches()
+            if graph is not None:
+                state, metrics = graph(state, body, call, schedule)
+            else:
+                state, metrics = take_steps(state, body, call, schedule)
+            losses[leg].append(metrics["total_loss_steps"])
+            if leg == "graph" and c in (0, len(calls) - 1):  # the first call; the replays after it
+                _sync(first)
+                report["launches"]["train_graph" if c == 0 else "train_graph_replays"] = _delta(before)
+    err = max(_max_err(a, b) for a, b in zip(losses["graph"], losses["eager"]))
+    report["graph_loss_err"] = err
+    _check(state.step == GRAPH_CALLS * k, f"step count {state.step} after {GRAPH_CALLS} calls of {k}")
+    _check(err <= GRAPH_LOSS_ATOL, f"graphed data-parallel steps diverge from eager ones: max |loss diff| {err}")
+    return dict(state=state, body=body, graph=graph, k=k)
+
+
 def _timings(mesh, params, frame, settings, state, shard_params, rays_d, rgbs_d, gens, seeds, train_settings,
-             spec, schedule, rays_train, rgbs, n_rays, reps) -> Dict[str, float]:
+             spec, schedule, rays_train, rgbs, n_rays, reps, graphed=None) -> Dict[str, float]:
     """Warm ms, the median of `reps` synchronized host-clock readings: the
     fused frame sharded and not; a data-parallel step and a single-device
-    step of the same batch size."""
+    step of the same batch size; with `graphed` (the graph leg), a call of
+    its K graphed data-parallel steps and one of K graphed single-device
+    steps, each over K (on `cuda`)."""
     first = mesh.devices[0]
 
     def median_ms(fn) -> float:
@@ -259,11 +325,29 @@ def _timings(mesh, params, frame, settings, state, shard_params, rays_d, rgbs_d,
     single_state = init_train_state(spec, schedule, first, seed=1)
     single_gen = torch.Generator(device=first)
 
+    def single_draws():
+        return draw_step(single_gen.manual_seed(seeds[0]), n_img, hw, n_rays, train_settings, first)
+
     def single_step():
-        draws = draw_step(single_gen.manual_seed(seeds[0]), n_img, hw, n_rays, train_settings, first)
-        holder["single"], _ = train_step(holder.get("single", single_state), rays_train, rgbs, draws, train_settings,
-                                         spec, schedule)
+        holder["single"], _ = train_step(holder.get("single", single_state), rays_train, rgbs, single_draws(),
+                                         train_settings, spec, schedule)
 
     out["step_sharded"] = median_ms(dp_step)
     out["step_single"] = median_ms(single_step)
+    if graphed is not None and graphed["graph"] is not None:
+        k = graphed["k"]
+
+        def dp_graph_call():
+            draws = [draw_shards(gens, seeds, i, n_img, hw, n_rays, train_settings, mesh) for i in range(k)]
+            graphed["state"], _ = graphed["graph"](graphed["state"], graphed["body"], draws, schedule)
+
+        single_graph, graph_state = StepGraph(k), init_train_state(spec, schedule, first, seed=2)
+        single_body = functools.partial(apply_step, graph_state, rays_train, rgbs, settings=train_settings, spec=spec)
+
+        def single_graph_call():
+            holder["graph_single"], _ = single_graph(holder.get("graph_single", graph_state), single_body,
+                                                     [single_draws() for _ in range(k)], schedule)
+
+        out["step_sharded_graph"] = median_ms(dp_graph_call) / k
+        out["step_single_graph"] = median_ms(single_graph_call) / k
     return out

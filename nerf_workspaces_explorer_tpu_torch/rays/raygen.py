@@ -3,7 +3,9 @@
 Counterpart of `nerf_workspaces_explorer_tpu/rays/raygen.py` (reference
 nerf/rays/rays.py:6-71): camera-frame directions on the OpenCV grid (x right,
 y down, z forward), rotated into the world by the pose's rotation block, the
-origin broadcast from its translation. Rays are a structure of arrays.
+origin broadcast from its translation. Rays are a structure of arrays;
+`pack_rays`/`unpack_rays` convert to and from the reference's flat per-ray
+record [o(3), d(3), near, far, viewdir(3)] of 11 floats (rays.py:26-31).
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ class RayBundle(NamedTuple):
     near: torch.Tensor  # [..., 1]
     far: torch.Tensor  # [..., 1]
     viewdirs: torch.Tensor  # [..., 3] (unit-norm dirs)
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return self.origins.shape[:-1]
 
     def reshape(self, *shape) -> "RayBundle":
         return RayBundle(
@@ -80,4 +86,21 @@ def create_rays(
         near=torch.full(shape, near, dtype=torch.float32, device=device),
         far=torch.full(shape, far, dtype=torch.float32, device=device),
         viewdirs=viewdirs,
+    )
+
+
+def pack_rays(rays: RayBundle) -> torch.Tensor:
+    """The reference's 11-float record layout [..., 11] (reference
+    nerf/rays/rays.py:26-31)."""
+    return torch.cat([rays.origins, rays.dirs, rays.near, rays.far, rays.viewdirs], dim=-1)
+
+
+def unpack_rays(flat: torch.Tensor) -> RayBundle:
+    """Inverse of `pack_rays` for reference-layout [..., 11] records."""
+    return RayBundle(
+        origins=flat[..., 0:3],
+        dirs=flat[..., 3:6],
+        near=flat[..., 6:7],
+        far=flat[..., 7:8],
+        viewdirs=flat[..., 8:11],
     )

@@ -35,16 +35,20 @@ each step's rays split into one shard a device, each shard drawn from a
 generator seeded from (seed, step, shard) and its image index from (seed,
 step), the shards' gradients summed on the mesh's first device (as JAX's
 step applies them), which holds the state (`train/step.py::
-data_parallel_step`); the rays, colours and parameters are
-copied once to each other device. `steps_per_call` K then takes K eager
-data-parallel steps a call (no CUDA graph). Eval renders and checkpoints
-use the first device's state, so checkpoints keep their format.
+DataParallelBody`); the rays, colours and parameters are copied once to
+each other device. `steps_per_call` K then takes K data-parallel steps a
+call (JAX's `lax.scan` inside `shard_map`): on `cuda` a replay of the
+`StepGraph` of that body (one graph of K steps where the mesh repeats one
+card, a graph a card and step across cards), on the CPU K eager steps of
+the same body. Eval renders and checkpoints use the first device's state,
+so checkpoints keep their format.
 """
 
 from __future__ import annotations
 
+import functools
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -73,10 +77,12 @@ from nerf_workspaces_explorer_tpu_torch.rays.raygen import RayBundle, create_ray
 from nerf_workspaces_explorer_tpu_torch.render.pipeline import FIELD_IMPLS, render_rays_chunked
 from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
 from nerf_workspaces_explorer_tpu_torch.train.step import (
+    DataParallelBody,
     ExponentialDecay,
     StepDraws,
     StepGraph,
     TrainState,
+    apply_step,
     check_mesh_rays,
     data_parallel_step,
     draw_shards,
@@ -85,9 +91,8 @@ from nerf_workspaces_explorer_tpu_torch.train.step import (
     load_optimizer_leaves,
     mesh_replicas,
     optimizer_leaves,
-    stack_losses,
+    take_steps,
     train_step,
-    train_steps,
 )
 from nerf_workspaces_explorer_tpu_torch.utils.metrics import to8b
 from nerf_workspaces_explorer_tpu_torch.utils.png import write_png
@@ -201,6 +206,10 @@ class Trainer:
         self._shards: Optional[Dict[str, Any]] = None  # the mesh's per-device copies
 
     @property
+    def config(self) -> FrameworkConfig:
+        return self._config
+
+    @property
     def field_impl(self) -> str:
         return self._field_impl
 
@@ -215,7 +224,7 @@ class Trainer:
     @property
     def graph_captured(self) -> bool:
         """Whether `step_many` holds a captured CUDA graph of its K steps."""
-        return self._graph is not None and self._graph.graph is not None
+        return self._graph is not None and self._graph.captured
 
     @property
     def save_dir(self) -> str:
@@ -319,23 +328,23 @@ class Trainer:
             )
         return self._shards
 
-    def _data_parallel_step(self, global_step: int) -> Dict[str, Any]:
-        """Step `global_step` over the mesh, its draws seeded from (seed,
+    def _shard_draws(self, global_step: int) -> List[StepDraws]:
+        """Step `global_step`'s draws over the mesh, seeded from (seed,
         step) for the image and (seed, step, shard) for each shard."""
         sh = self._mesh_shards()
         n_img, hw = self._train_rgbs.shape[0], self._train_rgbs.shape[1]
         seeds = [step_seed(self._seed, global_step, i) for i in range(self._mesh.size)]
-        draws = draw_shards(sh["gens"], seeds, step_seed(self._seed, global_step), n_img, hw,
-                            self._config.rendering.n_rays, self._settings, self._mesh)
-        self._state, metrics = data_parallel_step(self.state, sh["params"], sh["rays"], sh["rgbs"], draws,
-                                                  self._settings, self._spec, self._schedule, self._mesh)
-        return metrics
+        return draw_shards(sh["gens"], seeds, step_seed(self._seed, global_step), n_img, hw,
+                           self._config.rendering.n_rays, self._settings, self._mesh)
 
     def step(self, global_step: int) -> Dict[str, Any]:
         """One optimization step plus cadenced logging, eval and checkpoints."""
         with self.timer.phase("train_step"):
             if self._mesh is not None:
-                metrics = self._data_parallel_step(global_step)
+                sh = self._mesh_shards()
+                self._state, metrics = data_parallel_step(
+                    self.state, sh["params"], sh["rays"], sh["rgbs"], self._shard_draws(global_step),
+                    self._settings, self._spec, self._schedule, self._mesh)
             else:
                 draws = self._draws(global_step)
                 self._state, metrics = train_step(
@@ -377,24 +386,27 @@ class Trainer:
     def step_many(self, global_step: int) -> Dict[str, Any]:
         """Steps global_step .. global_step + K - 1 (K = `steps_per_call`) in
         one call, with no cadence action (the JAX package's scanned
-        dispatch): on `cuda` a replay of a CUDA graph of K steps (captured
-        at its first call), on the CPU K eager steps. Returns the last
-        step's metrics, plus every step's total loss as `total_loss_steps`
-        [K]. Over a mesh, K eager data-parallel steps."""
+        dispatch), single-device or over the mesh: on `cuda` a replay of a
+        `StepGraph` of K steps (captured at its first call), on the CPU K
+        eager steps of the same step body. Returns the last step's metrics,
+        plus every step's total loss as `total_loss_steps` [K]."""
         k = self._steps_per_call
-        if self._mesh is not None:
-            with self.timer.phase("train_step"):
-                return stack_losses([self._data_parallel_step(global_step + i) for i in range(k)])
         with self.timer.phase("train_step"):
-            draws = [self._draws(global_step + i) for i in range(k)]
-            args = (self.rays_train, self._train_rgbs, draws, self._settings, self._spec,
-                    self._schedule)
+            if self._mesh is not None:
+                sh = self._mesh_shards()
+                body = DataParallelBody(self.state, sh["params"], sh["rays"], sh["rgbs"], self._settings,
+                                        self._spec, self._mesh)
+                draws = [self._shard_draws(global_step + i) for i in range(k)]
+            else:
+                body = functools.partial(apply_step, self.state, self.rays_train, self._train_rgbs,
+                                         settings=self._settings, spec=self._spec)
+                draws = [self._draws(global_step + i) for i in range(k)]
             if self._device.type == "cuda":
                 if self._graph is None:
                     self._graph = StepGraph(k)
-                self._state, metrics = self._graph(self.state, *args)
+                self._state, metrics = self._graph(self.state, body, draws, self._schedule)
             else:
-                self._state, metrics = train_steps(self.state, *args)
+                self._state, metrics = take_steps(self.state, body, draws, self._schedule)
         return metrics
 
     def _cadence_intervals(self) -> list:

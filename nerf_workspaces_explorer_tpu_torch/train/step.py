@@ -20,17 +20,19 @@ Over a device mesh (`parallel/mesh.py`) `data_parallel_step` is JAX's
 `make_train_step(mesh=)`: every shard takes its own pixels of one shared
 image and its own render draws (`draw_shards`), renders and takes its
 gradients on its device, and one Adam update applies their sum, as JAX's
-step does (`data_parallel_grads`).
+step does (`DataParallelBody`, `sum_shards`).
 
 On `cuda` the optimizer is capturable and its rate a device tensor, so that
-`StepGraph` can capture K steps as one CUDA graph and replay them (the
-counterpart of the JAX package's `lax.scan` over steps, `make_train_step(
-steps_per_call=K)`); eager steps use the same optimizer, so a replay takes
-the steps K eager calls would.
+`StepGraph` can capture K steps of either body, `apply_step` or a
+`DataParallelBody`, as CUDA graphs and replay them (the counterpart of the
+JAX package's `lax.scan` over steps, `make_train_step(steps_per_call=K)`,
+with or without a mesh); eager steps (`take_steps`) use the same body and
+optimizer, so a replay takes the steps K eager calls would.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -272,7 +274,11 @@ def mesh_replicas(state: TrainState, mesh) -> Dict[torch.device, Dict[str, Any]]
     return out
 
 
-def data_parallel_grads(
+# A shard's gradients (one per leaf, in `tree_leaves` order) and metrics.
+ShardResult = Tuple[Tuple[torch.Tensor, ...], Dict[str, torch.Tensor]]
+
+
+def shard_results(
     replicas: Dict[torch.device, Dict[str, Any]],
     rays: Dict[torch.device, RayBundle],
     rgbs: Dict[torch.device, torch.Tensor],
@@ -280,11 +286,35 @@ def data_parallel_grads(
     settings: RenderSettings,
     spec: NerfMLPSpec,
     mesh,
-) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
-    """Each shard's sample, render, loss and gradients on its device, then
-    the gradient JAX's data-parallel step applies, formed on the mesh's
+    device: torch.device,
+) -> Dict[int, ShardResult]:
+    """The shards of the mesh that run on `device`, by shard index: each
+    one's sample, render, loss and gradients on that device, and its
+    metrics.
+
+    replicas, rays, rgbs: per distinct device, the parameter tree (leaf
+    tensors), the training rays [N_img, H*W] and colours [N_img, H*W, 3].
+    Gradients come from `torch.autograd.grad`, not `.backward()`: shards of
+    one device share its leaves, whose `.grad` would sum them silently."""
+    if len(draws) != mesh.size:
+        raise ValueError(f"{len(draws)} shards' draws for a mesh of {mesh.size}")
+    train_settings = settings._replace(train=True)
+    out = {}
+    with on_device(device):
+        params = replicas[device]
+        for i, (shard_device, d) in enumerate(zip(mesh.devices, draws)):
+            if shard_device != device:
+                continue
+            sampled, gt = sample_training_rays(rays[device], rgbs[device], d.img_idx, d.pix_idx)
+            loss, metrics = loss_and_metrics(params, sampled, gt, train_settings, spec, d.render)
+            out[i] = (torch.autograd.grad(loss, tree_leaves(params)), metrics)
+    return out
+
+
+def sum_shards(results: List[ShardResult], mesh) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """The gradient JAX's data-parallel step applies, formed on the mesh's
     first device in shard order (no atomics, no collective library), and
-    the step's metrics.
+    the step's metrics, from every shard's result in shard order.
 
     That gradient is the SUM over shards of each shard's gradient, n times
     the gradient of the concatenated batch's mean loss. JAX's step writes
@@ -296,34 +326,88 @@ def data_parallel_grads(
     / n; the port takes the sum to take JAX's steps.
     Scalar metrics are each shard's, averaged (a true `pmean`);
     `trans_coarse` and `trans_fine` are concatenated in shard order (JAX's
-    `P(axis_name)` out-spec).
-
-    replicas, rays, rgbs: per distinct device, the parameter tree (leaf
-    tensors), the training rays [N_img, H*W] and colours [N_img, H*W, 3].
-    Gradients come from `torch.autograd.grad`, not `.backward()`: shards of
-    one device share its leaves, whose `.grad` would sum them silently."""
-    if len(draws) != mesh.size:
-        raise ValueError(f"{len(draws)} shards' draws for a mesh of {mesh.size}")
-    train_settings = settings._replace(train=True)
-    grads, metrics = [], []
-    for device, d in zip(mesh.devices, draws):
-        with on_device(device):
-            params = replicas[device]
-            sampled, gt = sample_training_rays(rays[device], rgbs[device], d.img_idx, d.pix_idx)
-            loss, m = loss_and_metrics(params, sampled, gt, train_settings, spec, d.render)
-            grads.append(torch.autograd.grad(loss, tree_leaves(params)))
-            metrics.append(m)
+    `P(axis_name)` out-spec)."""
     first = mesh.devices[0]
+    grads = list(results[0][0])
+    for shard_grads, _ in results[1:]:
+        grads = torch._foreach_add(grads, [g.to(first) for g in shard_grads])
+    metrics = [m for _, m in results]
 
-    def total(xs):
+    def mean(xs):
         out = xs[0].to(first, copy=True)
         for x in xs[1:]:
             out += x.to(first)
-        return out
+        return out / mesh.size
 
-    out = {k: (total([m[k] for m in metrics]) / mesh.size if metrics[0][k].ndim == 0
-               else torch.cat([m[k].to(first) for m in metrics], 0)) for k in metrics[0]}
-    return [total(g) for g in zip(*grads)], out
+    return grads, {k: (mean([m[k] for m in metrics]) if metrics[0][k].ndim == 0
+                       else torch.cat([m[k].to(first) for m in metrics], 0)) for k in metrics[0]}
+
+
+def _all_shards(shards, mesh) -> List[ShardResult]:
+    """`shards(device)` on each distinct device, gathered in shard order."""
+    results: Dict[int, ShardResult] = {}
+    for device in mesh.distinct_devices:
+        results.update(shards(device))
+    return [results[i] for i in range(mesh.size)]
+
+
+def data_parallel_grads(
+    replicas: Dict[torch.device, Dict[str, Any]],
+    rays: Dict[torch.device, RayBundle],
+    rgbs: Dict[torch.device, torch.Tensor],
+    draws: List[StepDraws],
+    settings: RenderSettings,
+    spec: NerfMLPSpec,
+    mesh,
+) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """Each shard's gradients on its device (`shard_results`), then their
+    sum on the mesh's first device and the step's metrics (`sum_shards`)."""
+    return sum_shards(_all_shards(
+        lambda device: shard_results(replicas, rays, rgbs, draws, settings, spec, mesh, device), mesh), mesh)
+
+
+class DataParallelBody:
+    """One data-parallel step (JAX step.py:232-304) at the optimizer's
+    current rate, in three phases: `shards` on each device (its shards'
+    gradients and metrics), `update` on the mesh's first device (the
+    shards' summed gradient, as JAX applies it, and one Adam update of the
+    state's parameters, which are `replicas[mesh.devices[0]]`), `refresh`
+    (each other device's replica copied from them). Calling it runs the
+    three in order: the step that `data_parallel_step` takes eagerly and
+    `StepGraph` captures."""
+
+    def __init__(self, state: TrainState, replicas: Dict[torch.device, Dict[str, Any]],
+                 rays: Dict[torch.device, RayBundle], rgbs: Dict[torch.device, torch.Tensor],
+                 settings: RenderSettings, spec: NerfMLPSpec, mesh) -> None:
+        self.params, self.optimizer = state.params, state.optimizer
+        self.replicas, self.rays, self.rgbs = replicas, rays, rgbs
+        self.settings, self.spec, self.mesh = settings, spec, mesh
+
+    def shards(self, device: torch.device, draws: List[StepDraws]) -> Dict[int, ShardResult]:
+        return shard_results(self.replicas, self.rays, self.rgbs, draws, self.settings, self.spec, self.mesh,
+                             device)
+
+    def update(self, results: List[ShardResult]) -> Dict[str, torch.Tensor]:
+        with on_device(self.mesh.devices[0]):
+            grads, metrics = sum_shards(results, self.mesh)
+            for p, g in zip(tree_leaves(self.params), grads):
+                p.grad = g
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
+        return metrics
+
+    @torch.no_grad()
+    def refresh(self) -> None:
+        leaves = tree_leaves(self.params)
+        for device, tree in self.replicas.items():
+            if device != self.mesh.devices[0]:
+                for dst, src in zip(tree_leaves(tree), leaves):
+                    dst.copy_(src)
+
+    def __call__(self, draws: List[StepDraws]) -> Dict[str, torch.Tensor]:
+        metrics = self.update(_all_shards(lambda device: self.shards(device, draws), self.mesh))
+        self.refresh()
+        return metrics
 
 
 def data_parallel_step(
@@ -337,22 +421,11 @@ def data_parallel_step(
     schedule: ExponentialDecay,
     mesh,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One data-parallel step (JAX step.py:232-304): `data_parallel_grads`
-    (the shards' summed gradient, as JAX applies it), then one Adam update
-    of the state's parameters on the mesh's first device at lr(state.step) (`replicas[mesh.devices[0]]` is the state's own
-    tree), then each other device's replica refreshed from them."""
+    """One data-parallel step at lr(state.step): `DataParallelBody`'s
+    shards' gradients, their sum and one Adam update on the mesh's first
+    device, each other device's replica refreshed."""
     set_learning_rate(state.optimizer, schedule(state.step))
-    grads, metrics = data_parallel_grads(replicas, rays, rgbs, draws, settings, spec, mesh)
-    leaves = tree_leaves(state.params)
-    for p, g in zip(leaves, grads):
-        p.grad = g
-    state.optimizer.step()
-    state.optimizer.zero_grad(set_to_none=True)
-    with torch.no_grad():
-        for device, tree in replicas.items():
-            if device != mesh.devices[0]:
-                for dst, src in zip(tree_leaves(tree), leaves):
-                    dst.copy_(src)
+    metrics = DataParallelBody(state, replicas, rays, rgbs, settings, spec, mesh)(draws)
     return state._replace(step=state.step + 1), metrics
 
 
@@ -364,92 +437,185 @@ def stack_losses(steps: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor
     return out
 
 
-def train_steps(
-    state: TrainState,
-    rays: RayBundle,
-    rgbs: torch.Tensor,
-    draws: List[StepDraws],
-    settings: RenderSettings,
-    spec: NerfMLPSpec,
-    schedule: ExponentialDecay,
-) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """len(draws) consecutive `train_step`s; the last step's metrics and
-    `total_loss_steps`."""
+def take_steps(state: TrainState, body, draws: list, schedule: ExponentialDecay
+               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """len(draws) consecutive steps, each at lr(step): `body(draws[i])`
+    takes one step at the optimizer's current rate and returns its metrics
+    (`apply_step` bound to its state and data, or a `DataParallelBody`).
+    The last step's metrics and `total_loss_steps`."""
     steps = []
-    for d in draws:
-        state, m = train_step(state, rays, rgbs, d, settings, spec, schedule)
-        steps.append(m)
-    return state, stack_losses(steps)
+    for i, d in enumerate(draws):
+        set_learning_rate(state.optimizer, schedule(state.step + i))
+        steps.append(body(d))
+    return state._replace(step=state.step + len(draws)), stack_losses(steps)
 
 
-def _draw_tensors(d: StepDraws) -> List[torch.Tensor]:
-    return [d.img_idx, d.pix_idx, *d.render]
+def _draw_tensors(d) -> List[torch.Tensor]:
+    """A step's draw tensors: one device's `StepDraws`, or a mesh's list of them."""
+    if isinstance(d, StepDraws):
+        return [d.img_idx, d.pix_idx, *d.render]
+    return [t for shard in d for t in _draw_tensors(shard)]
+
+
+def _clone_draws(d):
+    if isinstance(d, StepDraws):
+        return StepDraws(d.img_idx.clone(), d.pix_idx.clone(), type(d.render)(*[x.clone() for x in d.render]))
+    return [_clone_draws(shard) for shard in d]
+
+
+def _result_tensors(results: Dict[int, ShardResult]) -> List[torch.Tensor]:
+    return [t for i in sorted(results) for t in (*results[i][0], *results[i][1].values())]
+
+
+def _pack(results: Dict[int, ShardResult]) -> torch.Tensor:
+    """Shards' results as one flat fp32 buffer (gradients, then metrics, shard by shard)."""
+    return torch.cat([t.reshape(-1) for t in _result_tensors(results)])
+
+
+def _unpack(flat: torch.Tensor, like: Dict[int, ShardResult]) -> Dict[int, ShardResult]:
+    """Views of `_pack`'s buffer in the layout of `like`."""
+    like_tensors = _result_tensors(like)
+    views = iter([x.view(t.shape) for x, t in zip(flat.split([t.numel() for t in like_tensors]), like_tensors)])
+    return {i: (tuple(next(views) for _ in like[i][0]), {k: next(views) for k in like[i][1]}) for i in sorted(like)}
 
 
 class StepGraph:
-    """K consecutive training steps as one CUDA graph, captured at the first
+    """K consecutive training steps as CUDA graphs, captured at the first
     call and replayed at every later one.
 
-    The graph holds each step's sampling, render, loss, backward (through
-    K4/K5 on the fused field) and capturable Adam update. Its inputs are
-    static buffers: each step's draws and learning rate, copied in before a
-    replay from draws the caller made outside the graph and from
-    `schedule(step)`, so a replay takes the same steps as K `train_step`
-    calls. The first call takes its K steps eagerly on a side stream
-    (PyTorch's whole-network capture recipe: the kernels build, the
-    optimizer state and the packing indices exist before the capture), then
-    captures without running anything. A failed capture or replay raises."""
+    A step is a body (`take_steps`): `apply_step` bound to one device's
+    state and data (sampling, render, loss, backward through K4/K5 on the
+    fused field, capturable Adam update), or a `DataParallelBody` over a
+    mesh. The graphs' inputs are static buffers: each step's draws and
+    learning rate, copied in before a replay from draws the caller made
+    outside the graph and from `schedule(step)`, so a replay takes the same
+    steps as `take_steps` with the same body. The first call takes its K
+    steps eagerly on a side stream of each device (PyTorch's whole-network
+    capture recipe: the kernels build, the optimizer state and the packing
+    indices exist before the capture), then captures without running
+    anything. A failed capture or replay raises; nothing falls back to
+    eager steps.
 
-    def __init__(self, k: int) -> None:
+    Where every step's work sits on one card (one device, or a mesh whose
+    shards repeat one card), one graph holds all K steps. A mesh over
+    distinct cards gets, for each step, a graph on each card for its
+    shards (gradients and metrics packed into one flat buffer) and a graph
+    on the first card for the sum and the Adam update, replayed in that
+    order: K * (cards + 1) replays a call. Between them, each card's flat
+    buffer is copied to the first card and each replica refreshed
+    (`DataParallelBody.refresh`) by eager copies, which PyTorch orders
+    against both cards' current streams with events. One capture across
+    cards would need the other cards' streams to join the first card's
+    capture, while PyTorch's cross-device copies synchronize the cards'
+    current streams and its graph memory pool serves one device; a graph a
+    card keeps each capture on one device. `per_card=True` takes that path
+    on one card as well."""
+
+    def __init__(self, k: int, *, per_card: Optional[bool] = None) -> None:
         self.k = k
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.per_card = per_card
+        self.graph: Optional[torch.cuda.CUDAGraph] = None  # all K steps, on one card
+        self._plan: Optional[list] = None  # per step: (card graphs, copies, update graph), across cards
 
-    def __call__(
-        self,
-        state: TrainState,
-        rays: RayBundle,
-        rgbs: torch.Tensor,
-        draws: List[StepDraws],
-        settings: RenderSettings,
-        spec: NerfMLPSpec,
-        schedule: ExponentialDecay,
-    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None or self._plan is not None
+
+    def __call__(self, state: TrainState, body, draws: list, schedule: ExponentialDecay
+                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if len(draws) != self.k:
             raise ValueError(f"the graph takes {self.k} steps, got draws for {len(draws)}")
         if not all(isinstance(g["lr"], torch.Tensor) for g in state.optimizer.param_groups):
             raise ValueError("a graphed step needs the capturable optimizer of make_optimizer on cuda")
-        lrs = torch.tensor([schedule(state.step + i) for i in range(self.k)], dtype=torch.float32)
-        if self.graph is None:
-            return self._warm_and_capture(state, rays, rgbs, draws, settings, spec, schedule)
+        if not self.captured:
+            return self._warm_and_capture(state, body, draws, schedule)
         for static, d in zip(self._draws, draws):
             for dst, src in zip(_draw_tensors(static), _draw_tensors(d)):
                 dst.copy_(src)
-        self._lr.copy_(lrs)
-        self.graph.replay()
-        return state._replace(step=state.step + self.k), {k: v.clone() for k, v in self._metrics.items()}
+        lrs = torch.tensor([schedule(state.step + i) for i in range(self.k)], dtype=torch.float32,
+                           pin_memory=True)
+        self._lr.copy_(lrs, non_blocking=True)
+        if self.graph is not None:
+            self.graph.replay()
+            metrics = self._metrics
+        else:
+            for card_graphs, copies, update in self._plan:
+                for graph in card_graphs:
+                    graph.replay()
+                for dst, src in copies:
+                    dst.copy_(src)
+                update.replay()
+                self._body.refresh()
+            metrics = stack_losses(self._step_metrics)
+        return state._replace(step=state.step + self.k), {k: v.clone() for k, v in metrics.items()}
 
-    def _warm_and_capture(self, state, rays, rgbs, draws, settings, spec, schedule):
-        device = rays.origins.device
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            state_after, metrics = train_steps(state, rays, rgbs, draws, settings, spec, schedule)
+    def _warm_and_capture(self, state, body, draws, schedule):
+        devices = list(dict.fromkeys(t.device for t in _draw_tensors(draws[0])))
+        sides = [torch.cuda.Stream(device) for device in devices]
+        with contextlib.ExitStack() as stack:
+            for side in sides:
+                side.wait_stream(torch.cuda.current_stream(side.device))
+                stack.enter_context(torch.cuda.stream(side))
+            state_after, metrics = take_steps(state, body, draws, schedule)
             metrics = {k: v.clone() for k, v in metrics.items()}
-        torch.cuda.current_stream(device).wait_stream(side)
+        for side in sides:
+            torch.cuda.current_stream(side.device).wait_stream(side)
 
-        self._draws = [StepDraws(d.img_idx.clone(), d.pix_idx.clone(), type(d.render)(*[x.clone() for x in d.render]))
-                       for d in draws]
-        self._lr = torch.empty(self.k, dtype=torch.float32, device=device)
+        self._draws = [_clone_draws(d) for d in draws]
+        self._lr = torch.empty(self.k, dtype=torch.float32, device=devices[0])
+        per_card = len(devices) > 1 if self.per_card is None else self.per_card
+        if per_card:
+            if not isinstance(body, DataParallelBody):
+                raise ValueError("graphs a card need a DataParallelBody")
+            self._capture_per_card(state.optimizer, body, devices)
+        else:
+            self._capture_whole(state.optimizer, body, devices[0])
+        return state_after, metrics
+
+    def _set_rate(self, opt: torch.optim.Adam, i: int) -> None:
+        for group in opt.param_groups:
+            group["lr"].copy_(self._lr[i])
+
+    def _capture_whole(self, opt, body, device):
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.device(device), torch.cuda.graph(graph, stream=torch.cuda.Stream(device)):
             steps = []
             for i in range(self.k):
-                for group in state.optimizer.param_groups:
-                    group["lr"].copy_(self._lr[i])
-                steps.append(apply_step(state, rays, rgbs, self._draws[i], settings, spec))
+                self._set_rate(opt, i)
+                steps.append(body(self._draws[i]))
             self._metrics = stack_losses(steps)
         self.graph = graph
-        return state_after, metrics
+
+    def _capture_per_card(self, opt, body, devices):
+        first = devices[0]
+        pools: Dict[torch.device, Any] = {}
+        plan, self._step_metrics, self._static = [], [], []
+        for i in range(self.k):
+            card_graphs, staged, copies = [], [], []
+            for device in devices:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.device(device), torch.cuda.graph(graph, pool=pools.get(device),
+                                                                 stream=torch.cuda.Stream(device)):
+                    results = body.shards(device, self._draws[i])
+                    flat = _pack(results)
+                pools.setdefault(device, graph.pool())
+                card_graphs.append(graph)
+                if device != first:
+                    copies.append((torch.empty_like(flat, device=first), flat))
+                    staged.append((copies[-1][0], results))
+                else:
+                    staged.append((flat, results))
+            update = torch.cuda.CUDAGraph()
+            with torch.cuda.device(first), torch.cuda.graph(update, pool=pools[first],
+                                                            stream=torch.cuda.Stream(first)):
+                self._set_rate(opt, i)
+                results = {}
+                for flat, like in staged:
+                    results.update(_unpack(flat, like))
+                self._step_metrics.append(body.update([results[j] for j in range(body.mesh.size)]))
+            self._static.append((staged, copies))  # every static buffer lives as long as the graphs
+            plan.append((card_graphs, copies, update))
+        self._plan, self._body = plan, body
 
 
 def optimizer_leaves(state: TrainState) -> List[np.ndarray]:

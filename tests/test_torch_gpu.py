@@ -1170,6 +1170,104 @@ def test_mesh_on_two_cards(cuda):
         assert a.device == mesh.devices[1] and torch.equal(a.detach().cpu(), b.detach().cpu())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4])
+def test_mesh_graph_replay_equals_eager_steps(cuda, tmp_path, k):
+    """Trainer(mesh=[cuda:0] * k, steps_per_call=4) on the card: the first
+    K-step call runs its data-parallel steps eagerly and captures one CUDA
+    graph of the four, the next two replay it; the 12 losses equal the
+    eager data-parallel steps' (K = 1) to 1e-6 and the parameters agree; a
+    profiler trace of the replays shows K4 and K5's kernels twice a shard
+    a step, and the wrappers' counters do not move."""
+    from nerf_workspaces_explorer_tpu_torch.models.mlp import tree_leaves
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import device_kernel_counts
+    from nerf_workspaces_explorer_tpu_torch.ops import fused_field as ff
+    from nerf_workspaces_explorer_tpu_torch.parallel import data_mesh
+
+    mesh = data_mesh(devices=[cuda] * k)
+    first = mesh.devices[0]
+    eager = _tiny_room_trainer(first, tmp_path, "eager", mesh=mesh)
+    losses = [float(eager.step(i)["total_loss"]) for i in range(12)]
+    graphed = _tiny_room_trainer(first, tmp_path, "graphed", steps_per_call=4, mesh=mesh)
+    got = graphed.step_many(0)["total_loss_steps"].tolist()
+    assert graphed.graph_captured and graphed._graph.graph is not None  # one graph of the four steps
+    before = dict(ff.LAUNCHES)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        got += graphed.step_many(4)["total_loss_steps"].tolist()
+        got += graphed.step_many(8)["total_loss_steps"].tolist()
+    ran = device_kernel_counts(prof)
+    assert ff.LAUNCHES == before
+    want = 2 * k * 2 * 4  # two nets, k shards, two calls of four steps
+    assert ran.get("field_fwd_kernel") == want and ran.get("field_bwd_chain_kernel") == want, ran
+    assert max(abs(a - b) for a, b in zip(got, losses)) <= 1e-6, (got, losses)
+    assert graphed.state.step == 12
+    for a, b in zip(tree_leaves(eager.params), tree_leaves(graphed.params)):
+        assert float((a - b).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_card", [False, True], ids=["one-graph", "graph-a-card"])
+def test_mesh_graph_replays_make_no_host_sync(cuda, per_card):
+    """`StepGraph(4)` of a `DataParallelBody` over cuda:0 twice, as one graph
+    of the four steps and as the distinct-card design (a graph a card and
+    step for the shards, one for the sum and Adam, eager copies between):
+    three calls take the eager steps' losses to 1e-6, and the second call's
+    replay makes no host sync (torch.cuda.set_sync_debug_mode("error"))."""
+    from nerf_workspaces_explorer_tpu_torch.parallel import data_mesh
+    from nerf_workspaces_explorer_tpu_torch.train import step as tstep
+
+    mesh = data_mesh(devices=[cuda] * 2)
+    legs = {}
+    for leg in ("eager", "graph"):
+        state, replicas, rays, rgbs, draws, settings, schedule = _mesh_step_inputs(cuda, mesh)
+        body = tstep.DataParallelBody(state, replicas, rays, rgbs, settings, NerfMLPSpec(), mesh)
+        graph = tstep.StepGraph(4, per_card=per_card) if leg == "graph" else None
+        losses = []
+        for c in range(3):
+            call = [draws(4 * c + i) for i in range(4)]
+            if graph is None:
+                state, m = tstep.take_steps(state, body, call, schedule)
+            else:
+                torch.cuda.synchronize()
+                if c == 1:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    state, m = graph(state, body, call, schedule)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            losses += m["total_loss_steps"].tolist()
+        legs[leg] = losses
+    assert graph.captured and (graph.graph is None) == per_card
+    assert state.step == 12
+    assert max(abs(a - b) for a, b in zip(legs["graph"], legs["eager"])) <= 1e-6, legs
+
+
+@pytest.mark.gpu
+def test_mesh_graph_on_two_cards(cuda, tmp_path):
+    """`Trainer(mesh=data_mesh(2), steps_per_call=4)` on two cards: a graph
+    a card and step for the shards and one on the first card for the sum
+    and Adam; 12 steps in three calls take the eager data-parallel steps'
+    losses to 1e-6, and the second card's replica equals the parameters."""
+    from nerf_workspaces_explorer_tpu_torch.models.mlp import tree_leaves
+    from nerf_workspaces_explorer_tpu_torch.parallel import data_mesh, device_count
+
+    if device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    mesh = data_mesh(2)
+    eager = _tiny_room_trainer(mesh.devices[0], tmp_path, "eager", mesh=mesh)
+    losses = [float(eager.step(i)["total_loss"]) for i in range(12)]
+    graphed = _tiny_room_trainer(mesh.devices[0], tmp_path, "graphed", steps_per_call=4, mesh=mesh)
+    got = []
+    for c in range(3):
+        got += graphed.step_many(4 * c)["total_loss_steps"].tolist()
+    assert graphed.graph_captured and graphed._graph.graph is None  # the per-card graphs
+    assert max(abs(a - b) for a, b in zip(got, losses)) <= 1e-6, (got, losses)
+    replica = graphed._mesh_shards()["params"][mesh.devices[1]]
+    for a, b in zip(tree_leaves(replica), tree_leaves(graphed.params)):
+        assert a.device == mesh.devices[1] and torch.equal(a.detach().cpu(), b.detach().cpu())
+
+
 def _script(name):
     import importlib.util
 

@@ -260,6 +260,96 @@ def test_data_parallel_step_matches_jax_mesh_step(scene):
         assert rel <= 1e-4, rel
 
 
+def test_scanned_data_parallel_step_matches_jax_scanned_mesh_step(scene, tmp_path):
+    """JAX's test_scanned_sharded_step_matches_single_steps against the
+    port: `Trainer(mesh=, steps_per_call=3).step_many` on the 8-shard CPU
+    mesh (three eager steps of `DataParallelBody`) against JAX's
+    `make_train_step(mesh=, steps_per_call=3)` (`lax.scan` inside
+    `shard_map`), from the same parameters, rays and colours and each
+    step's per-device draws reproduced from JAX's keys. The tolerances of
+    test_data_parallel_step_matches_jax_mesh_step: the parameters within
+    rel 1e-4 of each leaf's largest value, the last step's scalar metrics
+    and every step's total loss (JAX's single mesh steps) within rel 1e-5,
+    `trans_fine` [n_rays, S + I] atol 1e-4 in shard order, at that test's
+    rate (5e-4, JAX's default)."""
+    import dataclasses
+
+    from nerf_workspaces_explorer_tpu.train import init_train_state as jinit_train_state
+    from nerf_workspaces_explorer_tpu.train import make_optimizer as jmake_optimizer
+    from nerf_workspaces_explorer_tpu.train import make_train_step
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
+
+    rays, rgbs = scene
+    n_rays, k, jspec = 64, 3, JSpec(**SPEC)
+    jsettings = JSettings(**SETTINGS, raw_noise_std=1.0)
+    opt = jmake_optimizer(5e-4)
+    jstate = jinit_train_state(jax.random.PRNGKey(2), jspec, opt)
+    params = jax.tree.map(np.asarray, jstate.params)
+    key = jax.random.PRNGKey(3)
+    jsingle = make_train_step(jsettings, jspec, opt, n_rays, mesh=jdata_mesh(), donate=False)
+    jscanned = make_train_step(jsettings, jspec, opt, n_rays, mesh=jdata_mesh(), donate=False, steps_per_call=k)
+    jlosses, js = [], jstate
+    for _ in range(k):
+        js, jm1 = jsingle(js, rays, jnp.asarray(rgbs), key)
+        jlosses.append(float(jm1["total_loss"]))
+    jstate, jm = jscanned(jstate, rays, jnp.asarray(rgbs), key)
+    assert int(jstate.step) == k
+
+    (tmp_path / "tiny.yaml").write_text(TINY_YAML)
+    cfg = load_config(str(tmp_path / "tiny.yaml"), office_name="office_tokyo")
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, learning_rate=5e-4))  # JAX's rate
+    train, test, _ = make_synthetic_scene(n_train=3, n_test=1, height=8, width=8)
+    tr = Trainer("office_tokyo", cfg, train_data=train, test_data=test, save_dir=str(tmp_path / "run"),
+                 enable_tensorboard=False, device="cpu", mesh=MESH, steps_per_call=k)
+    tr.setup()
+    with torch.no_grad():
+        for dst, src in zip(tree_leaves(tr.params), jax.tree_util.tree_leaves(params)):
+            dst.copy_(_t(src))
+    tr.rays_train, tr._train_rgbs = RayBundle(*(_t(f) for f in rays)), _t(rgbs)
+    settings = RenderSettings(**SETTINGS, raw_noise_std=1.0)
+    tr._shard_draws = lambda step: _jax_shard_draws(key, step, 3, 64, n_rays // N_DEV, settings)
+    m = tr.step_many(0)
+    assert tr.state.step == k
+    np.testing.assert_allclose(m["total_loss_steps"].numpy(), jlosses, rtol=1e-5)
+    for name in ("rgb_loss_coarse", "rgb_loss_fine", "total_loss", "psnr_coarse", "psnr_fine"):
+        assert float(m[name]) == pytest.approx(float(jm[name]), rel=1e-5), name
+    assert m["trans_fine"].shape == (n_rays, 16) and jm["trans_fine"].shape == (n_rays, 16)
+    np.testing.assert_allclose(m["trans_fine"].numpy(), np.asarray(jm["trans_fine"]), atol=1e-4)
+    for a, b in zip(tree_leaves(tr.params), jax.tree_util.tree_leaves(jstate.params)):
+        b = np.asarray(b)
+        rel = float(np.abs(a.detach().numpy() - b).max() / np.abs(b).max())
+        assert rel <= 1e-4, rel
+
+
+def test_mesh_step_many_is_the_single_steps_bit_for_bit(tmp_path):
+    """On the CPU `Trainer(mesh=, steps_per_call=3).step_many` runs the step
+    body of `step` (`DataParallelBody`) three times: its losses, parameters
+    and Adam moments equal three `step` calls' bit for bit."""
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
+
+    (tmp_path / "tiny.yaml").write_text(TINY_YAML)
+    cfg = load_config(str(tmp_path / "tiny.yaml"), office_name="office_tokyo")
+    train, test, _ = make_synthetic_scene(n_train=2, n_test=1, height=6, width=8)
+    trainers = []
+    for name, k in (("single", 1), ("many", 3)):
+        tr = Trainer("office_tokyo", cfg, train_data=train, test_data=test, save_dir=str(tmp_path / name),
+                     enable_tensorboard=False, device="cpu", mesh=MESH, steps_per_call=k)
+        tr.setup()
+        trainers.append(tr)
+    single, many = trainers
+    losses = [float(single.step(i)["total_loss"]) for i in range(3)]
+    assert many.step_many(0)["total_loss_steps"].tolist() == losses
+    assert many.state.step == single.state.step == 3
+    for a, b in zip(tree_leaves(single.params), tree_leaves(many.params)):
+        assert torch.equal(a, b)
+        for moment in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(single.state.optimizer.state[a][moment], many.state.optimizer.state[b][moment])
+
+
 def test_data_parallel_step_refuses_indivisible_rays(scene):
     """n_rays=100 over 8 shards raises, in both packages (JAX
     step.py:239-241)."""
@@ -362,17 +452,19 @@ def test_renderer_parity_mesh_matches_unsharded():
 def test_dryrun_multigpu_small_spec():
     """`dryrun_multigpu` over 8 CPU shards at a small spec: every sharded
     leg equals its single-device counterpart to 5e-3 (on the CPU exactly),
-    the data-parallel gradient its concatenated batch's, and its line
-    printed."""
+    the data-parallel gradient its concatenated batch's, the K-step calls
+    (`graph_steps`) the eager steps' losses, and its line printed."""
     from nerf_workspaces_explorer_tpu_torch.parallel.dryrun import dryrun_multigpu
 
     student = NerfMLPSpec(depth=2, width=32, input_ch=39, input_ch_views=27, skips=())
     report = dryrun_multigpu(devices=["cpu"] * N_DEV, spec=NerfMLPSpec(**SPEC),
-                             settings=RenderSettings(**SETTINGS), student_spec=student, height=32, width=8, n_rays=64)
+                             settings=RenderSettings(**SETTINGS), student_spec=student, height=32, width=8, n_rays=64,
+                             graph_steps=2)
     assert report["n_devices"] == N_DEV and report["plain_shape"] == (256, 3)
     assert np.isfinite(report["loss"]) and report["grad_rel"] < 1e-5
     assert report["loss"] == pytest.approx(report["loss_single"], rel=1e-5)
     assert report["fused_err"] < 5e-3
+    assert report["graph_loss_err"] == 0.0  # on the CPU the K-step calls are the eager steps' body
     for leg in ("serving", "turbo", "stride"):
         assert report[f"{leg}_err"] == 0.0 and report[f"{leg}_bytes_equal"], leg
     assert all(not d for d in report["launches"].values())  # no kernel runs on the CPU

@@ -12,6 +12,8 @@ import torch
 from nerf_workspaces_explorer_tpu.models import NerfMLPSpec as JSpec
 from nerf_workspaces_explorer_tpu.models import init_nerf_params
 from nerf_workspaces_explorer_tpu.rays import create_rays as jcreate_rays
+from nerf_workspaces_explorer_tpu.rays import pack_rays as jpack_rays
+from nerf_workspaces_explorer_tpu.rays import unpack_rays as junpack_rays
 from nerf_workspaces_explorer_tpu.rays import sampling as jsampling
 from nerf_workspaces_explorer_tpu.render import RenderSettings as JSettings
 from nerf_workspaces_explorer_tpu.render import render_rays_chunked as jrender_rays_chunked
@@ -19,7 +21,7 @@ from nerf_workspaces_explorer_tpu.render.volume import composite_rays as jcompos
 from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import params_from_numpy
 from nerf_workspaces_explorer_tpu_torch.models.mlp import NerfMLP, NerfMLPSpec
 from nerf_workspaces_explorer_tpu_torch.rays import sampling
-from nerf_workspaces_explorer_tpu_torch.rays.raygen import RayBundle, create_rays
+from nerf_workspaces_explorer_tpu_torch.rays.raygen import RayBundle, create_rays, pack_rays, unpack_rays
 from nerf_workspaces_explorer_tpu_torch.render.pipeline import (
     RenderSettings,
     render_ray_bundle,
@@ -44,6 +46,24 @@ def test_create_rays_matches_jax(rng):
     ref = jcreate_rays(jnp.asarray(c2w), 6, 10, 8.0, 8.5, 4.5, 2.5, 0.1, 10.0)
     for a, b in zip(mine, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+def test_pack_rays_unpack_rays_batch_shape_match_jax(rng):
+    """`pack_rays` gives JAX's [..., 11] records of the same seeded bundle
+    bit for bit, `unpack_rays` returns the fields exactly (as JAX's does),
+    and `RayBundle.batch_shape` is JAX's, before and after a reshape."""
+    c2w = rng.normal(size=(2, 4, 4)).astype(np.float32)
+    ref = jcreate_rays(jnp.asarray(c2w), 6, 10, 8.0, 8.5, 4.5, 2.5, 0.1, 10.0)
+    mine = RayBundle(*(_t(f) for f in ref))
+    packed = pack_rays(mine)
+    assert packed.shape == (2, 60, 11)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jpack_rays(ref)))
+    for a, b, c in zip(unpack_rays(packed), junpack_rays(jpack_rays(ref)), mine):
+        assert torch.equal(a, c)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert mine.batch_shape == tuple(ref.batch_shape) == (2, 60)
+    assert mine.reshape(120).batch_shape == tuple(ref.reshape(120).batch_shape) == (120,)
+    assert unpack_rays(packed.reshape(120, 11)).batch_shape == (120,)
 
 
 def test_coarse_z_vals_match_jax():

@@ -461,14 +461,43 @@ def test_train_cli_steps_per_call_on_cpu(tmp_path, capsys):
     assert os.path.exists(tmp_path / "run" / "checkpoints" / "000012.npz")
 
 
+def test_trainer_config_is_the_given_config_as_in_jax(tmp_path, orbit):
+    """`Trainer.config` (JAX train/loop.py:176): the configuration the
+    trainer was given, or the office's default one loaded for it; the same
+    for both packages' trainers built from one YAML file."""
+    from nerf_workspaces_explorer_tpu.core.config import load_config as jload_config
+    from nerf_workspaces_explorer_tpu.train import Trainer as JTrainer
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+
+    cfg = tiny_config()
+    assert _trainer(tmp_path / "a", orbit, config=cfg).config is cfg
+    (tmp_path / "tiny.yaml").write_text(TINY_YAML)
+    mine = load_config(str(tmp_path / "tiny.yaml"), office_name="office_tokyo")
+    theirs = jload_config(str(tmp_path / "tiny.yaml"), office_name="office_tokyo")
+    jtrain, jtest, _ = jsynthetic.make_synthetic_scene(n_train=2, n_test=1, height=12, width=16)
+    jtr = JTrainer("office_tokyo", theirs, train_data=jtrain, test_data=jtest, save_dir=str(tmp_path / "j"),
+                   enable_tensorboard=False)
+    assert jtr.config is theirs
+    tr = _trainer(tmp_path / "b", orbit, config=mine)
+    assert tr.config is mine and tr.config.to_dict() == jtr.config.to_dict()
+    default = Trainer("office_tokyo", train_data=orbit[0], test_data=orbit[1], save_dir=str(tmp_path / "c"),
+                      enable_tensorboard=False, device="cpu")
+    assert default.config.to_dict() == JTrainer("office_tokyo", train_data=jtrain, test_data=jtest,
+                                                save_dir=str(tmp_path / "d"), enable_tensorboard=False
+                                                ).config.to_dict()
+
+
 def test_step_graph_needs_the_capturable_optimizer(tmp_path, orbit):
-    from nerf_workspaces_explorer_tpu_torch.train.step import StepGraph
+    import functools
+
+    from nerf_workspaces_explorer_tpu_torch.train.step import StepGraph, apply_step
 
     t = _trainer(tmp_path, orbit)
     t.setup()
     with pytest.raises(ValueError, match="capturable optimizer"):
-        StepGraph(2)(t.state, t.rays_train, t._train_rgbs, [t._draws(0), t._draws(1)], t._settings, t._spec,
-                     t._schedule)
+        StepGraph(2)(t.state, functools.partial(apply_step, t.state, t.rays_train, t._train_rgbs,
+                                                settings=t._settings, spec=t._spec),
+                     [t._draws(0), t._draws(1)], t._schedule)
 
 
 def test_trainer_needs_a_device_or_cuda_and_data(tmp_path, orbit, monkeypatch):
