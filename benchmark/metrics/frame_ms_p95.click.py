@@ -1,0 +1,7 @@
+"""The 95th percentile of every frame's host-clock latency in the window of the
+click cells."""
+
+from harness import readouts
+
+UNIT = "ms"
+read = readouts.frame_ms_p95
