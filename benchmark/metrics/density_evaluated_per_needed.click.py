@@ -1,0 +1,8 @@
+"""The density-pass samples the program evaluated over the traced frames of
+the click cells (its `render.density_samples` counter) over the samples
+their inputs need (the reference's count)."""
+
+from harness import spans
+
+UNIT = "x"
+read = spans.density_evaluated_per_needed

@@ -24,6 +24,7 @@ import numpy as np
 
 from nerf_workspaces_explorer_tpu_torch.core.types import COORD, HW
 from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+from nerf_workspaces_explorer_tpu_torch.obs.profiler import span
 
 PROJECT_PATH = os.path.normpath(os.path.join(os.path.dirname(__file__), "..", ".."))
 FINAL_MODELS_DIR = os.path.join(PROJECT_PATH, "final_models")
@@ -101,21 +102,23 @@ class Workspace(metaclass=ABCMeta):
         self, rel_x: float, rel_y: float, horizontal_angle: int, vertical_angle: int
     ) -> np.ndarray:
         """Floor-plan relative click + camera angles -> uint8 [H, W, 3]
-        (reference Workspace.render_image, workspace.py:54-68)."""
-        init_coordinates, coordinates = self._transform_relative_coordinates(
-            rel_x, rel_y, horizontal_angle, vertical_angle
-        )
-        # Console trace preserved from reference workspace.py:58-64.
-        print(
-            f"Virtual camera coordinates and orientation: \n{init_coordinates}\n"
-            f"-------------------------------------\n"
-            f"Virtual camera local orientation: \n"
-            f"yaw (left-right): {coordinates.yaw:.3f}\n"
-            f"pitch (up-down): {coordinates.pitch:.3f}\n"
-            f"roll (twist): {coordinates.roll:.3f}\n"
-            f"-------------------------------------------------------------"
-        )
-        return self._nerf_inference.render_coordinates(init_coordinates, coordinates)
+        (reference Workspace.render_image, workspace.py:54-68); the span
+        `app.render_image`."""
+        with span("app.render_image"):
+            init_coordinates, coordinates = self._transform_relative_coordinates(
+                rel_x, rel_y, horizontal_angle, vertical_angle
+            )
+            # Console trace preserved from reference workspace.py:58-64.
+            print(
+                f"Virtual camera coordinates and orientation: \n{init_coordinates}\n"
+                f"-------------------------------------\n"
+                f"Virtual camera local orientation: \n"
+                f"yaw (left-right): {coordinates.yaw:.3f}\n"
+                f"pitch (up-down): {coordinates.pitch:.3f}\n"
+                f"roll (twist): {coordinates.roll:.3f}\n"
+                f"-------------------------------------------------------------"
+            )
+            return self._nerf_inference.render_coordinates(init_coordinates, coordinates)
 
     def render_image_preview(
         self, rel_x: float, rel_y: float, horizontal_angle: int, vertical_angle: int

@@ -60,6 +60,7 @@ from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import (
 from nerf_workspaces_explorer_tpu_torch.models.encoding import embedding_output_dim
 from nerf_workspaces_explorer_tpu_torch.models.mlp import NerfMLP, NerfMLPSpec, init_nerf_params
 from nerf_workspaces_explorer_tpu_torch.obs.debug import scan_outputs_finite
+from nerf_workspaces_explorer_tpu_torch.obs.profiler import span
 from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
     prepare_kernel_params,
     render_rays_fused,
@@ -124,6 +125,14 @@ def spec_from_config(cfg: FrameworkConfig) -> NerfMLPSpec:
 def _to_uint8(rgb: torch.Tensor) -> torch.Tensor:
     """Reference to8b_np (model_utils.py:10): floor(255 * clip(rgb, 0, 1))."""
     return torch.floor(255.0 * torch.clamp(rgb, 0.0, 1.0)).to(torch.uint8)
+
+
+def _host_frame(rgb: torch.Tensor) -> np.ndarray:
+    """A float frame on the renderer's device -> uint8 numpy frame, in the
+    span `renderer.to_host`. The copy to the host waits for the device to
+    finish the frame, so on the card the span holds that wait."""
+    with span("renderer.to_host"):
+        return _to_uint8(rgb).cpu().numpy()
 
 
 class NeRFRenderer:
@@ -352,9 +361,10 @@ class NeRFRenderer:
         h = cfg.experiment.image_height if height is None else height
         w = cfg.experiment.image_width
         near, far = cfg.rendering.depth_range
-        c2w = torch.as_tensor(np.asarray(c2ws, dtype=np.float32), device=self._device)
-        cy = cfg.cy if cy is None else cy
-        return create_rays(c2w, h, w, cfg.fx, cfg.fy, cfg.cx, cy, near, far).reshape(len(c2ws) * h * w)
+        with span("renderer.rays"):
+            c2w = torch.as_tensor(np.asarray(c2ws, dtype=np.float32), device=self._device)
+            cy = cfg.cy if cy is None else cy
+            return create_rays(c2w, h, w, cfg.fx, cfg.fy, cfg.cx, cy, near, far).reshape(len(c2ws) * h * w)
 
     @torch.no_grad()
     def _render_batch(
@@ -364,38 +374,44 @@ class NeRFRenderer:
         """float32 [n, H, W, 3] on the renderer's device (`height` rows with
         `cy` shifted for a strip, as `_rays`). With `full`, the reference's
         output dict instead: rgb/disp/acc/depth of the fine pass, [n, H, W,
-        ...] (the parity path's coarse maps too when it has no fine pass)."""
+        ...] (the parity path's coarse maps too when it has no fine pass).
+        The span `renderer.frame`."""
         self._require_models()
         cfg = self._config
         h = cfg.experiment.image_height if height is None else height
         w = cfg.experiment.image_width
         n = len(c2ws)
-        rays = self._rays(c2ws, height, cy)
-        if self._kparams is not None:
-            # The ray axis is n frames of h rows: an (n * h, w) grid, so the
-            # placement lattice's blocks never straddle two frames.
-            fused = render_rays_fused(
-                self._kparams, rays, self._settings, early_stop_eps=self._early_stop_eps,
-                sort_rays=self._sort_rays, grid_hw=(n * h, w), full=full,
-            )
-            out = {"rgb_fine": fused.rgb, "disp_fine": fused.disp, "acc_fine": fused.acc,
-                   "depth_fine": fused.depth} if full else {"rgb_fine": fused}
-        elif self._mesh is not None:
-            out = shard_render(self._params, rays, self._settings, self._mesh, spec=self._spec, chunk=self._chunk)
-        else:
-            out = render_rays_chunked(self._models, rays, self._settings, chunk=self._chunk)
-        if not full:
-            rgb = out.get("rgb_fine", out.get("rgb_coarse"))
-            return rgb.to(torch.float32).reshape(n, h, w, 3)
-        return {k: v.to(torch.float32).reshape(n, h, w, *v.shape[1:]) for k, v in out.items()}
+        with span("renderer.frame"):
+            rays = self._rays(c2ws, height, cy)
+            if self._kparams is not None:
+                # The ray axis is n frames of h rows: an (n * h, w) grid, so the
+                # placement lattice's blocks never straddle two frames.
+                fused = render_rays_fused(
+                    self._kparams, rays, self._settings, early_stop_eps=self._early_stop_eps,
+                    sort_rays=self._sort_rays, grid_hw=(n * h, w), full=full,
+                )
+                out = {"rgb_fine": fused.rgb, "disp_fine": fused.disp, "acc_fine": fused.acc,
+                       "depth_fine": fused.depth} if full else {"rgb_fine": fused}
+            elif self._mesh is not None:
+                out = shard_render(self._params, rays, self._settings, self._mesh, spec=self._spec,
+                                   chunk=self._chunk)
+            else:
+                out = render_rays_chunked(self._models, rays, self._settings, chunk=self._chunk)
+            if not full:
+                rgb = out.get("rgb_fine", out.get("rgb_coarse"))
+                return rgb.to(torch.float32).reshape(n, h, w, 3)
+            return {k: v.to(torch.float32).reshape(n, h, w, *v.shape[1:]) for k, v in out.items()}
 
     def render_pose(self, c2w: np.ndarray) -> torch.Tensor:
         """Render one camera pose -> float32 [H, W, 3] on the renderer's device."""
         return self._render_batch([c2w])[0]
 
     def render_pose_uint8(self, c2w: np.ndarray) -> torch.Tensor:
-        """Render one camera pose straight to uint8 [H, W, 3] on the device."""
-        return _to_uint8(self.render_pose(c2w))
+        """Render one camera pose straight to uint8 [H, W, 3] on the device
+        (the conversion in the span `renderer.to_host`)."""
+        rgb = self.render_pose(c2w)
+        with span("renderer.to_host"):
+            return _to_uint8(rgb)
 
     def _pick_n_strips(self) -> int:
         """Largest strip count in 6..2 whose strips divide the image height
@@ -451,8 +467,8 @@ class NeRFRenderer:
         if self._nan_debug:
             out = {k: v[0] for k, v in self._render_batch([pose], full=True).items()}
             scan_outputs_finite(out)
-            return _to_uint8(out.get("rgb_fine", out.get("rgb_coarse"))).cpu().numpy()
-        return self.render_pose_uint8(pose).cpu().numpy()
+            return _host_frame(out.get("rgb_fine", out.get("rgb_coarse")))
+        return _host_frame(self.render_pose(pose))
 
     def render_poses(self, c2ws: Sequence[np.ndarray]) -> np.ndarray:
         """A batch of poses -> float32 [N, H, W, 3] (the tour path): the rays

@@ -1,12 +1,22 @@
-"""Per-phase wall-clock timing of the training loop, and profiler traces.
+"""Spans, counters and per-phase timing of the port, and profiler traces.
 
 Counterpart of `nerf_workspaces_explorer_tpu/obs/profiler.py` (`StepTimer`,
 and `trace_context`, here a `torch.profiler` trace where the JAX package
-takes a `jax.profiler` one). A phase on a CUDA device ends with
-`torch.cuda.synchronize()`, so its time includes the device work queued in
-it, not only the host's launches. `device_kernel_counts` reads a
-`torch.profiler` trace: how often each kernel ran on the card, the kernels
-of CUDA-graph replays included.
+takes a `jax.profiler` one).
+
+Tracing is on exactly while a `torch.profiler` session records (the CLI's
+`--profile`, `trace_context`, or any `torch.profiler.profile` a caller
+opens); nothing else turns it on. Then `span(name)` is a
+`record_function`, which the trace holds as a `user_annotation` event on
+the kernels' clock, and the program's counters count (`count`,
+`device_counter`, read by `read_counters`). Off, `span` returns one shared
+no-op context and nothing is counted.
+
+`StepTimer` times named phases: on a CUDA device by a pair of CUDA events
+on the current stream, resolved when the times are read, so a phase never
+waits for the device. `device_kernel_counts` reads a `torch.profiler`
+trace: how often each kernel ran on the card, the kernels of CUDA-graph
+replays included.
 """
 
 from __future__ import annotations
@@ -14,43 +24,129 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from collections import defaultdict, deque
+from typing import ContextManager, Deque, Dict, Iterator, Optional, Tuple
 
 import torch
 
+_OFF = contextlib.nullcontext()
+
+
+def tracing() -> bool:
+    """Whether a `torch.profiler` session is recording on this process."""
+    return torch.autograd._profiler_enabled()
+
+
+def span(name: str) -> ContextManager:
+    """A named span of the program's work: `record_function(name)` while
+    tracing, else a shared no-op context: a flag check, where a
+    `record_function` outside a trace costs ~20 times as much. Spans nest
+    by containment on the calling thread."""
+    return torch.profiler.record_function(name) if torch.autograd._profiler_enabled() else _OFF
+
+
+# The program's counters, counted only while tracing: host counts, and
+# device int32 [1] counters that kernels add to, each with the number of
+# units one of its counts stands for.
+_HOST_COUNTS: Dict[str, int] = defaultdict(int)
+_DEVICE_COUNTS: Dict[Tuple[str, torch.device], Tuple[torch.Tensor, int]] = {}
+
+
+def count(name: str, n: int) -> None:
+    """Add n to the host counter `name`."""
+    _HOST_COUNTS[name] += int(n)
+
+
+def device_counter(name: str, device: torch.device, scale: int = 1) -> torch.Tensor:
+    """The int32 [1] counter `name` on `device` for a kernel to add to (an
+    int32 holds 2**31 - 1 counts); `read_counters` multiplies it by
+    `scale`, fixed at its first use."""
+    key = (name, torch.device(device))
+    if key not in _DEVICE_COUNTS:
+        _DEVICE_COUNTS[key] = (torch.zeros(1, dtype=torch.int32, device=key[1]), int(scale))
+    return _DEVICE_COUNTS[key][0]
+
+
+def read_counters() -> Dict[str, int]:
+    """Every counter as a host integer, its host and device parts summed.
+    Waits for the device: read after the counted work."""
+    out = dict(_HOST_COUNTS)
+    for (name, _), (t, scale) in _DEVICE_COUNTS.items():
+        out[name] = out.get(name, 0) + int(t.item()) * scale
+    return out
+
+
+def reset_counters() -> None:
+    """Drop every counter; a later count starts a new one at 0."""
+    _HOST_COUNTS.clear()
+    _DEVICE_COUNTS.clear()
+
 
 class StepTimer:
-    """Accumulates wall-clock per named phase; cheap enough for every step."""
+    """Accumulates time per named phase; cheap enough for every step.
+
+    On the CPU a phase is timed by the host clock. On a CUDA device it is a
+    pair of CUDA events recorded on the current stream at its start and its
+    end, so it never waits for the device: the time is the device's from
+    the start event to the end event, the phase's own work when the host
+    runs ahead, and the host's and the device's together when it does not.
+    Pairs are resolved when `mean` or `summary` is read (which waits for the
+    last), and completed ones whenever more than `MAX_PENDING` wait, so
+    `totals` and `counts` hold the resolved phases."""
+
+    MAX_PENDING = 64
 
     def __init__(self, device: Optional[torch.device] = None) -> None:
         self.device = device
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self._pending: Deque[Tuple[str, torch.cuda.Event, torch.cuda.Event]] = deque()
 
-    def _sync(self) -> None:
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _add(self, name: str, seconds: float) -> None:
+        self.totals[name] += seconds
+        self.counts[name] += 1
+
+    def _resolve(self, wait: bool) -> None:
+        while self._pending and (wait or self._pending[0][2].query()):
+            name, start, end = self._pending.popleft()
+            end.synchronize()
+            self._add(name, start.elapsed_time(end) * 1e-3)
 
     @contextlib.contextmanager
-    def phase(self, name: str) -> Iterator[None]:
-        self._sync()
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._sync()
-            self.totals[name] += time.perf_counter() - start
-            self.counts[name] += 1
+    def phase(self, name: str, span_name: Optional[str] = None) -> Iterator[None]:
+        """Time the block as phase `name`; with `span_name`, the block is
+        also that span."""
+        with span(span_name) if span_name else _OFF:
+            if self.device is None or self.device.type != "cuda":
+                start = time.perf_counter()
+                try:
+                    yield
+                finally:
+                    self._add(name, time.perf_counter() - start)
+                return
+            stream = torch.cuda.current_stream(self.device)
+            start_ev = torch.cuda.Event(enable_timing=True)
+            start_ev.record(stream)
+            try:
+                yield
+            finally:
+                end_ev = torch.cuda.Event(enable_timing=True)
+                end_ev.record(stream)
+                self._pending.append((name, start_ev, end_ev))
+                if len(self._pending) > self.MAX_PENDING:
+                    self._resolve(wait=False)
 
     def mean(self, name: str) -> float:
+        self._resolve(wait=True)
         count = self.counts.get(name, 0)
         return self.totals[name] / count if count else 0.0
 
     def summary(self) -> Dict[str, float]:
-        return {name: self.mean(name) for name in self.totals}
+        self._resolve(wait=True)
+        return {name: self.totals[name] / self.counts[name] for name in self.totals}
 
     def reset(self) -> None:
+        self._pending.clear()
         self.totals.clear()
         self.counts.clear()
 

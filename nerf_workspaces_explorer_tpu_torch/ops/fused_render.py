@@ -31,6 +31,8 @@ import numpy as np
 import torch
 
 from nerf_workspaces_explorer_tpu_torch.models.mlp import NerfMLPSpec
+from nerf_workspaces_explorer_tpu_torch.obs import profiler
+from nerf_workspaces_explorer_tpu_torch.obs.profiler import span
 from nerf_workspaces_explorer_tpu_torch.ops import _build
 from nerf_workspaces_explorer_tpu_torch.ops.importance_merge import importance_merge
 from nerf_workspaces_explorer_tpu_torch.ops.quantize import as_float32_array
@@ -899,6 +901,21 @@ def _lattice_grid(settings: RenderSettings, grid_hw: Optional[tuple], n_rays: in
     return gh, gw
 
 
+def _samples_counter(name: str, z_vals: torch.Tensor, live_groups: Optional[torch.Tensor]
+                     ) -> Optional[torch.Tensor]:
+    """The `live_groups` a pass over `z_vals` [S, R] launches with: the
+    caller's; else, while tracing, the program counter `name` of samples
+    evaluated (on the card, a device counter of 4-sample steps that the
+    kernel adds to; on the CPU, whose plain pass evaluates every sample,
+    R * S added here); else none."""
+    if live_groups is not None or not profiler.tracing():
+        return live_groups
+    if z_vals.device.type == "cuda":
+        return profiler.device_counter(name, z_vals.device, STEP_POINTS)
+    profiler.count(name, z_vals.numel())
+    return None
+
+
 @torch.no_grad()
 def render_rays_fused(
     kparams: Mapping[str, KernelParams],
@@ -931,75 +948,87 @@ def render_rays_fused(
     saturation sample, so blocks of 32 rays stop early together; exact up
     to eps (per-ray independence), outputs in the original order.
     live_groups: int32 [1] on the card; both passes add the 4-sample steps
-    their blocks evaluated (`nerf_render`).
+    their blocks evaluated (`nerf_render`). Without it, while tracing, the
+    passes add the samples they evaluate to the program counters
+    `render.density_samples` and `render.fine_samples`
+    (`obs.profiler.read_counters`). The stages are the spans
+    `fused.prepare`, `fused.density`, `fused.placement`, `fused.fine` and
+    `fused.finish`.
 
     Returns rgb [R, 3], or FusedRenderOutputs when `full`.
     """
     s = settings.for_eval()
     kp_coarse = kparams["proposal" if s.use_proposal else "coarse"]
     kp_fine = kparams["fine"]
-    origins, dirs = rays.origins.to(torch.float32), rays.dirs.to(torch.float32)
-    near, far = rays.near.to(torch.float32), rays.far.to(torch.float32)
-    n_rays = origins.shape[0]
+    with span("fused.prepare"):
+        origins, dirs = rays.origins.to(torch.float32), rays.dirs.to(torch.float32)
+        near, far = rays.near.to(torch.float32), rays.far.to(torch.float32)
+        n_rays = origins.shape[0]
 
-    grid = _lattice_grid(s, grid_hw, n_rays)
-    sub = int(s.proposal_subsample or 1)
-    if grid is not None:
-        gh, gw = grid
-
-        def lattice(x: torch.Tensor) -> torch.Tensor:
-            # [R, ...] -> [R / s^2, ...], the block-corner rays of the grid.
-            return x.reshape(gh, gw, *x.shape[1:])[::sub, ::sub].reshape(-1, *x.shape[1:])
-
-        origins_c, dirs_c, near_c, far_c = (lattice(x) for x in (origins, dirs, near, far))
-    else:
-        origins_c, dirs_c, near_c, far_c = origins, dirs, near, far
-
-    o_ph_c, d_ph_c = ray_phase_vectors(origins_c, dirs_c, kp_coarse.pts_freqs)
-    if kp_fine.pts_freqs == kp_coarse.pts_freqs and grid is None:
-        o_ph_f, d_ph_f = o_ph_c, d_ph_c
-    else:
-        o_ph_f, d_ph_f = ray_phase_vectors(origins, dirs, kp_fine.pts_freqs)
-    venc = encode_viewdirs_kernel_order(rays.viewdirs.to(torch.float32), num_freqs=kp_fine.view_freqs)
-    dir_norm = torch.linalg.norm(dirs, dim=-1)[None, :]
-    dir_norm_c = torch.linalg.norm(dirs_c, dim=-1)[None, :] if grid is not None else dir_norm
-
-    z_coarse = coarse_z_vals(near_c, far_c, s.n_samples).T.contiguous()
-    weights_t = nerf_render(
-        kp_coarse, o_ph_c, d_ph_c, z_coarse, _dists_from_z(z_coarse, dir_norm_c),
-        density_only=True, early_stop_eps=early_stop_eps, importance_only=not s.merge_coarse,
-        live_groups=live_groups,
-    )
-    z_fine = importance_merge(weights_t, z_coarse, s.n_importance, merge=s.merge_coarse)
-    if grid is not None:
-        # Every ray of an s x s block takes its corner's depths.
-        gh, gw = grid
-        z_fine = z_fine.reshape(-1, gh // sub, 1, gw // sub, 1).expand(-1, -1, sub, -1, sub)
-        z_fine = z_fine.reshape(-1, n_rays)
-
-    inv_perm = None
-    if sort_rays and early_stop_eps > 0.0:
-        # Key: the density pass's sample where cumulative opacity crosses
-        # 1 - eps (S when it never does), spread from the lattice.
-        csum = torch.cumsum(weights_t, 0)
-        crossed = csum > 1.0 - early_stop_eps
-        key = torch.where(crossed[-1], torch.argmax(crossed.to(torch.int8), 0), weights_t.shape[0])
+        grid = _lattice_grid(s, grid_hw, n_rays)
+        sub = int(s.proposal_subsample or 1)
         if grid is not None:
             gh, gw = grid
-            key = key.reshape(gh // sub, 1, gw // sub, 1).expand(-1, sub, -1, sub).reshape(n_rays)
-        perm = torch.sort(key, stable=True).indices
-        inv_perm = torch.argsort(perm)
-        z_fine, o_ph_f, d_ph_f, venc = (x[:, perm] for x in (z_fine, o_ph_f, d_ph_f, venc))
-        dir_norm = dir_norm[:, perm]
 
-    z_fine = z_fine.contiguous()
-    maps = nerf_render(
-        kp_fine, o_ph_f.contiguous(), d_ph_f.contiguous(), z_fine, _dists_from_z(z_fine, dir_norm),
-        venc.contiguous(), early_stop_eps=early_stop_eps, live_groups=live_groups,
-    )
-    if inv_perm is not None:
-        maps = maps[:, inv_perm]
-    return _finish(maps, s, full)
+            def lattice(x: torch.Tensor) -> torch.Tensor:
+                # [R, ...] -> [R / s^2, ...], the block-corner rays of the grid.
+                return x.reshape(gh, gw, *x.shape[1:])[::sub, ::sub].reshape(-1, *x.shape[1:])
+
+            origins_c, dirs_c, near_c, far_c = (lattice(x) for x in (origins, dirs, near, far))
+        else:
+            origins_c, dirs_c, near_c, far_c = origins, dirs, near, far
+
+        o_ph_c, d_ph_c = ray_phase_vectors(origins_c, dirs_c, kp_coarse.pts_freqs)
+        if kp_fine.pts_freqs == kp_coarse.pts_freqs and grid is None:
+            o_ph_f, d_ph_f = o_ph_c, d_ph_c
+        else:
+            o_ph_f, d_ph_f = ray_phase_vectors(origins, dirs, kp_fine.pts_freqs)
+        venc = encode_viewdirs_kernel_order(rays.viewdirs.to(torch.float32), num_freqs=kp_fine.view_freqs)
+        dir_norm = torch.linalg.norm(dirs, dim=-1)[None, :]
+        dir_norm_c = torch.linalg.norm(dirs_c, dim=-1)[None, :] if grid is not None else dir_norm
+
+        z_coarse = coarse_z_vals(near_c, far_c, s.n_samples).T.contiguous()
+        dists_coarse = _dists_from_z(z_coarse, dir_norm_c)
+    with span("fused.density"):
+        weights_t = nerf_render(
+            kp_coarse, o_ph_c, d_ph_c, z_coarse, dists_coarse,
+            density_only=True, early_stop_eps=early_stop_eps, importance_only=not s.merge_coarse,
+            live_groups=_samples_counter("render.density_samples", z_coarse, live_groups),
+        )
+    with span("fused.placement"):
+        z_fine = importance_merge(weights_t, z_coarse, s.n_importance, merge=s.merge_coarse)
+        if grid is not None:
+            # Every ray of an s x s block takes its corner's depths.
+            gh, gw = grid
+            z_fine = z_fine.reshape(-1, gh // sub, 1, gw // sub, 1).expand(-1, -1, sub, -1, sub)
+            z_fine = z_fine.reshape(-1, n_rays)
+
+        inv_perm = None
+        if sort_rays and early_stop_eps > 0.0:
+            # Key: the density pass's sample where cumulative opacity crosses
+            # 1 - eps (S when it never does), spread from the lattice.
+            csum = torch.cumsum(weights_t, 0)
+            crossed = csum > 1.0 - early_stop_eps
+            key = torch.where(crossed[-1], torch.argmax(crossed.to(torch.int8), 0), weights_t.shape[0])
+            if grid is not None:
+                gh, gw = grid
+                key = key.reshape(gh // sub, 1, gw // sub, 1).expand(-1, sub, -1, sub).reshape(n_rays)
+            perm = torch.sort(key, stable=True).indices
+            inv_perm = torch.argsort(perm)
+            z_fine, o_ph_f, d_ph_f, venc = (x[:, perm] for x in (z_fine, o_ph_f, d_ph_f, venc))
+            dir_norm = dir_norm[:, perm]
+
+    with span("fused.fine"):
+        z_fine = z_fine.contiguous()
+        maps = nerf_render(
+            kp_fine, o_ph_f.contiguous(), d_ph_f.contiguous(), z_fine, _dists_from_z(z_fine, dir_norm),
+            venc.contiguous(), early_stop_eps=early_stop_eps,
+            live_groups=_samples_counter("render.fine_samples", z_fine, live_groups),
+        )
+        if inv_perm is not None:
+            maps = maps[:, inv_perm]
+    with span("fused.finish"):
+        return _finish(maps, s, full)
 
 
 @torch.no_grad()

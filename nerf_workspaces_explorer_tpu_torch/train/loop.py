@@ -42,6 +42,15 @@ call (JAX's `lax.scan` inside `shard_map`): on `cuda` a replay of the
 card, a graph a card and step across cards), on the CPU K eager steps of
 the same body. Eval renders and checkpoints use the first device's state,
 so checkpoints keep their format.
+
+`step` and `step_many` return once their work is queued: their phase of
+`StepTimer` (`Perf/train_step_ms`) is timed by CUDA events on `cuda`, and
+only the cadence's prints, TensorBoard writes, renders and checkpoints
+wait for the device, at their steps. While
+a `torch.profiler` session records, a call is the span `train.step` or
+`train.step_many`, holding `train.draws` and `train.eager`,
+`train.capture` or `train.replay`; eval renders are `train.render_train`
+and `train.render_test`.
 """
 
 from __future__ import annotations
@@ -67,7 +76,7 @@ from nerf_workspaces_explorer_tpu_torch.infer.renderer import (
     spec_from_config,
 )
 from nerf_workspaces_explorer_tpu_torch.models.mlp import tree_leaves
-from nerf_workspaces_explorer_tpu_torch.obs.profiler import StepTimer
+from nerf_workspaces_explorer_tpu_torch.obs.profiler import StepTimer, span
 from nerf_workspaces_explorer_tpu_torch.obs.tb import TensorboardWriter
 from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
     prepare_kernel_params,
@@ -339,18 +348,23 @@ class Trainer:
 
     def step(self, global_step: int) -> Dict[str, Any]:
         """One optimization step plus cadenced logging, eval and checkpoints."""
-        with self.timer.phase("train_step"):
+        with self.timer.phase("train_step", "train.step"):
             if self._mesh is not None:
                 sh = self._mesh_shards()
-                self._state, metrics = data_parallel_step(
-                    self.state, sh["params"], sh["rays"], sh["rgbs"], self._shard_draws(global_step),
-                    self._settings, self._spec, self._schedule, self._mesh)
+                with span("train.draws"):
+                    draws = self._shard_draws(global_step)
+                with span("train.eager"):
+                    self._state, metrics = data_parallel_step(
+                        self.state, sh["params"], sh["rays"], sh["rgbs"], draws, self._settings, self._spec,
+                        self._schedule, self._mesh)
             else:
-                draws = self._draws(global_step)
-                self._state, metrics = train_step(
-                    self.state, self.rays_train, self._train_rgbs, draws, self._settings,
-                    self._spec, self._schedule,
-                )
+                with span("train.draws"):
+                    draws = self._draws(global_step)
+                with span("train.eager"):
+                    self._state, metrics = train_step(
+                        self.state, self.rays_train, self._train_rgbs, draws, self._settings,
+                        self._spec, self._schedule,
+                    )
         self._cadence(global_step, metrics)
         return metrics
 
@@ -391,22 +405,25 @@ class Trainer:
         eager steps of the same step body. Returns the last step's metrics,
         plus every step's total loss as `total_loss_steps` [K]."""
         k = self._steps_per_call
-        with self.timer.phase("train_step"):
+        with self.timer.phase("train_step", "train.step_many"):
             if self._mesh is not None:
                 sh = self._mesh_shards()
                 body = DataParallelBody(self.state, sh["params"], sh["rays"], sh["rgbs"], self._settings,
                                         self._spec, self._mesh)
-                draws = [self._shard_draws(global_step + i) for i in range(k)]
+                with span("train.draws"):
+                    draws = [self._shard_draws(global_step + i) for i in range(k)]
             else:
                 body = functools.partial(apply_step, self.state, self.rays_train, self._train_rgbs,
                                          settings=self._settings, spec=self._spec)
-                draws = [self._draws(global_step + i) for i in range(k)]
+                with span("train.draws"):
+                    draws = [self._draws(global_step + i) for i in range(k)]
             if self._device.type == "cuda":
                 if self._graph is None:
                     self._graph = StepGraph(k)
                 self._state, metrics = self._graph(self.state, body, draws, self._schedule)
             else:
-                self._state, metrics = take_steps(self.state, body, draws, self._schedule)
+                with span("train.eager"):
+                    self._state, metrics = take_steps(self.state, body, draws, self._schedule)
         return metrics
 
     def _cadence_intervals(self) -> list:
@@ -499,7 +516,7 @@ class Trainer:
                     subdir: str) -> float:
         save_dir = os.path.join(self._save_dir, subdir, f"step_{global_step:06d}")
         os.makedirs(save_dir, exist_ok=True)
-        with self.timer.phase(f"render_{tag.lower()}"):
+        with self.timer.phase(f"render_{tag.lower()}", f"train.render_{tag.lower()}"):
             rgbs = self._render_image_set(rays, save_dir)
         mse = float(np.mean((rgbs - gt) ** 2))
         psnr = float(-10.0 * np.log(mse) / np.log(10.0))

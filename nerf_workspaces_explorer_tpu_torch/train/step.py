@@ -45,6 +45,7 @@ from nerf_workspaces_explorer_tpu_torch.models.mlp import (
     tree_leaves,
     tree_unflatten,
 )
+from nerf_workspaces_explorer_tpu_torch.obs.profiler import span
 from nerf_workspaces_explorer_tpu_torch.parallel.sharding import on_device, tree_to
 from nerf_workspaces_explorer_tpu_torch.rays.raygen import RayBundle
 from nerf_workspaces_explorer_tpu_torch.render.pipeline import (
@@ -509,7 +510,10 @@ class StepGraph:
     capture, while PyTorch's cross-device copies synchronize the cards'
     current streams and its graph memory pool serves one device; a graph a
     card keeps each capture on one device. `per_card=True` takes that path
-    on one card as well."""
+    on one card as well.
+
+    A call is the span `train.capture` (the first) or `train.replay`
+    (the input copies and the replays)."""
 
     def __init__(self, k: int, *, per_card: Optional[bool] = None) -> None:
         self.k = k
@@ -528,7 +532,12 @@ class StepGraph:
         if not all(isinstance(g["lr"], torch.Tensor) for g in state.optimizer.param_groups):
             raise ValueError("a graphed step needs the capturable optimizer of make_optimizer on cuda")
         if not self.captured:
-            return self._warm_and_capture(state, body, draws, schedule)
+            with span("train.capture"):
+                return self._warm_and_capture(state, body, draws, schedule)
+        with span("train.replay"):
+            return self._replay(state, draws, schedule)
+
+    def _replay(self, state, draws, schedule):
         for static, d in zip(self._draws, draws):
             for dst, src in zip(_draw_tensors(static), _draw_tensors(d)):
                 dst.copy_(src)

@@ -1353,3 +1353,127 @@ def test_plain_field_steps_as_graph_replays(cuda, tmp_path):
         got += graphed.step_many(c * k)["total_loss_steps"].tolist()
     assert graphed.graph_captured
     assert np.abs(np.array(got) - np.array(losses)).max() <= 1e-6
+
+
+@pytest.mark.gpu
+def test_step_many_makes_no_synchronize_once_captured(cuda, tmp_path, monkeypatch):
+    """After the capture, `Trainer.step_many` (graph replays) and
+    `Trainer.step` (an eager step) return with their work queued: neither
+    calls `torch.cuda.synchronize`, with or without a profiler recording;
+    the timer's phases resolve when read."""
+    import dataclasses
+
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerf_workspaces_explorer_tpu_torch.train.loop import Trainer
+
+    cfg = load_config(office_name="tokyo")
+    cfg = dataclasses.replace(cfg, logging=dataclasses.replace(
+        cfg.logging, step_log_print=0, step_log_tensorboard=2**31 - 1, step_save_ckpt=0, step_render_test=0,
+        step_render_train=0))
+    train, test, _ = make_synthetic_scene(n_train=2, n_test=1, height=24, width=32, device=cuda)
+    tr = Trainer("office_tokyo", cfg, train_data=train, test_data=test, device=cuda, save_dir=str(tmp_path),
+                 enable_tensorboard=False, steps_per_call=4)
+    tr.setup()
+    tr.step_many(0)
+    assert tr.graph_captured
+    calls = []
+    real = torch.cuda.synchronize
+
+    def counted(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    tr.step_many(4)
+    tr.step(8)
+    monkeypatch.undo()
+    # The profiler synchronizes as it starts and stops: count inside it.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        monkeypatch.setattr(torch.cuda, "synchronize", counted)
+        tr.step_many(9)
+        monkeypatch.undo()
+    assert calls == []
+    torch.cuda.synchronize()
+    assert tr.timer.counts["train_step"] + len(tr.timer._pending) == 4
+    assert tr.timer.mean("train_step") > 0 and tr.timer.counts["train_step"] == 4
+
+
+@pytest.mark.gpu
+def test_step_timer_events_agree_with_a_synchronized_clock(cuda):
+    """The timer's CUDA-event phases over 10 back-to-back calls of ~10 ms of
+    device work sum to within 10% of the host clock around them, ended by a
+    synchronize."""
+    import time
+
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import StepTimer
+
+    a = torch.randn(4096, 4096, device=cuda)
+
+    def work():
+        for _ in range(4):
+            a @ a
+
+    work()
+    timer = StepTimer(cuda)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        with timer.phase("mm"):
+            work()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = timer.mean("mm") * 10
+    assert timer.counts["mm"] == 10
+    assert abs(total - wall) <= 0.1 * wall, (total, wall)
+
+
+@pytest.mark.gpu
+def test_fused_path_counts_the_samples_its_kernels_evaluate(cuda, monkeypatch):
+    """While a profiler records, `render_rays_fused` without `live_groups`
+    counts each pass's evaluated samples as its kernel's 4-sample steps
+    times 128: equal to `live_groups` of the same pass launched directly,
+    and their sum to a caller's `live_groups` over both passes."""
+    import dataclasses
+
+    import numpy as np
+
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+    from nerf_workspaces_explorer_tpu_torch.obs import profiler
+
+    cfg = load_config(office_name="tokyo")
+    cfg = dataclasses.replace(cfg, experiment=dataclasses.replace(cfg.experiment, image_width=96, image_height=64))
+    r = NeRFRenderer("tokyo", CKPT, config=cfg, precision="fast", early_stop_eps=1e-3, device=cuda)
+    r.initialize_models()
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [1.0, -0.5, 0.5]
+    rays = r._rays([pose])
+
+    def render(**kw):
+        return fr.render_rays_fused(r._kparams, rays, r._settings, early_stop_eps=1e-3, grid_hw=(64, 96), **kw)
+
+    both = torch.zeros(1, dtype=torch.int32, device=cuda)
+    render(live_groups=both)
+    passes = []
+    real = fr.nerf_render
+
+    def own_counter(*args, density_only=False, live_groups=None, **kw):
+        passes.append(torch.zeros(1, dtype=torch.int32, device=cuda))
+        return real(*args, density_only=density_only, live_groups=passes[-1], **kw)
+
+    monkeypatch.setattr(fr, "nerf_render", own_counter)
+    render()
+    monkeypatch.undo()
+    profiler.reset_counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        render()
+    counts = profiler.read_counters()
+    profiler.reset_counters()
+    density, fine = (int(t) for t in passes)
+    assert density > 0 and fine > 0
+    assert counts == {"render.density_samples": density * fr.STEP_POINTS,
+                      "render.fine_samples": fine * fr.STEP_POINTS}
+    assert density + fine == int(both)
