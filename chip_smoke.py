@@ -20,7 +20,10 @@ the median of 5 such readings and one CUDA graph of 20), then serves floor-plan 
 `Workspace.render_image` at precision="fast" and checks each frame against
 the fp32 parity render (SSIM >= 0.99, the repo's gate for bf16 serving,
 reports/reference_parity_320x240.md) and that every kernel of the path ran
-once per frame.
+once per frame. A renderer's first single frame runs eagerly and captures
+its frame graph; later frames are replays, which call no kernel wrapper
+(`LAUNCHES` counts wrapper calls, the capture's too), so their kernels are
+counted from a profiler trace of one more frame of each pose.
 
 App: the real `app/gui_qt.py` and `app/gui_tk.py` classes on the duck-
 typed toolkits of `tests/fake_toolkits.py` (a PPM `PhotoImage` stand-in and
@@ -29,8 +32,9 @@ office_geneve served from synth_hier at the reference preset, precision
 "fast": the placeholders that `ensure_assets` writes into a temporary
 directory read back byte-equal; landing, explorer, a click on the plan at
 serving's spots, the four turn buttons, both back flows, each installed
-frame byte-equal to `Workspace.render_image` of the same click and K1, K2,
-K3 once for each full frame (the preview's launches counted apart); on Tk's
+frame byte-equal to `Workspace.render_image` of the same click and a replay
+of the frame graph the explorer's warm-up captured, and a traced click
+running K1, K2, K3 once beside its preview's launches; on Tk's
 worker threads the same, two overlapping requests (only the later frame
 installed, equal to its serial render) and a failing render raised on the
 UI thread; warm ms from click to installed frame (median of 6) beside
@@ -495,6 +499,36 @@ def zero_launches(*counters) -> None:
     for d in counters:
         for k in d:
             d[k] = 0
+
+
+def render_pass(key: str) -> str:
+    """The pass a render or placement wrapper's `LAUNCHES` key counts:
+    "density_only", "placement" (merged or importance-only) or "full"."""
+    return "placement" if key.startswith("importance") else key.split("_int8")[0]
+
+
+def traced_render_passes(fn) -> dict:
+    """The render kernels the card ran during `fn()`, by `render_pass`, from
+    a profiler trace: `render_kernel`'s density and full passes (its last
+    template argument, DENSITY_ONLY; every precision) and
+    `importance_merge_kernel`. A frame-graph replay calls no wrapper, so
+    the kernels of replayed frames are counted here."""
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import kernel_name
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ran = {"density_only": 0, "placement": 0, "full": 0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+            continue
+        name = kernel_name(e.key)
+        if name == "render_kernel":
+            ran["density_only" if e.key.split("(")[0].rstrip("> ").endswith("true") else "full"] += e.count
+        elif name == "importance_merge_kernel":
+            ran["placement"] += e.count
+    return ran
 
 
 def train_config():
@@ -1061,7 +1095,7 @@ def distill_phase(card: str, device: torch.device):
         return r
 
     served, exact, parity = turbo("fast"), turbo("fast", proposal_subsample=1), turbo("parity")
-    for pose in room_poses:
+    for pose in room_poses:  # the first frame eager, then the frame graph's capture; replays
         served.render_pose_uint8(pose).cpu()
     zero_launches(*counters)
     serve_ms = []
@@ -1070,9 +1104,13 @@ def distill_phase(card: str, device: torch.device):
             t0 = time.perf_counter()
             frame = served.render_pose_uint8(pose).cpu().numpy()  # ends in a device -> host copy
             serve_ms.append((time.perf_counter() - t0) * 1e3)
-    s_launches = {"K1": fr.LAUNCHES["density_only"], "K6": im.LAUNCHES["importance_only"], "K3": fr.LAUNCHES["full"]}
     n_frames = SERVE_REPS * len(room_poses)
-    require(s_launches == {"K1": n_frames, "K6": n_frames, "K3": n_frames}, f"sidecar serve launches {s_launches}")
+    require(sum(fr.LAUNCHES.values()) + sum(im.LAUNCHES.values()) == 0,
+            f"the sidecar's replayed frames called the render wrappers: {fr.LAUNCHES}, {im.LAUNCHES}")
+    ran = traced_render_passes(lambda: [served.render_pose_uint8(p).cpu() for p in room_poses])
+    s_launches = {"K1": ran["density_only"], "K6": ran["placement"], "K3": ran["full"]}
+    require(s_launches == {k: len(room_poses) for k in s_launches},
+            f"sidecar serve: {len(room_poses)} replayed frames ran {s_launches}")
     scores, scores_served = [], []
     for pose in room_poses:
         a = exact.render_pose_uint8(pose).cpu().numpy()
@@ -1083,7 +1121,8 @@ def distill_phase(card: str, device: torch.device):
         scores_served.append(ssim(c / 255.0, a / 255.0))
     print(f"distill sidecar {os.path.basename(sidecar)}: metadata read back equal; served at turbo (bf16, stride 4) "
           f"{frame.shape[1]}x{frame.shape[0]}: warm ms/frame {float(np.median(serve_ms)):.2f} (median of "
-          f"{n_frames}); launches {s_launches}; SSIM vs parity at stride 1 "
+          f"{n_frames}); kernels run by {len(room_poses)} replayed frames (profiler trace) {s_launches}; SSIM vs "
+          f"parity at stride 1 "
           f"{', '.join(f'{x:.5f}' for x in scores)} (gate {SSIM_GATE}); stride 4 vs stride 1 "
           f"{', '.join(f'{x:.5f}' for x in scores_served)}; mean level {frame.mean():.2f}; card {card}", flush=True)
     require(min(scores) >= SSIM_GATE, f"distilled sidecar at turbo: SSIM {scores} against parity")
@@ -1152,7 +1191,8 @@ def serve_proposal_checkpoint(card: str, device: torch.device, cfg, ckpt: str, p
           f"launches {launches}; mean level {exact.mean():.2f}; card {card}", flush=True)
     require(exact.shape == (TRAIN_SIZE[1], TRAIN_SIZE[0], 3) and score >= SSIM_GATE,
             f"proposal checkpoint at the fast preset: SSIM {score} against parity")
-    require(launches == {"density_only": 2, "importance_only": 2, "full": 2}, f"serve launches {launches}")
+    # Each renderer's one frame: eager, then the frame graph's capture.
+    require(launches == {"density_only": 4, "importance_only": 4, "full": 4}, f"serve launches {launches}")
     return dict(ssim_vs_parity_stride1=score, ssim_stride4_vs_stride1=score_served)
 
 
@@ -1374,8 +1414,10 @@ def presets_phase(card: str, device: torch.device, main: dict):
     counters = (fr.LAUNCHES, im.LAUNCHES)
 
     def serve(r, poses):
-        r.render_pose_uint8(poses[0]).cpu()  # warm-up: build, first launches, allocator
+        zero_launches(*counters)
+        r.render_pose_uint8(poses[0]).cpu()  # warm-up: build, the eager frame, the frame graph's capture
         torch.cuda.synchronize()
+        warm = {k: v for c in counters for k, v in c.items() if v}
         zero_launches(*counters)
         frames, ms = [], []
         for rep in range(SERVE_REPS):
@@ -1385,12 +1427,14 @@ def presets_phase(card: str, device: torch.device, main: dict):
                 ms.append((time.perf_counter() - t0) * 1e3)
                 if rep == 0:
                     frames.append(frame)
-        n = SERVE_REPS * len(poses)
-        launches = {k: v for c in counters for k, v in c.items() if v}
-        kinds = sorted(k.split("_int8")[0].replace("importance_merge", "place").replace("importance_only", "place")
-                       for k in launches)
-        require(kinds == ["density_only", "full", "place"] and all(v == n for v in launches.values()),
-                f"launches {launches} over {n} frames: one density pass, one placement, one full pass per frame")
+        kinds = sorted(render_pass(k) for k in warm)
+        require(kinds == ["density_only", "full", "placement"] and all(v == 2 for v in warm.values()),
+                f"warm-up launches {warm}: one density pass, one placement, one full pass eagerly and captured")
+        require(not any(v for c in counters for v in c.values()), f"replayed frames called the wrappers: {counters}")
+        ran = traced_render_passes(lambda: [r.render_pose_uint8(p).cpu() for p in poses])
+        launches = {k: ran[render_pass(k)] for k in warm}
+        require(all(v == len(poses) for v in launches.values()),
+                f"{len(poses)} replayed frames ran {ran}: one density pass, one placement, one full pass per frame")
         live = torch.zeros(1, dtype=torch.int32, device=device)
         fr.render_rays_fused(r.kernel_params, rays_of(poses[0], r.config), r.settings, early_stop_eps=EPS,
                              grid_hw=(h, w), live_groups=live)
@@ -1449,8 +1493,8 @@ def presets_phase(card: str, device: torch.device, main: dict):
         if (preset, precision) == ("turbo", "int8"):
             turbo_int8, turbo_int8_frames = served, frames
     for label, ms, launches, samples, scores, extra in rows:
-        print(f"serve {label}: warm ms/frame {ms:.2f} (median of {SERVE_REPS * 3}); launches in {SERVE_REPS * 3} "
-              f"frames {launches}; "
+        print(f"serve {label}: warm ms/frame {ms:.2f} (median of {SERVE_REPS * 3}); kernels run by a replayed "
+              f"frame of each pose (profiler trace) {launches}; "
               f"samples evaluated (frame 1) {samples}; SSIM vs parity at stride 1 "
               f"{', '.join(f'{x:.5f}' for x in scores)}{extra}; card {card}", flush=True)
         require(min(scores) >= SSIM_GATE, f"{label}: SSIM {min(scores)} below {SSIM_GATE}")
@@ -1732,6 +1776,10 @@ def app_phase(card: str, device: torch.device) -> dict:
         return {"K1": fr.LAUNCHES["density_only"], "K2": im.LAUNCHES["importance_merge"],
                 "K3": fr.LAUNCHES["full"]}
 
+    # A full frame is a replay of the frame graph that the explorer's
+    # warm-up captured: it calls no wrapper.
+    replayed = {"K1": 0, "K2": 0, "K3": 0}
+
     for office in offices:
         for kind in ("render_image", "render_image_preview"):
             def counted(*args, _f=getattr(office, kind), _kind=kind):
@@ -1777,14 +1825,21 @@ def app_phase(card: str, device: torch.device) -> dict:
                 require(np.array_equal(explorer.frame_shown, want) and images[-1].data == want.tobytes(),
                         f"Qt {office.name} {explorer.state.render_args()}: the installed frame is not "
                         "Workspace.render_image's")
-                require([k for k, _ in calls] == ["render_image_preview", "render_image"]
-                        and calls[1][1] == {"K1": 1, "K2": 1, "K3": 1},
-                        f"Qt click launches {calls}: K1, K2 and K3 once for the full frame")
+                require([k for k, _ in calls] == ["render_image_preview", "render_image"] and calls[1][1] == replayed,
+                        f"Qt click launches {calls}: the full frame a replay")
                 qt_frames += 1
             for _ in range(APP_TIMED_CLICKS if office is offices[0] else 0):
                 t0 = time.perf_counter()
                 buttons["←"].click()
                 qt_ms.append((time.perf_counter() - t0) * 1e3)
+            if office is offices[0]:  # one more click, its kernels from a profiler trace
+                calls.clear()
+                ran = traced_render_passes(buttons["←"].click)
+                qt_traced = {"K1": ran["density_only"], "K2": ran["placement"], "K3": ran["full"]}
+                traced_preview = calls[0][1]
+                require(calls[1][1] == replayed and qt_traced == {k: v + 1 for k, v in traced_preview.items()},
+                        f"a traced Qt click ran {qt_traced}, its preview launched {traced_preview}: K1, K2 and K3 "
+                        "once for the full frame")
             explorer._return_to_floor_plan()
             require(explorer.state.render_args() == (0.0, 0.0, 0, 0) and explorer._plan in explorer._layout.items,
                     "Qt back to the floor plan")
@@ -1797,8 +1852,10 @@ def app_phase(card: str, device: torch.device) -> dict:
         restore_modules(previous)
     preview = [c for k, c in calls if k == "render_image_preview"][-1]
     print(f"app qt: {qt_frames} clicks (the plan at serving's spots, then the four turn buttons) on "
-          f"{', '.join(o.name for o in offices)}, each installed frame byte-equal to Workspace.render_image; K1, "
-          f"K2, K3 once per full frame; a preview launches {preview}; launches over the flow {qt_launches}; "
+          f"{', '.join(o.name for o in offices)}, each installed frame byte-equal to Workspace.render_image and a "
+          f"replay of the frame graph; a traced click ran {qt_traced} (profiler trace), K1, K2, K3 once beside "
+          f"its preview's {traced_preview}; launches over the flow (the explorers' warm-ups and the previews) "
+          f"{qt_launches}; "
           "toolkit: tests/fake_toolkits.py", flush=True)
 
     # Tk: a worker thread per request, frames installed on the UI thread.
@@ -1839,7 +1896,7 @@ def app_phase(card: str, device: torch.device) -> dict:
         want = serial(office, explorer.state.render_args())
         require(np.array_equal(installed[1], want) and np.array_equal(explorer.frame_shown, want),
                 f"Tk {explorer.state.render_args()}: the worker's frame is not the main thread's")
-        require(calls[1][1] == {"K1": 1, "K2": 1, "K3": 1}, f"Tk launches {calls}")
+        require(calls[1][1] == replayed, f"Tk launches {calls}: the full frame a replay")
         return ms
 
     zero_launches(*counters)
@@ -2149,7 +2206,7 @@ def quality_phase(card: str) -> dict:
               f"(min {leg['ssim_min']:.4f}); fused vs fp32 SSIM {leg['fidelity']:.5f}, int8 vs fp32 SSIM "
               f"{leg['fidelity_int8']:.5f}; {fast}; {steps} steps in {leg['train_s']:.1f} s, "
               f"{leg['train_s'] * 1e3 / max(steps, 1):.2f} ms/step (one step a call at every 500th, CUDA-graph replays of "
-              f"{vq.STEPS_PER_CALL} between); launches {n} (K4/K5: the steps taken eagerly or captured, replays "
+              f"{vq.STEPS_PER_CALL} between); launches {n} (calls made eagerly or captured, replays "
               f"uncounted; by library {leg['field_libraries']}); card {card}", flush=True)
         for k, v in n.items():
             totals[k] = totals.get(k, 0) + v
@@ -2336,20 +2393,23 @@ def main() -> int:
         fast.initialize_models()
         parity.initialize_models()
         offices[cls_name] = (fast, parity)
-        fast.render_image(*CLICKS[0][1:])  # warm-up: first launches, allocator
+        fast.render_image(*CLICKS[0][1:])  # warm-up: build, the eager frame, the frame graph's capture
         parity.render_image(*CLICKS[0][1:])
     torch.cuda.synchronize()
-    for d in (fr.LAUNCHES, im.LAUNCHES):
-        for k in d:
-            d[k] = 0
+    zero_launches(fr.LAUNCHES, im.LAUNCHES)
     frames, fast_ms = [], []
     for cls_name, *click in CLICKS:
         t0 = time.perf_counter()
         frame = offices[cls_name][0].render_image(*click)  # ends in a device -> host copy
         fast_ms.append((time.perf_counter() - t0) * 1e3)
         frames.append(frame)
-    launches = {"K1": fr.LAUNCHES["density_only"], "K2": im.LAUNCHES["importance_merge"],
-                "K3": fr.LAUNCHES["full"]}
+    require(sum(fr.LAUNCHES.values()) + sum(im.LAUNCHES.values()) == 0,
+            f"replayed clicks called the render wrappers: {fr.LAUNCHES}, {im.LAUNCHES}")
+    # A replay calls no wrapper: the kernels of the clicks' frames, once more,
+    # from a profiler trace.
+    with contextlib.redirect_stdout(io.StringIO()):  # render_image's console trace
+        ran = traced_render_passes(lambda: [offices[c][0].render_image(*click) for c, *click in CLICKS])
+    launches = {"K1": ran["density_only"], "K2": ran["placement"], "K3": ran["full"]}
     n_frames = len(CLICKS)
     require(launches == {"K1": n_frames, "K2": n_frames, "K3": n_frames}, f"launches {launches}")
     parity_ms, refs = [], []
@@ -2366,7 +2426,8 @@ def main() -> int:
         require(score >= SSIM_GATE, f"SSIM {score} below {SSIM_GATE}")
     require(not np.array_equal(frames[0], frames[1]), "two yaws of one spot gave one frame")
     print(f"serve: fast warm ms/frame {', '.join(f'{x:.1f}' for x in fast_ms)}; "
-          f"parity warm ms/frame {', '.join(f'{x:.1f}' for x in parity_ms)}; launches {launches}; "
+          f"parity warm ms/frame {', '.join(f'{x:.1f}' for x in parity_ms)}; kernels run by the clicks' "
+          f"replayed frames (profiler trace) {launches}; "
           f"card {card}", flush=True)
 
     # 4. The explorer app: the GUIs' flows on duck-typed toolkits.

@@ -44,7 +44,7 @@ from __future__ import annotations
 import os
 import warnings
 from collections import deque
-from typing import Any, Dict, Iterator, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,9 +59,11 @@ from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import (
 )
 from nerf_workspaces_explorer_tpu_torch.models.encoding import embedding_output_dim
 from nerf_workspaces_explorer_tpu_torch.models.mlp import NerfMLP, NerfMLPSpec, init_nerf_params
+from nerf_workspaces_explorer_tpu_torch.obs import profiler
 from nerf_workspaces_explorer_tpu_torch.obs.debug import scan_outputs_finite
 from nerf_workspaces_explorer_tpu_torch.obs.profiler import span
 from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
+    STEP_POINTS,
     prepare_kernel_params,
     render_rays_fused,
     render_rays_single_pass,
@@ -135,8 +137,81 @@ def _host_frame(rgb: torch.Tensor) -> np.ndarray:
         return _to_uint8(rgb).cpu().numpy()
 
 
+class FrameGraph:
+    """A renderer's single-pose frame as one CUDA graph, replayed per frame.
+
+    `frame(pose, live_groups)` is the renderer's eager frame function: a
+    pose [1, 4, 4] on the card -> float32 [1, H, W, 3] (ray generation, the
+    fused path, the reshape), `live_groups` a counter per pass. The
+    constructor captures it whole, the uint8 conversion after it, on a side
+    stream and in a private memory pool, without running it: the caller
+    rendered one frame eagerly first, which built the kernels' libraries,
+    packed the weight streams and warmed the allocator. A failed capture
+    raises; nothing falls back to eager frames. The graph holds pointers to
+    the weights it captured, so the renderer drops it with them.
+
+    `replay` copies the pose into the graph's static input through pinned
+    staging slots (an event keeps a slot until its copy has read it) and
+    replays; it returns a fresh tensor, never overwritten by a later
+    replay. The passes add their evaluated 4-sample steps to the graph's
+    `GraphCounters`, counted as `render.density_samples` and
+    `render.fine_samples` over traced replays; a traced replay also counts
+    itself in `render.graph_replays`. The kernels' `LAUNCHES` count calls
+    of their wrappers, as for `train.step.StepGraph`: the capture's calls
+    count, a replay calls none (a profiler trace counts the kernels it
+    runs, `obs.profiler.device_kernel_counts`).
+    """
+
+    SLOTS = 4  # pinned pose slots: replays a caller may queue ahead
+
+    def __init__(self, frame: Callable, device: torch.device) -> None:
+        self._pose = torch.zeros((1, 4, 4), dtype=torch.float32, device=device)
+        self.device = self._pose.device
+        staging = torch.empty((self.SLOTS, 1, 4, 4), dtype=torch.float32, pin_memory=True)
+        self._staging, self._staging_np = list(staging), staging.numpy()
+        self._copied = [torch.cuda.Event() for _ in range(self.SLOTS)]
+        self._slot = 0
+        self._samples = profiler.GraphCounters(("render.density_samples", "render.fine_samples"), self.device,
+                                               STEP_POINTS)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.device(self.device), torch.cuda.graph(
+                self.graph, stream=torch.cuda.Stream(self.device)):
+            rgb = frame(self._pose, (self._samples.values[0:1], self._samples.values[1:2]))[0]
+            self._outputs = (rgb, _to_uint8(rgb))
+
+    def replay(self, c2w: np.ndarray, uint8: bool) -> torch.Tensor:
+        """The frame of the 4x4 pose `c2w`, uint8 or float32 [H, W, 3] on the
+        card, queued. Spans: `renderer.rays` (the pose's copy in), then
+        `fused.fine` holding `renderer.replay`: the replay queues the fine
+        pass, so `fused.fine` ends where an eager frame's does for the
+        readers of the host time until the fine pass is queued."""
+        with span("renderer.rays"):
+            slot = self._slot
+            self._slot = (slot + 1) % self.SLOTS
+            self._copied[slot].synchronize()
+            self._staging_np[slot, 0] = c2w
+            self._pose.copy_(self._staging[slot], non_blocking=True)
+            self._copied[slot].record(torch.cuda.current_stream(self.device))
+        with span("fused.fine"), span("renderer.replay"):
+            self._samples.replay(self.graph.replay)
+        if profiler.tracing():
+            profiler.count("render.graph_replays", 1)
+        return self._outputs[1 if uint8 else 0].clone()
+
+
 class NeRFRenderer:
-    """Pose -> frame renderer for one workspace's trained NeRF."""
+    """Pose -> frame renderer for one workspace's trained NeRF.
+
+    On the card's fused path a single full frame of a 4x4 pose
+    (`render_pose`, `render_pose_uint8`, `render_coordinates` without
+    `nan_debug`, `warmup`, `render_poses_uint8_stream`) is a replay of the
+    renderer's `FrameGraph`: its first such frame runs eagerly and then
+    captures the graph, every later one copies the pose in and replays.
+    Every other call (strips, batches, `full` outputs, the preview, the
+    parity path, a mesh, the CPU) renders eagerly. Returned tensors are
+    never overwritten by a later frame. `set_params` (and so
+    `initialize_models`) drops the graph with the weights it captured.
+    """
 
     def __init__(
         self,
@@ -250,6 +325,7 @@ class NeRFRenderer:
         self._models: Optional[Dict[str, NerfMLP]] = None  # parity
         self._kparams: Optional[Dict[str, Any]] = None  # fused precisions
         self._quant = None
+        self._frame_graph: Optional[FrameGraph] = None
 
     @property
     def device(self) -> torch.device:
@@ -317,7 +393,9 @@ class NeRFRenderer:
 
     def set_params(self, params: Dict[str, Any]) -> None:
         """Install a parameter tree (tensors or arrays; e.g. live from a
-        trainer): recalibrate int8 and rebuild the kernel parameters."""
+        trainer): recalibrate int8, rebuild the kernel parameters and drop
+        the frame graph (the next single frame runs eagerly and captures
+        anew)."""
         first = "proposal" if self._settings.use_proposal else "coarse"
         if first not in params or "fine" not in params:
             have = "/".join(sorted(k for k in params if isinstance(params[k], dict)))
@@ -326,7 +404,7 @@ class NeRFRenderer:
         tree = params_from_numpy({k: params[k] for k in (first, "fine")}, self._device)
         self._params = tree
         specs = {k: spec_from_net_params(p) for k, p in tree.items()}
-        self._models = self._kparams = self._quant = None
+        self._models = self._kparams = self._quant = self._frame_graph = None
         if self._precision == "parity":
             self._models = {k: NerfMLP(p, specs[k]) for k, p in tree.items()}
             return
@@ -357,14 +435,18 @@ class NeRFRenderer:
         With `height` and `cy`, the rows [cfg.cy - cy, + height) of each
         frame: the full frame's pinhole grid with cy shifted (JAX
         renderer.py:121, `cy_override`)."""
+        with span("renderer.rays"):
+            c2w = torch.as_tensor(np.asarray(c2ws, dtype=np.float32), device=self._device)
+            return self._pose_rays(c2w, height, cy)
+
+    def _pose_rays(self, c2w: torch.Tensor, height: Optional[int] = None, cy: Optional[float] = None):
+        """`_rays` of poses [n, 4, 4] already on the renderer's device."""
         cfg = self._config
         h = cfg.experiment.image_height if height is None else height
         w = cfg.experiment.image_width
         near, far = cfg.rendering.depth_range
-        with span("renderer.rays"):
-            c2w = torch.as_tensor(np.asarray(c2ws, dtype=np.float32), device=self._device)
-            cy = cfg.cy if cy is None else cy
-            return create_rays(c2w, h, w, cfg.fx, cfg.fy, cfg.cx, cy, near, far).reshape(len(c2ws) * h * w)
+        cy = cfg.cy if cy is None else cy
+        return create_rays(c2w, h, w, cfg.fx, cfg.fy, cfg.cx, cy, near, far).reshape(c2w.shape[0] * h * w)
 
     @torch.no_grad()
     def _render_batch(
@@ -377,41 +459,85 @@ class NeRFRenderer:
         ...] (the parity path's coarse maps too when it has no fine pass).
         The span `renderer.frame`."""
         self._require_models()
-        cfg = self._config
-        h = cfg.experiment.image_height if height is None else height
-        w = cfg.experiment.image_width
-        n = len(c2ws)
         with span("renderer.frame"):
-            rays = self._rays(c2ws, height, cy)
-            if self._kparams is not None:
-                # The ray axis is n frames of h rows: an (n * h, w) grid, so the
-                # placement lattice's blocks never straddle two frames.
-                fused = render_rays_fused(
-                    self._kparams, rays, self._settings, early_stop_eps=self._early_stop_eps,
-                    sort_rays=self._sort_rays, grid_hw=(n * h, w), full=full,
-                )
-                out = {"rgb_fine": fused.rgb, "disp_fine": fused.disp, "acc_fine": fused.acc,
-                       "depth_fine": fused.depth} if full else {"rgb_fine": fused}
-            elif self._mesh is not None:
-                out = shard_render(self._params, rays, self._settings, self._mesh, spec=self._spec,
-                                   chunk=self._chunk)
-            else:
-                out = render_rays_chunked(self._models, rays, self._settings, chunk=self._chunk)
-            if not full:
-                rgb = out.get("rgb_fine", out.get("rgb_coarse"))
-                return rgb.to(torch.float32).reshape(n, h, w, 3)
-            return {k: v.to(torch.float32).reshape(n, h, w, *v.shape[1:]) for k, v in out.items()}
+            return self._render_rays(self._rays(c2ws, height, cy), len(c2ws), height, full)
 
-    def render_pose(self, c2w: np.ndarray) -> torch.Tensor:
-        """Render one camera pose -> float32 [H, W, 3] on the renderer's device."""
-        return self._render_batch([c2w])[0]
+    def _render_rays(self, rays, n: int, height: Optional[int] = None, full: bool = False, live_groups=None):
+        """`_render_batch` of the rays of n poses; `live_groups` the fused
+        passes' sample counters (`render_rays_fused`)."""
+        h = self._config.experiment.image_height if height is None else height
+        w = self._config.experiment.image_width
+        if self._kparams is not None:
+            # The ray axis is n frames of h rows: an (n * h, w) grid, so the
+            # placement lattice's blocks never straddle two frames.
+            fused = render_rays_fused(
+                self._kparams, rays, self._settings, early_stop_eps=self._early_stop_eps,
+                sort_rays=self._sort_rays, grid_hw=(n * h, w), full=full, live_groups=live_groups,
+            )
+            out = {"rgb_fine": fused.rgb, "disp_fine": fused.disp, "acc_fine": fused.acc,
+                   "depth_fine": fused.depth} if full else {"rgb_fine": fused}
+        elif self._mesh is not None:
+            out = shard_render(self._params, rays, self._settings, self._mesh, spec=self._spec,
+                               chunk=self._chunk)
+        else:
+            out = render_rays_chunked(self._models, rays, self._settings, chunk=self._chunk)
+        if not full:
+            rgb = out.get("rgb_fine", out.get("rgb_coarse"))
+            return rgb.to(torch.float32).reshape(n, h, w, 3)
+        return {k: v.to(torch.float32).reshape(n, h, w, *v.shape[1:]) for k, v in out.items()}
 
-    def render_pose_uint8(self, c2w: np.ndarray) -> torch.Tensor:
-        """Render one camera pose straight to uint8 [H, W, 3] on the device
-        (the conversion in the span `renderer.to_host`)."""
-        rgb = self.render_pose(c2w)
+    def _pose_frame(self, c2w: torch.Tensor, live_groups) -> torch.Tensor:
+        """The frame function a `FrameGraph` captures: poses [1, 4, 4] on
+        the card -> float32 [1, H, W, 3], as `_render_batch` renders them."""
+        return self._render_rays(self._pose_rays(c2w), 1, live_groups=live_groups)
+
+    def _replays_frame(self, c2w: np.ndarray) -> bool:
+        """Whether a single full frame of `c2w` is a replay of the frame
+        graph: on the card's fused path, for a 4x4 pose."""
+        return self._kparams is not None and self._device.type == "cuda" and np.shape(c2w) == (4, 4)
+
+    def _single_frame(self, c2w: np.ndarray, uint8: bool, host: bool = False):
+        """One pose's full frame, float32 or uint8 [H, W, 3] on the device,
+        or with `host` the uint8 numpy frame (the conversion and the copy in
+        the span `renderer.to_host`): a replay of the frame graph where
+        `_replays_frame` (the first such frame eager, then the capture),
+        else eager. While tracing, the program counters `render.graph_replays`
+        and `render.eager_frames` count such frames."""
+        graphed = self._replays_frame(c2w)
+        if graphed and self._frame_graph is not None:
+            with span("renderer.frame"):
+                frame = self._frame_graph.replay(c2w, uint8 or host)
+            if not host:
+                return frame
+            with span("renderer.to_host"):
+                return frame.cpu().numpy()
+        rgb = self._render_batch([c2w])[0]
+        if profiler.tracing():
+            profiler.count("render.eager_frames", 1)
+        if graphed:
+            self._frame_graph = FrameGraph(self._pose_frame, self._device)
+        if host:
+            return _host_frame(rgb)
+        if not uint8:
+            return rgb
         with span("renderer.to_host"):
             return _to_uint8(rgb)
+
+    def render_pose(self, c2w: np.ndarray) -> torch.Tensor:
+        """Render one camera pose -> float32 [H, W, 3] on the renderer's
+        device (a frame graph replay on the card's fused path, as
+        `render_pose_uint8`)."""
+        return self._single_frame(c2w, uint8=False)
+
+    def render_pose_uint8(self, c2w: np.ndarray) -> torch.Tensor:
+        """Render one camera pose straight to uint8 [H, W, 3] on the device.
+        On the card's fused path, with a 4x4 pose, the renderer's first such
+        frame runs eagerly and captures the frame graph, and every later one
+        is a replay of it (the conversion inside the graph); elsewhere the
+        frame is eager, the conversion in the span `renderer.to_host`. The
+        tensor returned is the caller's: no later frame overwrites it.
+        `set_params` drops the graph."""
+        return self._single_frame(c2w, uint8=True)
 
     def _pick_n_strips(self) -> int:
         """Largest strip count in 6..2 whose strips divide the image height
@@ -468,7 +594,7 @@ class NeRFRenderer:
             out = {k: v[0] for k, v in self._render_batch([pose], full=True).items()}
             scan_outputs_finite(out)
             return _host_frame(out.get("rgb_fine", out.get("rgb_coarse")))
-        return _host_frame(self.render_pose(pose))
+        return self._single_frame(pose, uint8=True, host=True)
 
     def render_poses(self, c2ws: Sequence[np.ndarray]) -> np.ndarray:
         """A batch of poses -> float32 [N, H, W, 3] (the tour path): the rays

@@ -9,8 +9,8 @@ Tracing is on exactly while a `torch.profiler` session records (the CLI's
 opens); nothing else turns it on. Then `span(name)` is a
 `record_function`, which the trace holds as a `user_annotation` event on
 the kernels' clock, and the program's counters count (`count`,
-`device_counter`, read by `read_counters`). Off, `span` returns one shared
-no-op context and nothing is counted.
+`device_counter`, `GraphCounters`, read by `read_counters`). Off, `span`
+returns one shared no-op context and nothing is counted.
 
 `StepTimer` times named phases: on a CUDA device by a pair of CUDA events
 on the current stream, resolved when the times are read, so a phase never
@@ -25,7 +25,7 @@ import contextlib
 import os
 import time
 from collections import defaultdict, deque
-from typing import ContextManager, Deque, Dict, Iterator, Optional, Tuple
+from typing import Callable, ContextManager, Deque, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -45,11 +45,13 @@ def span(name: str) -> ContextManager:
     return torch.profiler.record_function(name) if torch.autograd._profiler_enabled() else _OFF
 
 
-# The program's counters, counted only while tracing: host counts, and
-# device int32 [1] counters that kernels add to, each with the number of
-# units one of its counts stands for.
+# The program's counters, counted only while tracing: host counts, device
+# int32 [1] counters that kernels add to, each with the number of units one
+# of its counts stands for, and the runs of traced replays of `GraphCounters`
+# (names, scale, the values before the run's first replay, after its last).
 _HOST_COUNTS: Dict[str, int] = defaultdict(int)
 _DEVICE_COUNTS: Dict[Tuple[str, torch.device], Tuple[torch.Tensor, int]] = {}
+_GRAPH_RUNS: List[Tuple[Tuple[str, ...], int, torch.Tensor, torch.Tensor]] = []
 
 
 def count(name: str, n: int) -> None:
@@ -67,12 +69,45 @@ def device_counter(name: str, device: torch.device, scale: int = 1) -> torch.Ten
     return _DEVICE_COUNTS[key][0]
 
 
+class GraphCounters:
+    """int32 counters on a device that a CUDA graph's kernels add to at
+    every replay, counted as `names` (each count times `scale`) over the
+    replays made while tracing.
+
+    `values` is the tensor the graph captures; `replay(launch)` calls
+    `launch`, the graph's replay. The graph adds to `values` at every
+    replay, traced or not, and never resets them (they wrap around int32),
+    so a run of consecutive traced replays is counted by two copies of
+    `values` on the device, from before its first replay and after its
+    last: no kernel, no wait, and two copies however long the run.
+    `reset_counters` drops the runs; the next traced replay starts one."""
+
+    def __init__(self, names: Tuple[str, ...], device: torch.device, scale: int = 1) -> None:
+        self.names, self.scale = tuple(names), int(scale)
+        self.values = torch.zeros(len(self.names), dtype=torch.int32, device=device)
+        self._run: Optional[Tuple[Tuple[str, ...], int, torch.Tensor, torch.Tensor]] = None
+
+    def replay(self, launch: Callable[[], None]) -> None:
+        if not tracing():
+            self._run = None
+            launch()
+            return
+        if not any(run is self._run for run in _GRAPH_RUNS):
+            self._run = (self.names, self.scale, self.values.clone(), self.values.clone())
+            _GRAPH_RUNS.append(self._run)
+        launch()
+        self._run[3].copy_(self.values)
+
+
 def read_counters() -> Dict[str, int]:
     """Every counter as a host integer, its host and device parts summed.
     Waits for the device: read after the counted work."""
     out = dict(_HOST_COUNTS)
     for (name, _), (t, scale) in _DEVICE_COUNTS.items():
         out[name] = out.get(name, 0) + int(t.item()) * scale
+    for names, scale, start, end in _GRAPH_RUNS:
+        for name, a, b in zip(names, *torch.stack((start, end)).tolist()):
+            out[name] = out.get(name, 0) + (b - a) % 2**32 * scale
     return out
 
 
@@ -80,6 +115,7 @@ def reset_counters() -> None:
     """Drop every counter; a later count starts a new one at 0."""
     _HOST_COUNTS.clear()
     _DEVICE_COUNTS.clear()
+    _GRAPH_RUNS.clear()
 
 
 class StepTimer:
@@ -169,10 +205,16 @@ def trace_context(log_dir: Optional[str]) -> Iterator[Optional["torch.profiler.p
 
 
 def kernel_name(key: str) -> str:
-    """A profiler event's kernel name without return type and parameters:
-    "void field_dw_kernel(DwJobs, int)" -> "field_dw_kernel"."""
-    words = key.split("(")[0].split()
-    return words[-1] if words else key
+    """A profiler event's kernel name without return type, namespaces,
+    template arguments and parameters: "void field_dw_kernel(DwJobs, int)"
+    -> "field_dw_kernel", "void rk::render_kernel<192, 10, 0, false>(...)"
+    -> "render_kernel"; a name without parameters ("aten::copy_") as it
+    is."""
+    name = key.replace("(anonymous namespace)::", "")
+    if "(" not in name:
+        return key
+    words = name.split("(")[0].split("<")[0].split()
+    return words[-1].split("::")[-1] if words else key
 
 
 def device_kernel_counts(prof) -> Dict[str, int]:

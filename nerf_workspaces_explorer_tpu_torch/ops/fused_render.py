@@ -23,6 +23,7 @@ ray-minor layout ([features, rays]), so the two compare like with like.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import warnings
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
@@ -377,15 +378,25 @@ def prepare_kernel_params(
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _encoding_constants(num_freqs: int, scalar_factor: float, device: torch.device
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_phase_scales` [3, enc_dim] and `_cos_bias` [enc_dim] on `device`,
+    copied there once: an encoding then copies nothing from the host, which
+    on the card would wait for the stream and cannot be captured in a CUDA
+    graph. Read-only."""
+    enc_dim = _enc_dim(num_freqs)
+    return (torch.as_tensor(_phase_scales(num_freqs, enc_dim, scalar_factor), device=device),
+            torch.as_tensor(_cos_bias(num_freqs, enc_dim), device=device))
+
+
 def ray_phase_vectors(
     origins: torch.Tensor, dirs: torch.Tensor, num_freqs: int = PTS_FREQS
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-ray phase offset/slope [enc_dim, R] each, so that sample z's
     encoding phases are `o_ph + z * d_ph` (cos pi/2 bias folded into o_ph).
     The kernels read rows 0-2, the base phases coord / 10."""
-    enc_dim = _enc_dim(num_freqs)
-    scales = torch.as_tensor(_phase_scales(num_freqs, enc_dim, 10.0), device=origins.device)
-    bias = torch.as_tensor(_cos_bias(num_freqs, enc_dim), device=origins.device)
+    scales, bias = _encoding_constants(num_freqs, 10.0, origins.device)
     # Each column of `scales` has one nonzero entry, so these sums are exact
     # (a matmul could take a TF32 path on the card).
     o_ph = (origins[:, :, None] * scales).sum(1) + bias
@@ -398,8 +409,7 @@ def encode_viewdirs_kernel_order(
 ) -> torch.Tensor:
     """Per-ray view encoding in kernel row order -> [enc_dim, R] bf16."""
     enc_dim = _enc_dim(num_freqs)
-    scales = torch.as_tensor(_phase_scales(num_freqs, enc_dim, 1.0), device=viewdirs.device)
-    bias = torch.as_tensor(_cos_bias(num_freqs, enc_dim), device=viewdirs.device)
+    scales, bias = _encoding_constants(num_freqs, 1.0, viewdirs.device)
     phases = (viewdirs[:, :, None] * scales).sum(1) + bias
     row = torch.arange(enc_dim, device=viewdirs.device)
     feat = torch.where(
@@ -926,7 +936,7 @@ def render_rays_fused(
     full: bool = False,
     sort_rays: bool = False,
     grid_hw: Optional[tuple] = None,
-    live_groups: Optional[torch.Tensor] = None,
+    live_groups: Optional[torch.Tensor | Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """Hierarchical inference of a flat bundle [R] through the fused path
     (JAX pallas_render.py:1048-1260).
@@ -948,7 +958,8 @@ def render_rays_fused(
     saturation sample, so blocks of 32 rays stop early together; exact up
     to eps (per-ray independence), outputs in the original order.
     live_groups: int32 [1] on the card; both passes add the 4-sample steps
-    their blocks evaluated (`nerf_render`). Without it, while tracing, the
+    their blocks evaluated (`nerf_render`). A pair (density pass's, fine
+    pass's) gives each pass its own. Without it, while tracing, the
     passes add the samples they evaluate to the program counters
     `render.density_samples` and `render.fine_samples`
     (`obs.profiler.read_counters`). The stages are the spans
@@ -960,6 +971,7 @@ def render_rays_fused(
     s = settings.for_eval()
     kp_coarse = kparams["proposal" if s.use_proposal else "coarse"]
     kp_fine = kparams["fine"]
+    density_groups, fine_groups = (live_groups, live_groups) if not isinstance(live_groups, tuple) else live_groups
     with span("fused.prepare"):
         origins, dirs = rays.origins.to(torch.float32), rays.dirs.to(torch.float32)
         near, far = rays.near.to(torch.float32), rays.far.to(torch.float32)
@@ -993,7 +1005,7 @@ def render_rays_fused(
         weights_t = nerf_render(
             kp_coarse, o_ph_c, d_ph_c, z_coarse, dists_coarse,
             density_only=True, early_stop_eps=early_stop_eps, importance_only=not s.merge_coarse,
-            live_groups=_samples_counter("render.density_samples", z_coarse, live_groups),
+            live_groups=_samples_counter("render.density_samples", z_coarse, density_groups),
         )
     with span("fused.placement"):
         z_fine = importance_merge(weights_t, z_coarse, s.n_importance, merge=s.merge_coarse)
@@ -1023,7 +1035,7 @@ def render_rays_fused(
         maps = nerf_render(
             kp_fine, o_ph_f.contiguous(), d_ph_f.contiguous(), z_fine, _dists_from_z(z_fine, dir_norm),
             venc.contiguous(), early_stop_eps=early_stop_eps,
-            live_groups=_samples_counter("render.fine_samples", z_fine, live_groups),
+            live_groups=_samples_counter("render.fine_samples", z_fine, fine_groups),
         )
         if inv_perm is not None:
             maps = maps[:, inv_perm]

@@ -646,11 +646,15 @@ def test_importance_only_kernel_matches_plain(cuda, n_samples, n_importance, n_r
 @pytest.mark.gpu
 def test_turbo_int8_frame_launches(cuda):
     """One turbo int8 frame through the renderer: one proposal density pass,
-    one importance-only placement, one student full pass, all int8."""
+    one importance-only placement, one student full pass, all int8. After
+    the warm-up the frame is a replay of the frame graph, which calls no
+    wrapper: a profiler trace counts its kernels, `render_kernel<W, F,
+    MODE, DENSITY_ONLY>` with MODE 2 (int8)."""
     import dataclasses
 
     from nerf_workspaces_explorer_tpu_torch.core.config import load_config
     from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import kernel_name
 
     cfg = load_config(office_name="tokyo")
     cfg = dataclasses.replace(cfg, rendering=dataclasses.replace(cfg.rendering, depth_range=(0.1, 8.0)))
@@ -660,10 +664,18 @@ def test_turbo_int8_frame_launches(cuda):
     r.warmup()
     counters = (fr.LAUNCHES, im.LAUNCHES)
     before = [dict(c) for c in counters]
-    frame = r.render_pose_uint8(torch.eye(4).numpy())
-    torch.cuda.synchronize()
-    delta = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c if c[k] != b[k]}
-    assert delta == {"density_only_int8": 1, "full_int8": 1, "importance_only": 1}, delta
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        frame = r.render_pose_uint8(torch.eye(4).numpy())
+        torch.cuda.synchronize()
+    assert [dict(c) for c in counters] == before
+    ran = {}
+    for e in prof.key_averages():
+        name = kernel_name(e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and name in ("render_kernel", "importance_merge_kernel"):
+            key = e.key.split("render_kernel<")[1].split(">")[0] if name == "render_kernel" else name
+            ran[key] = ran.get(key, 0) + e.count
+    assert ran == {"64, 6, 2, true": 1, "192, 10, 2, false": 1, "importance_merge_kernel": 1}, ran
     assert frame.shape == (240, 320, 3) and frame.dtype == torch.uint8
 
 
@@ -924,12 +936,12 @@ def test_distill_student_on_the_card_serves_a_turbo_sidecar(cuda, tmp_path):
     r = NeRFRenderer("tokyo", ckpt, config=cfg, precision="fast", preset="turbo", device=cuda)
     r.initialize_models()
     before = (dict(fr.LAUNCHES), dict(im.LAUNCHES))
-    frame = r.render_pose(poses[0])
+    frame = r.render_pose(poses[0])  # eager, then the frame graph's capture: two wrapper calls each
     torch.cuda.synchronize()
     assert frame.shape == (24, 32, 3) and bool(torch.isfinite(frame).all())
-    assert fr.LAUNCHES["density_only"] - before[0]["density_only"] == 1
-    assert fr.LAUNCHES["full"] - before[0]["full"] == 1
-    assert im.LAUNCHES["importance_only"] - before[1]["importance_only"] == 1
+    assert fr.LAUNCHES["density_only"] - before[0]["density_only"] == 2
+    assert fr.LAUNCHES["full"] - before[0]["full"] == 2
+    assert im.LAUNCHES["importance_only"] - before[1]["importance_only"] == 2
 
 
 def _tk_explorer_on_the_card(cuda, tmp_path, monkeypatch):
@@ -1477,3 +1489,153 @@ def test_fused_path_counts_the_samples_its_kernels_evaluate(cuda, monkeypatch):
     assert counts == {"render.density_samples": density * fr.STEP_POINTS,
                       "render.fine_samples": fine * fr.STEP_POINTS}
     assert density + fine == int(both)
+
+
+def _frame_graph_renderer(device, kind):
+    """The renderers the frame graph serves, at 320x240: the 8x256 reference
+    preset at bf16 or int8 (synth_hier), the turbo student at bf16."""
+    import dataclasses
+
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+
+    cfg = load_config(office_name="tokyo")
+    if kind == "turbo-fast":
+        cfg = dataclasses.replace(cfg, rendering=dataclasses.replace(cfg.rendering, depth_range=(0.1, 8.0)))
+        r = NeRFRenderer("tokyo", os.path.join(ROOT, "assets", "bench", "room_proposal.npz"), config=cfg,
+                         precision="fast", preset="turbo", device=device)
+    else:
+        r = NeRFRenderer("tokyo", CKPT, config=cfg, precision=kind.split("-")[1], device=device)
+    r.initialize_models()
+    return r
+
+
+def _frame_graph_poses(kind, n=8):
+    """n poses with content: the room's walkthrough for the turbo student,
+    clicks on the tokyo plan for synth_hier."""
+    from nerf_workspaces_explorer_tpu_torch.app.workspace import OfficeTokyoWorkspace
+    from nerf_workspaces_explorer_tpu_torch.camera.poses import poses_from_coordinates
+    from nerf_workspaces_explorer_tpu_torch.data.synthetic import walkthrough_poses
+
+    if kind == "turbo-fast":
+        return [p.astype(np.float32) for p in walkthrough_poses(9 * n)[::9]]
+    space = OfficeTokyoWorkspace(ckpt_path=CKPT, device="cpu")
+    poses = []
+    for i in range(n):
+        init, coord = space.transform_relative_coordinates(0.3 + 0.08 * i, 0.5 + 0.05 * i, 30 * i, (-30, 0, 30)[i % 3])
+        poses.append(poses_from_coordinates(init, [coord])[0])
+    return poses
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["hier-fast", "turbo-fast", "hier-int8"])
+def test_frame_graph_replays_equal_eager_frames(cuda, kind):
+    """A renderer's first single frame runs eagerly and captures the frame
+    graph; later frames are replays, byte-equal to the eager frames of the
+    same poses (the capture's pose among them), as float32 and as uint8,
+    and none is overwritten by a later replay."""
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import _to_uint8
+
+    r = _frame_graph_renderer(cuda, kind)
+    poses = _frame_graph_poses(kind)
+    first = r.render_pose_uint8(poses[0])
+    graph = r._frame_graph
+    assert graph is not None
+    replayed = [r.render_pose_uint8(p) for p in poses]
+    floats = [r.render_pose(p) for p in poses[:2]]
+    assert r._frame_graph is graph
+    eager = [r._render_batch([p])[0] for p in poses]
+    assert torch.equal(first, _to_uint8(eager[0]))
+    for i, (got, want) in enumerate(zip(replayed, eager)):
+        assert got.dtype == torch.uint8 and torch.equal(got, _to_uint8(want)), i
+    for got, want in zip(floats, eager):
+        assert torch.equal(got, want)
+    assert not torch.equal(replayed[0], replayed[1]) and int(replayed[0].max()) > 0
+
+
+@pytest.mark.gpu
+def test_frame_graph_stream_equals_per_pose_frames(cuda):
+    """`render_poses_uint8_stream(lookahead=3)` queues replays three frames
+    ahead of its copies to the host: every frame equals the per-pose one."""
+    r = _frame_graph_renderer(cuda, "turbo-fast")
+    poses = _frame_graph_poses("turbo-fast")
+    streamed = list(r.render_poses_uint8_stream(poses, lookahead=3))
+    single = [r.render_pose_uint8(p).cpu().numpy() for p in poses]
+    assert len(streamed) == len(poses)
+    for got, want in zip(streamed, single):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_frame_graph_after_set_params_renders_the_new_weights(cuda):
+    """`set_params` drops the frame graph: the next frame is eager on the
+    new weights and captures anew, and the replays after it equal eager
+    frames on the new weights."""
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import _to_uint8
+
+    r = _frame_graph_renderer(cuda, "hier-fast")
+    poses = _frame_graph_poses("hier-fast", 3)
+    old = [r.render_pose_uint8(p) for p in poses]
+    tree, _, _ = load_checkpoint(CKPT)
+    tree = {k: dict(v) for k, v in tree.items()}
+    tree["fine"] = {k: (dict(v, b=np.asarray(v["b"]) - 0.5) if k == "rgb" else v) for k, v in tree["fine"].items()}
+    r.set_params(tree)
+    assert r._frame_graph is None
+    new = [r.render_pose_uint8(p) for p in poses + poses[:1]]
+    assert r._frame_graph is not None
+    for got, p in zip(new, poses + poses[:1]):
+        assert torch.equal(got, _to_uint8(r._render_batch([p])[0]))
+    assert not torch.equal(new[1], old[1])
+
+
+@pytest.mark.gpu
+def test_frame_graph_replays_are_counted_from_a_trace(cuda):
+    """`LAUNCHES` counts wrapper calls, as for the training step's graph:
+    the capture's calls count, a replay moves no counter, and a profiler
+    trace of the replays counts the kernels they ran, one density pass,
+    one placement and one fine pass a frame."""
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import device_kernel_counts
+
+    r = _frame_graph_renderer(cuda, "turbo-fast")
+    poses = _frame_graph_poses("turbo-fast", 3)
+    counters = (fr.LAUNCHES, im.LAUNCHES)
+    before = [dict(c) for c in counters]
+    r.warmup()  # the preview, then the eager frame and the capture
+    delta = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c if c[k] != b[k]}
+    assert delta == {"density_only": 3, "full": 3, "importance_only": 3}, delta
+    assert r._frame_graph is not None
+    before = [dict(c) for c in counters]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for p in poses:
+            r.render_pose_uint8(p)
+        torch.cuda.synchronize()
+    ran = device_kernel_counts(prof)
+    assert [dict(c) for c in counters] == before
+    assert ran.get("render_kernel") == 6 and ran.get("importance_merge_kernel") == 3, ran
+
+
+@pytest.mark.gpu
+def test_frame_graph_counts_the_eager_frames_samples(cuda):
+    """Inside a profiler session, replays add to `render.density_samples`
+    and `render.fine_samples` what eager frames of the same poses count,
+    and count themselves in `render.graph_replays`."""
+    from nerf_workspaces_explorer_tpu_torch.obs import profiler
+
+    r = _frame_graph_renderer(cuda, "hier-fast")
+    poses = _frame_graph_poses("hier-fast", 4)
+    r.render_pose_uint8(poses[0])
+    assert r._frame_graph is not None
+    counts = []
+    for frame in (r.render_pose_uint8, lambda p: r._render_batch([p])):
+        profiler.reset_counters()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]):
+            for p in poses:
+                frame(p)
+        counts.append(profiler.read_counters())
+    profiler.reset_counters()
+    replayed, eager = counts
+    assert replayed.pop("render.graph_replays") == len(poses)
+    assert eager["render.density_samples"] > 0 and eager["render.fine_samples"] > 0
+    assert replayed == eager, (replayed, eager)

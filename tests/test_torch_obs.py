@@ -107,13 +107,15 @@ def test_frame_spans_nest_under_a_profiler(workspace, tmp_path, capsys):
 @pytest.mark.parametrize("traced", [True, False], ids=["profiler", "no-profiler"])
 def test_plain_path_counts_every_sample_while_tracing(workspace, traced, capsys):
     """The plain passes evaluate every sample: R x S of each pass while a
-    profiler records (64 coarse, 64 + 128 merged fine), nothing without."""
+    profiler records (64 coarse, 64 + 128 merged fine), nothing without; a
+    traced single frame on the CPU counts as an eager one."""
     renderer = workspace.renderer
     with torch.profiler.profile() if traced else contextlib.nullcontext():
         renderer.render_pose_uint8(torch.eye(4).numpy())
     counts = profiler.read_counters()
     if traced:
-        assert counts == {"render.density_samples": H * W * 64, "render.fine_samples": H * W * (64 + 128)}
+        assert counts == {"render.density_samples": H * W * 64, "render.fine_samples": H * W * (64 + 128),
+                          "render.eager_frames": 1}
     else:
         assert counts == {}
 
@@ -130,6 +132,57 @@ def test_counters_read_scale_and_reset():
     profiler.reset_counters()
     assert profiler.read_counters() == {}
     assert profiler.device_counter("test.steps", torch.device("cpu")) is not c
+
+
+def _graph_replay(counters, added):
+    def launch():  # a graph's kernels adding to the counters it captured
+        counters.values.add_(torch.tensor(added, dtype=torch.int32))
+    return counters.replay(launch)
+
+
+def test_graph_counters_count_runs_of_traced_replays():
+    """`GraphCounters` count, times the scale, what the graph adds while
+    tracing: untraced replays before, between and after two profiler
+    sessions count nothing, and a run of traced replays keeps one pair of
+    copies however long it is."""
+    counters = profiler.GraphCounters(("test.a", "test.b"), torch.device("cpu"), 128)
+    _graph_replay(counters, [100, 100])
+    with torch.profiler.profile():
+        for added in ([1, 2], [3, 4], [5, 6]):
+            _graph_replay(counters, added)
+    _graph_replay(counters, [1000, 1000])
+    with torch.profiler.profile():
+        _graph_replay(counters, [7, 8])
+    _graph_replay(counters, [1000, 1000])
+    assert len(profiler._GRAPH_RUNS) == 2
+    assert profiler.read_counters() == {"test.a": 16 * 128, "test.b": 20 * 128}
+    profiler.reset_counters()
+    assert profiler.read_counters() == {}
+
+
+def test_graph_counters_start_a_run_after_a_reset():
+    """`reset_counters` inside a run of traced replays drops what it
+    counted; the next traced replay starts a new run from there."""
+    counters = profiler.GraphCounters(("test.a",), torch.device("cpu"))
+    with torch.profiler.profile():
+        _graph_replay(counters, [5])
+        profiler.reset_counters()
+        _graph_replay(counters, [3])
+        _graph_replay(counters, [4])
+    assert profiler.read_counters() == {"test.a": 7}
+    profiler.reset_counters()
+
+
+def test_graph_counters_read_across_the_int32_wrap():
+    """The graph never resets its counters, which wrap around int32: a run
+    reads their difference modulo 2**32."""
+    counters = profiler.GraphCounters(("test.a",), torch.device("cpu"))
+    counters.values.fill_(2**31 - 10)
+    with torch.profiler.profile():
+        _graph_replay(counters, [20])
+    assert int(counters.values) == -(2**31) + 10
+    assert profiler.read_counters() == {"test.a": 20}
+    profiler.reset_counters()
 
 
 def test_step_timer_on_the_cpu(tmp_path):

@@ -522,6 +522,10 @@ def test_trainer_needs_a_device_or_cuda_and_data(tmp_path, orbit, monkeypatch):
     ("field_fwd_kernel(FieldNet, rk::StreamT<160>, float const*, float*, int)", "field_fwd_kernel"),
     ("void sum_rows_kernel(float const*, int, unsigned long, float*)", "sum_rows_kernel"),
     ("aten::copy_", "aten::copy_"),
+    ("void rk::render_kernel<192, 10, 0, false>(rk::NetPtrs, rk::Quant, rk::Stream, float const*, int)",
+     "render_kernel"),
+    ("void (anonymous namespace)::importance_merge_kernel<8>(float const*, float const*, float*, int)",
+     "importance_merge_kernel"),
 ])
 def test_kernel_name(key, name):
     from nerf_workspaces_explorer_tpu_torch.obs.profiler import kernel_name
