@@ -9,7 +9,10 @@ It builds the port's CUDA kernels from `nerf_workspaces_explorer_tpu_torch/
 csrc/` and drives the port's paths in this order: serving, the explorer
 app, the strip-pipelined frame, the presets, the two profiling scripts'
 kernels, training from a Replica-layout sequence, the device mesh,
-training, distillation, the serving quality gate.
+training, distillation, the serving quality gate. After the build it
+prints every library's ptxas lines and fails on a spill in a served render
+kernel, a training field or the int4 probe, and on a served render kernel
+whose wgmma products ptxas serialized (C7520; the count per library).
 
 Serving: holds K1-K3 against their plain PyTorch versions on the card at the
 main path's shapes (one 320x240 frame: 76,800 rays, 8x256 coarse+fine nets
@@ -355,6 +358,30 @@ def served_render_spills(names) -> list:
     """(library, kernel, ptxas line) of every served `render_kernel` that
     ptxas reports with spill stores or loads."""
     return [x for name in names if name.startswith("fused_render_w") for x in library_spills(name, "render_kernel")]
+
+
+def served_render_serialized(names, read_log=None) -> list:
+    """(library, kernel, ptxas line) of every served `render_kernel` whose
+    ptxas log carries a C7520 line: ptxas serialized its wgmma products.
+    `read_log` (library name -> nvcc's output) defaults to the built
+    library's log."""
+    from nerf_workspaces_explorer_tpu_torch.ops import _build
+
+    read_log = read_log or _build.build_log
+    bad = []
+    for name in names:
+        if not name.startswith("fused_render_w"):
+            continue
+        entry = ""
+        for line in read_log(name).splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "(C7520)" in line:
+                # The warning names its function; else it is the entry being compiled.
+                named = line.split("'")[1] if line.count("'") >= 2 else entry
+                if "render_kernel" in named:
+                    bad.append((name, named, line.strip()))
+    return bad
 
 
 def library_spills(name: str, kernel: str = "") -> list:
@@ -2270,6 +2297,11 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
     spills = served_render_spills(names) + [x for n in field_libs + ["int4_probe"] for x in library_spills(n)]
     require(not spills, f"ptxas reports spills in served render, training field or int4 kernels: {spills}")
+    serialized = served_render_serialized(names)
+    for name in names:
+        if name.startswith("fused_render_w"):
+            print(f"ptxas gate {name}: {sum(x[0] == name for x in serialized)} render_kernel entries with C7520")
+    require(not serialized, f"ptxas serializes the wgmma of served render kernels (C7520): {serialized}")
     n_place, bad_place = library_stack_or_spills("importance_merge")
     require(n_place >= 2 and not bad_place, f"importance_merge: {n_place} kernels reported, not stack- and "
             f"spill-free: {bad_place}")

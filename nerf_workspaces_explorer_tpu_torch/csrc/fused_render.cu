@@ -24,14 +24,24 @@
 //   the 8x256 fine net costs 1.18 MFLOP of products against a few dozen bytes
 //   of its own input and output.
 //
-// What bounds it on this card: the tensor cores against the weight bytes a
-//   step streams from L2. Each 128-point step multiplies every weight once:
-//   at 8x256 bf16 that is 151 MFLOP against 1.26 MB of weights (120 FLOP a
-//   byte; half the bytes in int8 at twice the rate), read from the 50 MB L2
-//   by every block, since no SM holds the net. At the tensor cores' peak a
-//   block would need ~60 GB/s of L2 per SM, ~8 TB/s across 132 SMs, more than
-//   an L2 serves: at this step size the weight stream, not the multiplies, is
-//   the expected floor. The smoke prints the bytes streamed per frame.
+// What bounds it on this card: each 128-point step multiplies every weight
+//   once: at 8x256 bf16 that is 151 MFLOP against 1.19 MB of weights (127
+//   FLOP a byte; half the bytes in int8 at twice the rate), read from the 50
+//   MB L2 by every block, since no SM holds the net. Until the compositing
+//   left the consumer warps, ptxas serialized every product of every served
+//   kernel: "(C7520) Potential Performance Loss: wgmma.mma_async
+//   instructions are serialized due to program dependence on
+//   compiler-inserted WG.AR in divergent path", and the 8x256 full pass's
+//   SASS held 76 HGMMA, each between its own WARPGROUP.ARRIVE and a
+//   WARPGROUP.DEPBAR.LE gsb0, 0x0. Now ptxas prints no C7520 (only C7519
+//   notes, "warpgroup.arrive is injected ... to allow use of registers in
+//   GMMA"), and the same kernel's SASS holds 112 HGMMA against 9 waits to
+//   0 and 19 to 1. On an H100 SXM at 700 W, at a click's 76,800 rays x 192
+//   samples (eps 1e-3): 23.07 ms against 25.72 serialized, 549 TFLOP/s on the
+//   evaluated samples, 55.5% of the dense bf16 peak; the weight stream
+//   (99.8 GB a frame) now reads 4.3 TB/s from L2, where it read 3.9.
+//   Which of the stream and the per-layer epilogues holds it there is not
+//   measured yet (PERF.md).
 //
 // What the design does about it (the product path; the encoding and the
 //   compositing are the earlier kernel's arithmetic):
@@ -41,7 +51,9 @@
 //     (setmaxnreg 40): one elected thread keeps a ring of RING weight stages
 //     full with cp.async.bulk and an mbarrier full/empty pair per stage (3
 //     stages at 8x256 full, 4 where they fit), so the L2 latency of the next
-//     slab overlaps the products on this one.
+//     slab overlaps the products on this one. Its second warp composites
+//     each step (one lane per ray) and makes the stop decision, handed over
+//     through two named barriers (BAR_HEADS, BAR_COMPOSITED).
 //   - A weight stream packed once per parameter set (ops/fused_render.py::
 //     pack_weight_stream): every matrix cut into slabs of 128 bytes of depth
 //     (64 bf16 or 128 int8 inputs), each slab [rows x 128 B] in the layout
@@ -72,6 +84,13 @@
 //     epilogues visit a compile-time column range, and the fp32 heads copy
 //     their 8-column block out before their per-column test. The smoke fails
 //     on a spill in a served kernel.
+//   - No per-lane branch on a consumer warp between products: ptxas puts a
+//     warpgroup.arrive of its own where registers a wgmma uses were written
+//     by other instructions, and one that lands on a divergent path
+//     serializes every wgmma of the function, a wait after each (C7520).
+//     The compositing warp's per-ray branches did that while it was a
+//     consumer warp; on the producer warpgroup, which issues no wgmma, they
+//     do not. The smoke fails on a C7520 in a served kernel.
 //   - Epilogues in registers and activations in place: a consumer warpgroup
 //     holds all N columns of its 64 rows in registers before it writes any,
 //     so once its products have completed it writes bias/ReLU/requant results
@@ -470,6 +489,82 @@ __host__ inline int stream_rows(int W, int F, int mode, bool full, bool heads, i
   return n;
 }
 
+// Named barriers of a block beside consumers_sync (1) and warpgroup_sync
+// (2, 3): the consumers' heads of a step are written (BAR_HEADS), the
+// compositing warp has made the step's stop decision (BAR_COMPOSITED). Each
+// counts the 256 consumer threads and the compositing warp.
+enum { BAR_HEADS = 4, BAR_COMPOSITED = 5, BAR_PAIR = N_CONSUMERS + 32 };
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The compositing warp, the producer warpgroup's second: one lane per ray,
+// front to back over every step the consumers evaluate; it makes each stop
+// decision and writes the outputs. It issues no wgmma, so its per-lane
+// branches lie on no path between products: on a consumer warp they make
+// ptxas serialize every wgmma of the kernel (C7520, the header note).
+template <bool DENSITY_ONLY, int ABL>
+__device__ __forceinline__ void composite(const float* zs, const float* ds, const float* sig, const float* rgbraw,
+                                          float* ray_state, int* flags, float* __restrict__ out, int R, int S,
+                                          float eps, int n_groups, int ray0) {
+  const int lane = threadIdx.x & 31;
+  const int ray = ray0 + lane;
+  const bool valid = ray < R;
+  float* stt = ray_state + lane * 8;
+  for (int g = 0; g < n_groups; ++g) {
+    named_sync(BAR_HEADS, BAR_PAIR);
+    const float* zg = zs + (g & 1) * MP;
+    const float* dg = ds + (g & 1) * MP;
+    float T = stt[0];
+    for (int sl = 0; sl < SG; ++sl) {
+      const int s = g * SG + sl;
+      if (s >= S) break;
+      const int row = sl * RB + lane;
+      if constexpr ((ABL & A_EPI) != 0) {
+        // "epilogue": plain adds in the TPU kernel's order, T untouched.
+        for (int c = 0; c < 3; ++c) stt[1 + c] = __fadd_rn(__fadd_rn(stt[1 + c], rgbraw[row * 4 + c]), sig[row]);
+        continue;
+      }
+      const float alpha = 1.f - expf(-fmaxf(sig[row], 0.f) * dg[row]);
+      const float w = alpha * T;
+      if (DENSITY_ONLY) {
+        if (valid) out[(size_t)s * R + ray] = w;
+      } else if constexpr ((ABL & A_ON) != 0) {
+        // K8 composites rgb alone, each product and sum rounded on its own
+        // as in the plain version; "heads" has no sigmoid.
+        for (int c = 0; c < 3; ++c) {
+          const float x = rgbraw[row * 4 + c];
+          stt[1 + c] = __fadd_rn(stt[1 + c], __fmul_rn(w, (ABL & A_HEADS) != 0 ? x : 1.f / (1.f + expf(-x))));
+        }
+      } else {
+        for (int c = 0; c < 3; ++c) stt[1 + c] += w * (1.f / (1.f + expf(-rgbraw[row * 4 + c])));
+        stt[4] += w * zg[row];
+        stt[5] += w;
+      }
+      T = T * (1.f - alpha + 1e-10f);
+    }
+    stt[0] = T;
+    float tmax = valid ? T : 0.f;
+    for (int off = 16; off > 0; off >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+    const bool alive = (eps <= 0.f) || (tmax > eps);
+    if (lane == 0) flags[0] = alive;
+    if (g + 1 == n_groups) break;
+    named_arrive(BAR_COMPOSITED, BAR_PAIR);
+    if (!alive) break;
+  }
+  if (!DENSITY_ONLY && valid) {
+    out[0 * (size_t)R + ray] = stt[1];
+    out[1 * (size_t)R + ray] = stt[2];
+    out[2 * (size_t)R + ray] = stt[3];
+    out[3 * (size_t)R + ray] = stt[4];
+    out[4 * (size_t)R + ray] = stt[5];
+    out[5 * (size_t)R + ray] = stt[0];
+    out[6 * (size_t)R + ray] = 0.f;
+    out[7 * (size_t)R + ray] = 0.f;
+  }
+}
+
 // One block's work: the served kernels with ABL = 0, K8 with an ablation
 // mask (then MODE_INT8, the full pass, eps 0 and `sps` the sample group of
 // A_ENC / A_NOCONCAT).
@@ -530,15 +625,18 @@ __device__ __forceinline__ void render_body(const NetPtrs& net, const Quant& qa,
   // setmaxnreg.
   const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
   if (role == 2) {
-    // The producer warpgroup: one elected thread streams the weights.
+    // The producer warpgroup: one elected thread streams the weights, and
+    // its second warp composites.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(RK_PRODUCER_REGS));
     if (tid == N_CONSUMERS)
       produce<RING, STAGE>(st, n_groups, saddr(smem + L::O_STAGES), full0, empty0, done, flags + 1, flags + 2);
+    else if (tid / 32 == N_CONSUMERS / 32 + 1)
+      composite<DENSITY_ONLY, ABL>(zs, ds, sig, rgbraw, ray_state, flags, out, R, S, eps, n_groups, ray0);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(RK_CONSUMER_REGS));
 
-  const int wg = tid >> 7, lane = tid & 31, warp = tid >> 5;
+  const int wg = tid >> 7;
   unsigned char* act = smem + L::O_ACT + wg * L::ACT;
   const uint32_t act_s = saddr(act), enc_s = saddr(E) + wg * WG_ROWS * 128;
   Ring ring{saddr(smem + L::O_STAGES), full0, empty0, 0};
@@ -566,9 +664,9 @@ __device__ __forceinline__ void render_body(const NetPtrs& net, const Quant& qa,
 
   int n_live = 0;
   for (int g = 0; g < n_groups; ++g) {
-    // Encode the step's points (row = s_local * RB + ray_local); warp 0 may
-    // still be compositing the previous step, whose depths and intervals sit
-    // in the other half of zs/ds.
+    // Encode the step's points (row = s_local * RB + ray_local); the
+    // compositing warp may still be on the previous step, whose depths and
+    // intervals sit in the other half of zs/ds.
     float* zg = zs + (g & 1) * MP;
     float* dg = ds + (g & 1) * MP;
     for (int i = tid; i < MP * 3; i += N_CONSUMERS) {
@@ -598,7 +696,9 @@ __device__ __forceinline__ void render_body(const NetPtrs& net, const Quant& qa,
     fence_proxy_async();
     consumers_sync();
 
-    // The stop decision, broadcast so that the compiler sees a uniform branch.
+    // The stop decision, made by the compositing warp for the step before,
+    // broadcast so that the compiler sees a uniform branch.
+    if (g > 0) named_sync(BAR_COMPOSITED, BAR_PAIR);
     if (!__shfl_sync(0xffffffffu, flags[0], 0)) {
       // Every ray of the block is saturated: the remaining samples carry
       // weight < eps. The density pass still owes their (zero) weights.
@@ -619,27 +719,20 @@ __device__ __forceinline__ void render_body(const NetPtrs& net, const Quant& qa,
     }
     ++n_live;
 
-    // Density trunk, this warpgroup's 64 rows.
+    // Density trunk, this warpgroup's 64 rows, as straight runs of products
+    // in the stream's slab order: layer 0 on the encoding; the hidden layers
+    // before the skip layer; the skip layer (its encoding product, the skip
+    // shift in the int8 modes, then its hidden product adding to it); the
+    // hidden layers after it. A net with no skip layer (or with it at layer
+    // 0) has no skip block. Every layer's accumulators sit in the same
+    // registers, and no layer tests which products to issue or shifts by 0.
     {
       TAcc acc[W / 2];
       TAcc none[1];
-      // One call site per product kind, so that every layer's accumulators
-      // sit in the same registers, and no accumulator is written on a
-      // branch (the compiler would fence the wgmma there): zeros, the
-      // encoding product on layer 0 and the skip layer, the skip product's
-      // shift (by 0 elsewhere), the hidden product.
-      for (int i = 0; i < net.depth; ++i) {
-#pragma unroll
-        for (int t = 0; t < W / 2; ++t) acc[t] = 0;
-        if (i == 0 || i == net.skip_layer)
-          product<TT, W, 0, ENC_KB, RING, STAGE, false>(acc, none, enc_s, 0, ring);
-        if constexpr (MODE != MODE_BF16) {
-          const int j = i > 0 && i == net.skip_layer ? qa.skip_shift : 0;
-          const int lsh = max(-j, 0), rsh = max(j, 0);
-#pragma unroll
-          for (int t = 0; t < W / 2; ++t) acc[t] = (acc[t] << lsh) >> rsh;
-        }
-        if (i > 0) product<TT, W, 0, W * (int)sizeof(TT), RING, STAGE, false>(acc, none, act_s, WG_ROWS * 128, ring);
+      constexpr int KT = W * (int)sizeof(TT);
+      const int skip = net.skip_layer > 0 && net.skip_layer < net.depth ? net.skip_layer : net.depth;
+      // Layer i's epilogue, written over this warpgroup's activation rows.
+      auto finish = [&](int i) {
         if constexpr (MODE == MODE_BF16) {
           epilogue<E_BF16_RELU, W>(acc, act, net.b[i], nullptr, 0, 0);
         } else {
@@ -650,6 +743,26 @@ __device__ __forceinline__ void render_body(const NetPtrs& net, const Quant& qa,
         }
         fence_proxy_async();
         warpgroup_sync();
+      };
+      product<TT, W, 0, ENC_KB, RING, STAGE>(acc, none, enc_s, 0, ring);
+      finish(0);
+      for (int i = 1; i < skip; ++i) {
+        product<TT, W, 0, KT, RING, STAGE>(acc, none, act_s, WG_ROWS * 128, ring);
+        finish(i);
+      }
+      if (skip < net.depth) {
+        product<TT, W, 0, ENC_KB, RING, STAGE>(acc, none, enc_s, 0, ring);
+        if constexpr (MODE != MODE_BF16) {
+          const int lsh = max(-qa.skip_shift, 0), rsh = max(qa.skip_shift, 0);
+#pragma unroll
+          for (int t = 0; t < W / 2; ++t) acc[t] = (acc[t] << lsh) >> rsh;
+        }
+        product<TT, W, 0, KT, RING, STAGE, false>(acc, none, act_s, WG_ROWS * 128, ring);
+        finish(skip);
+        for (int i = skip + 1; i < net.depth; ++i) {
+          product<TT, W, 0, KT, RING, STAGE>(acc, none, act_s, WG_ROWS * 128, ring);
+          finish(i);
+        }
       }
     }
 
@@ -711,62 +824,9 @@ __device__ __forceinline__ void render_body(const NetPtrs& net, const Quant& qa,
       }
     }
     consumers_sync();
-
-    // Composite front to back: one lane per ray.
-    if (warp == 0) {
-      const int ray = ray0 + lane;
-      const bool valid = ray < R;
-      float* stt = ray_state + lane * 8;
-      float T = stt[0];
-      for (int sl = 0; sl < SG; ++sl) {
-        const int s = g * SG + sl;
-        if (s >= S) break;
-        const int row = sl * RB + lane;
-        if constexpr ((ABL & A_EPI) != 0) {
-          // "epilogue": plain adds in the TPU kernel's order, T untouched.
-          for (int c = 0; c < 3; ++c) stt[1 + c] = __fadd_rn(__fadd_rn(stt[1 + c], rgbraw[row * 4 + c]), sig[row]);
-          continue;
-        }
-        const float alpha = 1.f - expf(-fmaxf(sig[row], 0.f) * dg[row]);
-        const float w = alpha * T;
-        if (DENSITY_ONLY) {
-          if (valid) out[(size_t)s * R + ray] = w;
-        } else if constexpr ((ABL & A_ON) != 0) {
-          // K8 composites rgb alone, each product and sum rounded on its own
-          // as in the plain version; "heads" has no sigmoid.
-          for (int c = 0; c < 3; ++c) {
-            const float x = rgbraw[row * 4 + c];
-            stt[1 + c] = __fadd_rn(stt[1 + c], __fmul_rn(w, (ABL & A_HEADS) != 0 ? x : 1.f / (1.f + expf(-x))));
-          }
-        } else {
-          for (int c = 0; c < 3; ++c) stt[1 + c] += w * (1.f / (1.f + expf(-rgbraw[row * 4 + c])));
-          stt[4] += w * zg[row];
-          stt[5] += w;
-        }
-        T = T * (1.f - alpha + 1e-10f);
-      }
-      stt[0] = T;
-      float tmax = valid ? T : 0.f;
-      for (int off = 16; off > 0; off >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      if (lane == 0) flags[0] = (eps <= 0.f) || (tmax > eps);
-    }
+    named_arrive(BAR_HEADS, BAR_PAIR);
   }
 
-  if (!DENSITY_ONLY && warp == 0) {
-    __syncwarp();
-    const int ray = ray0 + lane;
-    if (ray < R) {
-      const float* stt = ray_state + lane * 8;
-      out[0 * (size_t)R + ray] = stt[1];
-      out[1 * (size_t)R + ray] = stt[2];
-      out[2 * (size_t)R + ray] = stt[3];
-      out[3 * (size_t)R + ray] = stt[4];
-      out[4 * (size_t)R + ray] = stt[5];
-      out[5 * (size_t)R + ray] = stt[0];
-      out[6 * (size_t)R + ray] = 0.f;
-      out[7 * (size_t)R + ray] = 0.f;
-    }
-  }
   if (live_groups != nullptr && tid == 0) atomicAdd(live_groups, n_live);
 }
 

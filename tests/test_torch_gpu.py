@@ -612,6 +612,51 @@ def test_render_kernel_shapes_and_modes_match_plain(cuda, net, mode, density_onl
     assert float(err.max()) <= BF16_ATOL, float(err.max())
 
 
+# The render kernel's outputs at every (net, mode, pass) of the grid above,
+# recorded on the card by `scripts/record_render_bits.py` from fixed seeded
+# inputs: a schedule change that keeps each product's order of accumulation
+# keeps every bit. A change that rightly moves the arithmetic records anew.
+RENDER_BITS = os.path.join(ROOT, "tests", "render_kernel_bits.npz")
+BIT_RAYS, BIT_SAMPLES = 300, 18  # a ragged last block of rays and a ragged last 4-sample step
+BIT_CASES = [(n, m, True) for n in NETS for m in MODES] + [
+    (n, m, False) for n in NETS if n != "proposal-64f6" for m in MODES]
+
+
+def render_bits_key(net, mode, density_only):
+    return f"{net}__{mode}__{'density' if density_only else 'full'}"
+
+
+def render_bits_case(device, net, mode, density_only):
+    """One launch of the kernel at eps 0 on BIT_RAYS x BIT_SAMPLES seeded
+    inputs, synchronized; [S, R] weights or [8, R] maps."""
+    kp = _net_kernel_params(device, net, mode)
+    g = torch.Generator().manual_seed(20)
+    o = torch.randn(BIT_RAYS, 3, generator=g) * 0.5
+    d = torch.randn(BIT_RAYS, 3, generator=g)
+    z = torch.sort(torch.rand(BIT_SAMPLES, BIT_RAYS, generator=g) * 5.9 + 0.1, dim=0).values
+    o_ph, d_ph = fr.ray_phase_vectors(o, d, kp.pts_freqs)
+    venc = None if density_only else fr.encode_viewdirs_kernel_order(d / d.norm(dim=-1, keepdim=True)).to(device)
+    dists = fr._dists_from_z(z, d.norm(dim=-1)[None])
+    args = [t.to(device) for t in (o_ph, d_ph, z, dists)]
+    out = fr.nerf_render(kp, *args, venc, density_only=density_only, early_stop_eps=0.0)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net,mode,density_only", BIT_CASES,
+                         ids=[render_bits_key(*c).replace("__", "-") for c in BIT_CASES])
+def test_render_kernel_bit_equal_to_recorded(cuda, net, mode, density_only):
+    """K1/K3/K7 at every served shape, mode and pass give the recorded
+    outputs bit for bit (NaN and signed zeros included)."""
+    with np.load(RENDER_BITS) as recorded:
+        want = recorded[render_bits_key(net, mode, density_only)]
+    out = render_bits_case(cuda, net, mode, density_only).cpu().numpy()
+    assert out.shape == want.shape and out.dtype == want.dtype == np.float32
+    differ = out.view(np.uint32) != want.view(np.uint32)
+    assert not differ.any(), f"{int(differ.sum())} of {differ.size} outputs differ"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_samples,n_importance,n_rays", [
     (64, 48, 4800), (64, 128, 76_800), (16, 5, 1000),

@@ -71,6 +71,7 @@ def test_port_imports_without_jax():
      os.path.join(ROOT, "scripts", "profile_torch_placement_eps.py"),
      os.path.join(ROOT, "scripts", "profile_torch_fine_ablation.py"),
      os.path.join(ROOT, "scripts", "probe_int4_torch.py"),
+     os.path.join(ROOT, "scripts", "record_render_bits.py"),
      os.path.join(ROOT, "scripts", "time_torch_int4.py"),
      os.path.join(ROOT, "scripts", "validate_quality_torch.py"),
      os.path.join(ROOT, "scripts", "long_horizon_study_torch.py"),

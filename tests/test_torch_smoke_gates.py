@@ -1,0 +1,67 @@
+"""`chip_smoke.py`'s ptxas gates on canned nvcc logs, on the CPU: the C7520
+gate (ptxas serialized the wgmma products of a served render kernel) names
+exactly the served `render_kernel` entries that carry the warning."""
+
+import importlib.util
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+K3 = "_ZN2rk13render_kernelILi256ELi10ELi0ELb0EEEvNS_7NetPtrsENS_5QuantENS_7StreamTILi96EEEPKfS6_S6_S6_PK13__nv_bfloat16PfiifPi"
+K1 = "_ZN2rk13render_kernelILi256ELi10ELi0ELb1EEEvNS_7NetPtrsENS_5QuantENS_7StreamTILi96EEEPKfS6_S6_S6_PK13__nv_bfloat16PfiifPi"
+K8 = "_ZN2rk15ablation_kernelILi128ELi8ELi0EEEvNS_7NetPtrsENS_5QuantENS_7StreamTILi96EEEPKfS6_S6_S6_PK13__nv_bfloat16Pfiii"
+C7520 = ("ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized due to "
+         "program dependence on compiler-inserted WG.AR in divergent path in the function '{}'")
+C7519 = ("ptxas info    : (C7519) warpgroup.arrive is injected in around line 8021 by compiler to allow use of "
+         "registers in GMMA in function '{}'")
+
+
+def _entry(name, regs=168):
+    return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {name}\n"
+            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+            f"ptxas info    : Used {regs} registers, used 16 barriers\n")
+
+
+# nvcc's -Xptxas -v output as the parent of this gate printed it (the
+# warnings first, each naming its function), and the same log without them.
+SERIALIZED = "\n".join([C7520.format(K3), C7519.format(K1), C7520.format(K1), _entry(K3), _entry(K1)])
+CLEAN = "\n".join([C7519.format(K1), _entry(K3), _entry(K1)])
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_gates", os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("log,want", [(SERIALIZED, [K3, K1]), (CLEAN, [])], ids=["serialized", "clean"])
+def test_served_render_serialized_names_c7520_kernels(smoke, log, want):
+    logs = {"fused_render_w256f10": log}
+    got = smoke.served_render_serialized(list(logs), read_log=logs.__getitem__)
+    assert [kernel for _, kernel, _ in got] == want
+    assert all(lib == "fused_render_w256f10" and "(C7520)" in line for lib, _, line in got)
+
+
+def test_served_render_serialized_skips_other_libraries_and_kernels(smoke):
+    """K8's ablation library and the training field are not served render
+    kernels; a C7520 line naming another kernel in a served library is not
+    a render_kernel's."""
+    logs = {
+        "fused_render_ablate_w128f8": C7520.format(K8) + "\n" + _entry(K8),
+        "train_field_w256f10v4": C7520.format(K3),
+        "fused_render_w128f8": C7520.format(K8) + "\n" + _entry(K3),
+    }
+    assert smoke.served_render_serialized(list(logs), read_log=logs.__getitem__) == []
+
+
+def test_served_render_serialized_falls_back_to_the_compiled_entry(smoke):
+    """A C7520 line that names no function belongs to the entry being
+    compiled when it is printed."""
+    log = _entry(K1) + "ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized\n"
+    got = smoke.served_render_serialized(["fused_render_w64f6"], read_log={"fused_render_w64f6": log}.__getitem__)
+    assert [(lib, kernel) for lib, kernel, _ in got] == [("fused_render_w64f6", K1)]
