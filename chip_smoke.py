@@ -682,7 +682,7 @@ def field_leg(device, trainer, nets, specs, settings, spec, cfg, graph=False, la
         b4 = bound_ms(2 * mac_fwd * n, n * (6 * 4 + 8 * 4) + 2 * w_bytes)
         b5 = bound_ms(2 * mac_bwd * n, n * (6 * 4 + 4 * 4) + 4 * w_bytes)
         # K5's design also writes its bf16 scratch and reads it back.
-        n_scratch = ff._backward_sizes(ff._library(meta), meta, n)[0]
+        n_scratch = ff._backward_sizes(meta, n)[0]
         b5_design = 2 * n_scratch * 2 / PEAK_BYTES * 1e3
         res[net] = dict(n=n, k4_err=k4_err, k5_rel=worst[0], k5_abs=max(e[1] for e in errs), worst=worst[2],
                         t=t, b4=b4, b5=b5, b5_design=b5_design, library=_build.field_library(*ff._shape(meta)))

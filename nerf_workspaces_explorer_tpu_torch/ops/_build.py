@@ -13,9 +13,15 @@ A library is `csrc/<name>.cu` itself, or one of VARIANTS: a source compiled
 with extra flags (the render kernel and the training field, once per
 network shape). The hash of
 the source, the shared headers (`csrc/*.cuh`) and the flags in the file name
-means an edited source never loads a stale library. Pointers and the stream
-cross into C as `c_void_p`; every entry point returns `cudaGetLastError()`
-and `check` raises on a nonzero code. Nothing here runs at import time.
+means an edited source never loads a stale library.
+
+`ENTRY_TYPES` holds the C calling convention of every entry point, in the
+order of its `extern "C"` declaration: pointers (and the stream) cross as
+`c_void_p`, `int` as `c_int`, `long long` as `c_longlong`, `float` as
+`c_float`. Every entry point returns an int, a CUDA error code (0 for
+none). `entry` binds an entry of a loaded library to its types once;
+`launch` calls it and raises on a nonzero code. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Any, Dict, Iterable, Tuple
 
 import torch
 
@@ -83,8 +89,31 @@ VARIANTS.update({
     for w, f, v in FIELD_SHAPES
 })
 
-# A shared library, once loaded, is process-wide; so is this cache of them.
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# Every C entry point of csrc/*.cu -> its argument types.
+ENTRY_TYPES = {
+    # csrc/fused_render.cu (K1/K3/K7)
+    "nerf_render_launch": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _F, _I, _P, _P),
+    # csrc/fused_render.cu built with -DRENDER_ABLATE=1 (K8)
+    "nerf_ablation_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _P),
+    # csrc/importance_merge.cu (K2/K6, and the empty kernel of the launch floor)
+    "importance_merge_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "importance_empty_launch": (_P,),
+    # csrc/int4_probe.cu (K9)
+    "int4_probe_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # csrc/train_field.cu (K4/K5)
+    "field_forward_launch": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P),
+    "field_backward_launch": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "field_backward_sizes": (_I, _I, _L, _P, _P, _P),
+}
+
+# A shared library, once loaded, is process-wide; so are these caches of
+# the libraries and of their bound entry points.
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[ctypes.CDLL, str], Any] = {}
 _LOCK = threading.Lock()
 
 
@@ -164,9 +193,32 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def entry(lib: ctypes.CDLL, symbol: str):
+    """The C function `symbol` of the loaded library `lib`, bound to its
+    `ENTRY_TYPES` once."""
+    with _LOCK:
+        fn = _ENTRIES.get((lib, symbol))
+        if fn is None:
+            fn = _ENTRIES[(lib, symbol)] = getattr(lib, symbol)
+            fn.argtypes, fn.restype = ENTRY_TYPES[symbol], ctypes.c_int
+        return fn
+
+
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def launch(name: str, symbol: str, *args) -> None:
+    """Call the entry point `symbol` of the library `name` (built and
+    loaded first if needed) and raise on a nonzero code."""
+    check(entry(load(name), symbol)(*args), symbol)
+
+
+def slab_arrays(table) -> Tuple[ctypes.Array, ctypes.Array]:
+    """A weight stream's table of (name, byte offset, bytes, ...) slabs as
+    the launch entries' host arrays: (offsets, bytes), C ints."""
+    return tuple((ctypes.c_int * len(table))(*[e[i] for e in table]) for i in (1, 2))
 
 
 def stream_handle(device: torch.device) -> ctypes.c_void_p:

@@ -28,7 +28,6 @@ sum, row 5 the final transmittance, the other rows 0.
 
 from __future__ import annotations
 
-import ctypes
 from typing import FrozenSet, Iterable
 
 import torch
@@ -181,6 +180,8 @@ def _run_ablation_cuda(kp, o_ph, d_ph, z_vals, dists, venc, ablate, samples_per_
         built = ", ".join(f"{w}/F={f}" for w, f in _build.ABLATION_SHAPES)
         raise ValueError(f"the ablation kernel is built for width/point frequencies {built}; got "
                          f"{kp.width}/F={kp.pts_freqs}")
+    if kp.mode != fr.MODE_INT8:
+        raise ValueError("the ablation runs the int8 full pass: give it int8 kernel params (trunk and heads)")
     fr._check_kernel_params(kp, device, density_only=False)
     n_samples, n_rays = z_vals.shape
     enc_dim = fr._enc_dim(kp.pts_freqs)
@@ -191,28 +192,13 @@ def _run_ablation_cuda(kp, o_ph, d_ph, z_vals, dists, venc, ablate, samples_per_
     if venc is None or venc.dtype != torch.bfloat16 or not venc.is_contiguous() or venc.device != device or \
             tuple(venc.shape) != (fr._enc_dim(fr.VIEW_FREQS), n_rays):
         raise ValueError(f"venc must be contiguous bf16 [32, {n_rays}] on {device}")
-    ptrs = fr._kernel_pointers(kp, density_only=False)
-    ptr_array = (ctypes.c_void_p * len(ptrs))(*[0 if t is None else t.data_ptr() for t in ptrs])
-    depth = len(kp.w_layers)
-    ishift = (ctypes.c_int * (depth + 3))(*kp.shift_layers, kp.skip_shift[0] if kp.skip_shift else 0, kp.k_feat,
-                                          kp.k_hv)
-    fscale = (ctypes.c_float * 4)(kp.feat_qscale, kp.s_alpha, kp.inv_s_view, kp.s_rgb)
-    lib = _build.load(f"fused_render_ablate_w{kp.width}f{kp.pts_freqs}")
-    fn = lib.nerf_ablation_launch
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    stream, offs, sizes, n_slabs, n_trunk = fr._stream_args(kp, density_only=False)
+    net, weights, n_trunk = fr._launch_args(kp, density_only=False)
     out = torch.empty((8, n_rays), dtype=torch.float32, device=device)
-    code = fn(
-        ctypes.cast(ptr_array, ctypes.c_void_p), kp.width, kp.pts_freqs, depth,
-        kp.skips[0] + 1 if kp.skips else -1, ctypes.cast(ishift, ctypes.c_void_p),
-        ctypes.cast(fscale, ctypes.c_void_p), stream, ctypes.cast(offs, ctypes.c_void_p),
-        ctypes.cast(sizes, ctypes.c_void_p), n_slabs, n_trunk, o_ph.data_ptr(), d_ph.data_ptr(), z_vals.data_ptr(),
-        dists.data_ptr(), venc.data_ptr(), out.data_ptr(), n_rays, n_samples, samples_per_step,
-        _mask(ablate), _build.stream_handle(device),
+    _build.launch(
+        f"fused_render_ablate_w{kp.width}f{kp.pts_freqs}", "nerf_ablation_launch", *net, *weights, n_trunk,
+        o_ph.data_ptr(), d_ph.data_ptr(), z_vals.data_ptr(), dists.data_ptr(), venc.data_ptr(), out.data_ptr(),
+        n_rays, n_samples, samples_per_step, _mask(ablate), _build.stream_handle(device),
     )
-    _build.check(code, "nerf_ablation_launch")
     LAUNCHES[mode_name(ablate)] += 1
     return out
 

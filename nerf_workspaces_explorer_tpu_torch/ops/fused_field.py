@@ -329,9 +329,9 @@ def _shape(meta) -> Tuple[int, int, int]:
     return meta["width"], meta["pts_freqs"], meta["view_freqs"]
 
 
-def _library(meta):
-    """The loaded training field library built for the net's shape."""
-    return _build.load(_build.field_library(*_shape(meta)))
+def _library(meta) -> str:
+    """The name of the training field library built for the net's shape."""
+    return _build.field_library(*_shape(meta))
 
 
 def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
@@ -453,11 +453,7 @@ def _layout(meta, fwd, bwd, n_elems) -> StreamLayout:
     key = _meta_key(meta) + (len(bwd),)
     hit = _LAYOUTS.get(key)
     if hit is None:
-        def c_table(table):
-            return ((ctypes.c_int * len(table))(*[e[1] for e in table]),
-                    (ctypes.c_int * len(table))(*[e[2] for e in table]))
-
-        hit = _LAYOUTS[key] = StreamLayout(fwd, bwd, n_elems, c_table(fwd), c_table(bwd))
+        hit = _LAYOUTS[key] = StreamLayout(fwd, bwd, n_elems, _build.slab_arrays(fwd), _build.slab_arrays(bwd))
     return hit
 
 
@@ -540,8 +536,9 @@ def _pack_leaves(params, leaves, spec, meta):
     return FieldStream(buffer, layout, biases), grad_index
 
 
-def _launch_args(ws: FieldStream, meta, device, backward: bool):
-    """(biases array, buffer pointer, offsets, bytes, slab count) of a launch."""
+def _launch_args(ws: FieldStream, meta, device, backward: bool) -> tuple:
+    """The arguments both launch entries take first: (biases array, depth,
+    skip layer, buffer pointer, slab offsets, slab bytes, slab count)."""
     table = ws.layout.backward if backward else ws.layout.forward
     if backward and not table:
         raise ValueError("the stream holds no backward table (inputs without the transposes)")
@@ -553,8 +550,7 @@ def _launch_args(ws: FieldStream, meta, device, backward: bool):
             raise ValueError(f"field biases must be contiguous 8-byte aligned float32 on {device}")
     offs, sizes = ws.layout.c_backward if backward else ws.layout.c_forward
     biases = (ctypes.c_void_p * len(ws.biases))(*[b.data_ptr() for b in ws.biases])
-    return (ctypes.cast(biases, ctypes.c_void_p), buf.data_ptr(), ctypes.cast(offs, ctypes.c_void_p),
-            ctypes.cast(sizes, ctypes.c_void_p), len(table))
+    return biases, meta["n_layers"], _skip_layer(meta), buf.data_ptr(), offs, sizes, len(table)
 
 
 def field_forward_packed(ws: FieldStream, meta, pts_t: torch.Tensor, views_t: torch.Tensor) -> torch.Tensor:
@@ -563,25 +559,20 @@ def field_forward_packed(ws: FieldStream, meta, pts_t: torch.Tensor, views_t: to
     device = pts_t.device
     n = _check_cuda_inputs(meta, device, pts_t=pts_t, views_t=views_t)
     args = _launch_args(ws, meta, device, backward=False)
-    fn = _library(meta).field_forward_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
-        ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty((8, n), dtype=torch.float32, device=device)
-    code = fn(args[0], meta["n_layers"], _skip_layer(meta), *args[1:], pts_t.data_ptr(), views_t.data_ptr(),
-              out.data_ptr(), n, _build.stream_handle(device))
-    _build.check(code, "field_forward_launch")
+    lib = _library(meta)
+    _build.launch(lib, "field_forward_launch", *args, pts_t.data_ptr(), views_t.data_ptr(), out.data_ptr(), n,
+                  _build.stream_handle(device))
     LAUNCHES["forward"] += 1
-    SHAPE_LAUNCHES[_build.field_library(*_shape(meta))]["forward"] += 1
+    SHAPE_LAUNCHES[lib]["forward"] += 1
     return out
 
 
-def _backward_sizes(lib, meta, n: int) -> Tuple[int, int, int]:
-    fn = lib.field_backward_sizes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+def _backward_sizes(meta, n: int) -> Tuple[int, int, int]:
+    """K5's element counts for n points: (bf16 scratch, dW, db)."""
     sizes = [ctypes.c_longlong() for _ in range(3)]
-    fn(meta["n_layers"], _skip_layer(meta), n, *[ctypes.byref(s) for s in sizes])
+    _build.launch(_library(meta), "field_backward_sizes", meta["n_layers"], _skip_layer(meta), n,
+                  *[ctypes.byref(s) for s in sizes])
     return tuple(int(s.value) for s in sizes)
 
 
@@ -611,8 +602,7 @@ def _field_backward_flat(ws: FieldStream, meta, pts_t, views_t, g_raw) -> Tuple[
     device = pts_t.device
     n = _check_cuda_inputs(meta, device, pts_t=pts_t, views_t=views_t, g_raw=g_raw)
     args = _launch_args(ws, meta, device, backward=True)
-    lib = _library(meta)
-    n_scratch, n_dw, n_db = _backward_sizes(lib, meta, n)
+    n_scratch, n_dw, n_db = _backward_sizes(meta, n)
     shapes = grad_shapes(meta)
     expect_dw = sum(int(np.prod(s)) for k, s in shapes.items() if k.startswith("dw"))
     expect_db = sum(s[0] for k, s in shapes.items() if k.startswith("db"))
@@ -623,17 +613,13 @@ def _field_backward_flat(ws: FieldStream, meta, pts_t, views_t, g_raw) -> Tuple[
     dbpart = torch.empty((2 * n_tiles, n_db), dtype=torch.float32, device=device)
     part = torch.empty((n_chunks, n_dw), dtype=torch.float32, device=device)
     grads = torch.empty((n_dw + n_db,), dtype=torch.float32, device=device)
-    fn = lib.field_backward_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
-        ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = fn(args[0], meta["n_layers"], _skip_layer(meta), *args[1:], pts_t.data_ptr(), views_t.data_ptr(),
-              g_raw.data_ptr(), scratch.data_ptr(), dbpart.data_ptr(), part.data_ptr(), grads.data_ptr(),
-              grads.data_ptr() + 4 * n_dw, n, DW_CHUNK, _build.stream_handle(device))
-    _build.check(code, "field_backward_launch")
+    lib = _library(meta)
+    _build.launch(lib, "field_backward_launch", *args, pts_t.data_ptr(), views_t.data_ptr(), g_raw.data_ptr(),
+                  scratch.data_ptr(), dbpart.data_ptr(), part.data_ptr(), grads.data_ptr(),
+                  grads.data_ptr() + 4 * n_dw, n, DW_CHUNK, _build.stream_handle(device))
     LAUNCHES["backward"] += 1
     LAUNCHES["backward_kernels"] += BACKWARD_KERNELS
-    SHAPE_LAUNCHES[_build.field_library(*_shape(meta))]["backward"] += 1
+    SHAPE_LAUNCHES[lib]["backward"] += 1
     return grads, n_dw
 
 

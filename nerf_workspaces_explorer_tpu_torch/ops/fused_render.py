@@ -594,20 +594,6 @@ def kernel_library(width: int, pts_freqs: int) -> str:
     return f"fused_render_w{width}f{pts_freqs}"
 
 
-def _kernel_pointers(kp: KernelParams, density_only: bool) -> list:
-    """Device pointers in `nerf_render_launch`'s order (csrc/fused_render.cu)."""
-    w = kp.width
-    ptrs = []
-    for wl, bl in zip(kp.w_layers, kp.b_layers):
-        ptrs += [wl, bl]
-    ptrs += [kp.w_skip_enc[0] if kp.w_skip_enc else None, kp.w_fa[w : w + 16], kp.b_fa[w : w + 16]]
-    if density_only:
-        ptrs += [None] * 7
-    else:
-        ptrs += [kp.w_fa[:w], kp.b_fa[:w], kp.w_view_h, kp.w_view_enc, kp.b_view, kp.w_rgb, kp.b_rgb]
-    return ptrs
-
-
 class WeightStream(NamedTuple):
     """One network's product weights as the kernel's producer streams them
     (csrc/fused_render.cu, header note): `buffer` uint8 on the weights'
@@ -617,12 +603,16 @@ class WeightStream(NamedTuple):
     each row, the matrix's row bytes zero-padded to k_bytes (a multiple of
     the 32-byte k-step), in the 128-byte swizzle: byte b of row r at
     r * 128 + (((b >> 4) ^ r) & 7) * 16 + (b & 15). `n_trunk` is the count
-    of the trunk's slabs, the first of either table."""
+    of the trunk's slabs, the first of either table. `c_density` and
+    `c_full` hold each table as the launch entries' host arrays (slab
+    offsets, slab bytes)."""
 
     buffer: torch.Tensor
     density: tuple
     full: tuple
     n_trunk: int
+    c_density: tuple
+    c_full: tuple
 
 
 def _product_matrices(kp: KernelParams):
@@ -687,8 +677,10 @@ def pack_weight_stream(kp: KernelParams) -> WeightStream:
     start = -raw.data_ptr() % SLAB_ROW_BYTES
     buffer = raw[start : start + offset]
     torch.cat(parts, out=buffer)
-    return WeightStream(buffer, tables["trunk"] + tables["density"], tables["trunk"] + tables["full"],
-                        len(tables["trunk"]))
+    density, full = tables["trunk"] + tables["density"], tables["trunk"] + tables["full"]
+
+    return WeightStream(buffer, density, full, len(tables["trunk"]), _build.slab_arrays(density),
+                        _build.slab_arrays(full))
 
 
 # Streams of recent parameter sets, by identity; each entry holds its
@@ -737,14 +729,36 @@ def replicate_kernel_params(kp: KernelParams, device: torch.device | str) -> Ker
     return moved
 
 
-def _stream_args(kp: KernelParams, density_only: bool):
-    """The stream arguments of the launch entries: (buffer pointer, slab
-    offsets, slab bytes, slab count, trunk slab count)."""
+def _launch_args(kp: KernelParams, density_only: bool) -> Tuple[tuple, tuple, int]:
+    """The C arguments of `kp`'s density-only or full pass that
+    `nerf_render_launch` and `nerf_ablation_launch` share
+    (csrc/fused_render.cu), as (net, weights, n_trunk): net = (pointer
+    array, width, point frequencies, depth, skip layer), which both take
+    first; weights = (shift array, scale array, stream buffer, slab
+    offsets, slab bytes, slab count), which the render entry takes after
+    `mode` and the ablation entry at once, followed by n_trunk, the trunk's
+    slab count. The pointers are each layer's weight and bias, the skip
+    weight, alpha's weight and bias, then the full pass's feature, view and
+    rgb weights and biases (nulls in the density pass)."""
+    w = kp.width
+    ptrs = []
+    for wl, bl in zip(kp.w_layers, kp.b_layers):
+        ptrs += [wl, bl]
+    ptrs += [kp.w_skip_enc[0] if kp.w_skip_enc else None, kp.w_fa[w : w + 16], kp.b_fa[w : w + 16]]
+    if density_only:
+        ptrs += [None] * 7
+    else:
+        ptrs += [kp.w_fa[:w], kp.b_fa[:w], kp.w_view_h, kp.w_view_enc, kp.b_view, kp.w_rgb, kp.b_rgb]
+    depth = len(kp.w_layers)
+    shifts = list(kp.shift_layers) or [0] * depth
     ws = weight_stream(kp)
     table = ws.density if density_only else ws.full
-    offs = (ctypes.c_int * len(table))(*[e[1] for e in table])
-    sizes = (ctypes.c_int * len(table))(*[e[2] for e in table])
-    return ws.buffer.data_ptr(), offs, sizes, len(table), ws.n_trunk
+    net = ((ctypes.c_void_p * len(ptrs))(*[0 if t is None else t.data_ptr() for t in ptrs]), w, kp.pts_freqs,
+           depth, kp.skips[0] + 1 if kp.skips else -1)
+    weights = ((ctypes.c_int * (depth + 3))(*shifts, kp.skip_shift[0] if kp.skip_shift else 0, kp.k_feat, kp.k_hv),
+               (ctypes.c_float * 4)(kp.feat_qscale or 0.0, kp.s_alpha, kp.inv_s_view, kp.s_rgb),
+               ws.buffer.data_ptr(), *(ws.c_density if density_only else ws.c_full), len(table))
+    return net, weights, ws.n_trunk
 
 
 def _check_kernel_params(kp: KernelParams, device: torch.device, density_only: bool = True) -> None:
@@ -798,34 +812,17 @@ def _nerf_render_cuda(kp, o_ph, d_ph, z_vals, dists, venc, density_only, early_s
     if live_groups is not None and (live_groups.dtype != torch.int32 or live_groups.device != device):
         raise ValueError("live_groups must be an int32 tensor on the kernel's device")
 
-    ptrs = _kernel_pointers(kp, density_only)
-    ptr_array = (ctypes.c_void_p * len(ptrs))(*[0 if t is None else t.data_ptr() for t in ptrs])
-    depth = len(kp.w_layers)
-    shifts = list(kp.shift_layers) or [0] * depth
-    ishift = (ctypes.c_int * (depth + 3))(*shifts, kp.skip_shift[0] if kp.skip_shift else 0, kp.k_feat, kp.k_hv)
-    fscale = (ctypes.c_float * 4)(kp.feat_qscale or 0.0, kp.s_alpha, kp.inv_s_view, kp.s_rgb)
-    skip_layer = kp.skips[0] + 1 if kp.skips else -1
-    lib = _build.load(kernel_library(kp.width, kp.pts_freqs))
-    fn = lib.nerf_render_launch
-    fn.argtypes = (
-        [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    stream, offs, sizes, n_slabs, _ = _stream_args(kp, density_only)
+    net, weights, _ = _launch_args(kp, density_only)
     out_rows = n_samples if density_only else 8
     out = torch.empty((out_rows, n_rays), dtype=torch.float32, device=device)
-    code = fn(
-        ctypes.cast(ptr_array, ctypes.c_void_p), kp.width, kp.pts_freqs, depth, skip_layer, kp.mode,
-        ctypes.cast(ishift, ctypes.c_void_p), ctypes.cast(fscale, ctypes.c_void_p),
-        stream, ctypes.cast(offs, ctypes.c_void_p), ctypes.cast(sizes, ctypes.c_void_p), n_slabs,
+    _build.launch(
+        kernel_library(kp.width, kp.pts_freqs), "nerf_render_launch", *net, kp.mode, *weights,
         o_ph.data_ptr(), d_ph.data_ptr(), z_vals.data_ptr(), dists.data_ptr(),
         None if density_only else venc.data_ptr(), out.data_ptr(),
         n_rays, n_samples, int(density_only), float(early_stop_eps), int(importance_only),
         None if live_groups is None else live_groups.data_ptr(),
         _build.stream_handle(device),
     )
-    _build.check(code, "nerf_render_launch")
     LAUNCHES[("density_only" if density_only else "full") + _MODE_SUFFIX[kp.mode]] += 1
     return out
 

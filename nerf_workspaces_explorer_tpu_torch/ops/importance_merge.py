@@ -23,8 +23,6 @@ column ascending.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from nerf_workspaces_explorer_tpu_torch.ops import _build
@@ -49,19 +47,6 @@ def importance_merge_plain(
     return merge_sorted_z(z, samples).T.contiguous()
 
 
-_ENTRIES = {}
-
-
-def _entry(name: str, argtypes):
-    """An entry point of the library with its argument types, bound once."""
-    fn = _ENTRIES.get(name)
-    if fn is None:
-        fn = getattr(_build.load("importance_merge"), name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _ENTRIES[name] = fn
-    return fn
-
-
 def _importance_merge_cuda(
     weights_t: torch.Tensor, z_t: torch.Tensor, n_importance: int, merge: bool
 ) -> torch.Tensor:
@@ -75,12 +60,11 @@ def _importance_merge_cuda(
             raise ValueError(f"{name} must be contiguous float32 on {z_t.device}")
     out_rows = s + n_importance if merge else n_importance
     out = torch.empty((out_rows, r), dtype=torch.float32, device=z_t.device)
-    launch = _entry("importance_merge_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    code = launch(
+    _build.launch(
+        "importance_merge", "importance_merge_launch",
         weights_t.data_ptr(), z_t.data_ptr(), out.data_ptr(), r, s, n_importance, int(merge),
         _build.stream_handle(z_t.device),
     )
-    _build.check(code, "importance_merge_launch")
     LAUNCHES["importance_merge" if merge else "importance_only"] += 1
     return out
 
@@ -89,8 +73,7 @@ def empty_launch(device: torch.device) -> None:
     """One launch of an empty kernel through this module's library, on the
     current stream: the floor under any launch of the placement kernel,
     which `chip_smoke.py` times the same way beside it."""
-    launch = _entry("importance_empty_launch", [ctypes.c_void_p])
-    _build.check(launch(_build.stream_handle(device)), "importance_empty_launch")
+    _build.launch("importance_merge", "importance_empty_launch", _build.stream_handle(device))
 
 
 def importance_merge(

@@ -14,8 +14,6 @@ shapes on the card raise. The plain version takes any shape.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from nerf_workspaces_explorer_tpu_torch.ops import _build
@@ -64,12 +62,8 @@ def int4_matmul(a: torch.Tensor, b: torch.Tensor, packed: bool = False) -> torch
                          f"M, N, K = {m, n, k}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("the int4 kernel takes contiguous operands")
-    lib = _build.load("int4_probe")
-    fn = lib.int4_probe_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty((m, n), dtype=torch.float32, device=b.device)
-    code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(packed), _build.stream_handle(b.device))
-    _build.check(code, "int4_probe_launch")
+    _build.launch("int4_probe", "int4_probe_launch", a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(packed),
+                  _build.stream_handle(b.device))
     LAUNCHES["int4x2_packed" if packed else "int4_operand"] += 1
     return out

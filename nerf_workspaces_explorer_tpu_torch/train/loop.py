@@ -57,7 +57,7 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,15 +93,14 @@ from nerf_workspaces_explorer_tpu_torch.train.step import (
     TrainState,
     apply_step,
     check_mesh_rays,
-    data_parallel_step,
     draw_shards,
     draw_step,
     init_train_state,
     load_optimizer_leaves,
     mesh_replicas,
     optimizer_leaves,
+    take_step,
     take_steps,
-    train_step,
 )
 from nerf_workspaces_explorer_tpu_torch.utils.metrics import to8b
 from nerf_workspaces_explorer_tpu_torch.utils.png import write_png
@@ -346,25 +345,29 @@ class Trainer:
         return draw_shards(sh["gens"], seeds, step_seed(self._seed, global_step), n_img, hw,
                            self._config.rendering.n_rays, self._settings, self._mesh)
 
+    def _step_path(self, global_step: int, k: int) -> Tuple[Any, list]:
+        """The step body and the draws of steps global_step .. global_step +
+        k - 1: on one device `apply_step` (this module's, looked up now)
+        bound to the state and the training data, and `_draws`; over the
+        mesh a `DataParallelBody` and `_shard_draws`."""
+        if self._mesh is not None:
+            sh = self._mesh_shards()
+            body = DataParallelBody(self.state, sh["params"], sh["rays"], sh["rgbs"], self._settings, self._spec,
+                                    self._mesh)
+            draw = self._shard_draws
+        else:
+            body = functools.partial(apply_step, self.state, self.rays_train, self._train_rgbs,
+                                     settings=self._settings, spec=self._spec)
+            draw = self._draws
+        with span("train.draws"):
+            return body, [draw(global_step + i) for i in range(k)]
+
     def step(self, global_step: int) -> Dict[str, Any]:
         """One optimization step plus cadenced logging, eval and checkpoints."""
         with self.timer.phase("train_step", "train.step"):
-            if self._mesh is not None:
-                sh = self._mesh_shards()
-                with span("train.draws"):
-                    draws = self._shard_draws(global_step)
-                with span("train.eager"):
-                    self._state, metrics = data_parallel_step(
-                        self.state, sh["params"], sh["rays"], sh["rgbs"], draws, self._settings, self._spec,
-                        self._schedule, self._mesh)
-            else:
-                with span("train.draws"):
-                    draws = self._draws(global_step)
-                with span("train.eager"):
-                    self._state, metrics = train_step(
-                        self.state, self.rays_train, self._train_rgbs, draws, self._settings,
-                        self._spec, self._schedule,
-                    )
+            body, draws = self._step_path(global_step, 1)
+            with span("train.eager"):
+                self._state, metrics = take_step(self.state, body, draws[0], self._schedule)
         self._cadence(global_step, metrics)
         return metrics
 
@@ -404,22 +407,11 @@ class Trainer:
         `StepGraph` of K steps (captured at its first call), on the CPU K
         eager steps of the same step body. Returns the last step's metrics,
         plus every step's total loss as `total_loss_steps` [K]."""
-        k = self._steps_per_call
         with self.timer.phase("train_step", "train.step_many"):
-            if self._mesh is not None:
-                sh = self._mesh_shards()
-                body = DataParallelBody(self.state, sh["params"], sh["rays"], sh["rgbs"], self._settings,
-                                        self._spec, self._mesh)
-                with span("train.draws"):
-                    draws = [self._shard_draws(global_step + i) for i in range(k)]
-            else:
-                body = functools.partial(apply_step, self.state, self.rays_train, self._train_rgbs,
-                                         settings=self._settings, spec=self._spec)
-                with span("train.draws"):
-                    draws = [self._draws(global_step + i) for i in range(k)]
+            body, draws = self._step_path(global_step, self._steps_per_call)
             if self._device.type == "cuda":
                 if self._graph is None:
-                    self._graph = StepGraph(k)
+                    self._graph = StepGraph(self._steps_per_call)
                 self._state, metrics = self._graph(self.state, body, draws, self._schedule)
             else:
                 with span("train.eager"):

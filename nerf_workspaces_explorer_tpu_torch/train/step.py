@@ -33,6 +33,7 @@ optimizer, so a replay takes the steps K eager calls would.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -225,11 +226,11 @@ def train_step(
     spec: NerfMLPSpec,
     schedule: ExponentialDecay,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """Sample, render, loss, backward and one Adam update at lr(state.step).
-    Updates the parameters and the optimizer in place."""
-    set_learning_rate(state.optimizer, schedule(state.step))
-    metrics = apply_step(state, rays, rgbs, draws, settings, spec)
-    return state._replace(step=state.step + 1), metrics
+    """Sample, render, loss, backward and one Adam update at lr(state.step):
+    `take_step` of `apply_step`. Updates the parameters and the optimizer in
+    place."""
+    body = functools.partial(apply_step, state, rays, rgbs, settings=settings, spec=spec)
+    return take_step(state, body, draws, schedule)
 
 
 def check_mesh_rays(n_rays: int, mesh) -> int:
@@ -422,12 +423,10 @@ def data_parallel_step(
     schedule: ExponentialDecay,
     mesh,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One data-parallel step at lr(state.step): `DataParallelBody`'s
-    shards' gradients, their sum and one Adam update on the mesh's first
-    device, each other device's replica refreshed."""
-    set_learning_rate(state.optimizer, schedule(state.step))
-    metrics = DataParallelBody(state, replicas, rays, rgbs, settings, spec, mesh)(draws)
-    return state._replace(step=state.step + 1), metrics
+    """One data-parallel step at lr(state.step), `take_step` of a
+    `DataParallelBody`: the shards' gradients, their sum and one Adam update
+    on the mesh's first device, each other device's replica refreshed."""
+    return take_step(state, DataParallelBody(state, replicas, rays, rgbs, settings, spec, mesh), draws, schedule)
 
 
 def stack_losses(steps: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
@@ -449,6 +448,15 @@ def take_steps(state: TrainState, body, draws: list, schedule: ExponentialDecay
         set_learning_rate(state.optimizer, schedule(state.step + i))
         steps.append(body(d))
     return state._replace(step=state.step + len(draws)), stack_losses(steps)
+
+
+def take_step(state: TrainState, body, draws, schedule: ExponentialDecay
+              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One step, `take_steps` of one draw: the step's metrics, without
+    `total_loss_steps`."""
+    state, metrics = take_steps(state, body, [draws], schedule)
+    del metrics["total_loss_steps"]
+    return state, metrics
 
 
 def _draw_tensors(d) -> List[torch.Tensor]:

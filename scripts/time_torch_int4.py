@@ -64,8 +64,6 @@ def build(sources: dict) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {label}:\n{log}")
         libs[label] = ctypes.CDLL(lib)
-        fn = libs[label].int4_probe_launch
-        fn.argtypes, fn.restype = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
     return libs
 
 
@@ -73,7 +71,7 @@ def launcher(lib, a, b, packed: bool):
     """A call of `lib`'s kernel through the wrapper's launch path."""
     from nerf_workspaces_explorer_tpu_torch.ops import _build
 
-    fn = lib.int4_probe_launch
+    fn = _build.entry(lib, "int4_probe_launch")
     m, (k, n) = a.shape[0] * (2 if packed else 1), b.shape
 
     def call():

@@ -70,8 +70,6 @@ def build(sources: dict) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {label}:\n{log}")
         libs[label] = ctypes.CDLL(lib)
-        fn = libs[label].importance_merge_launch
-        fn.argtypes, fn.restype = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
     return libs
 
 
@@ -79,7 +77,7 @@ def launcher(lib, w, z, n_imp: int, merge: bool):
     """A call of `lib`'s kernel through the wrapper's launch path."""
     from nerf_workspaces_explorer_tpu_torch.ops import _build
 
-    fn = lib.importance_merge_launch
+    fn = _build.entry(lib, "importance_merge_launch")
     s, r = z.shape
 
     def call():
@@ -158,9 +156,9 @@ def main() -> int:
     libs = build(sources)
     order = list(libs)
     order = order + order[::-1]
-    floor_lib = libs["repo"].importance_empty_launch
-    floor_lib.argtypes, floor_lib.restype = [ctypes.c_void_p], ctypes.c_int
     from nerf_workspaces_explorer_tpu_torch.ops import _build
+
+    floor_lib = _build.entry(libs["repo"], "importance_empty_launch")
 
     def floor():
         _build.check(floor_lib(_build.stream_handle(device)), "importance_empty_launch")

@@ -412,6 +412,22 @@ def test_step_many_takes_the_single_steps(tmp_path, orbit):
     _assert_same_state(a, b)
 
 
+def test_step_and_step_many_go_through_the_loop_apply_step(tmp_path, orbit, monkeypatch):
+    """step() and step_many() (K = 2, CPU) both take their steps through
+    `train.loop.apply_step`, the name a patch of the step body replaces."""
+    import nerf_workspaces_explorer_tpu_torch.train.loop as loop
+
+    calls = []
+    real = loop.apply_step
+    monkeypatch.setattr(loop, "apply_step", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    trainer = _trainer(tmp_path, orbit, steps_per_call=2)
+    trainer.setup()
+    m = trainer.step(0)
+    assert len(calls) == 1 and "total_loss_steps" not in m
+    m = trainer.step_many(1)
+    assert len(calls) == 3 and tuple(m["total_loss_steps"].shape) == (2,)
+
+
 @pytest.mark.parametrize("k", [4, 5])
 def test_fit_with_steps_per_call_keeps_the_cadence(tmp_path, orbit, capsys, k):
     """fit() with K = 4 or 5 and a print every 5 steps: the prints at steps
