@@ -11,8 +11,11 @@ app, the strip-pipelined frame, the presets, the two profiling scripts'
 kernels, training from a Replica-layout sequence, the device mesh,
 training, distillation, the serving quality gate. After the build it
 prints every library's ptxas lines and fails on a spill in a served render
-kernel, a training field or the int4 probe, and on a served render kernel
-whose wgmma products ptxas serialized (C7520; the count per library).
+kernel, a training field or the int4 probe, on a served render kernel
+whose wgmma products ptxas serialized (C7520; the count per library), and
+on a training field whose chain kernel (K5's first) writes the backward's
+scratch without TMA tensor stores (UTMASTG in its SASS), spills or carries
+C7520 (its TMA and 128-bit global stores counted per library).
 
 Serving: holds K1-K3 against their plain PyTorch versions on the card at the
 main path's shapes (one 320x240 frame: 76,800 rays, 8x256 coarse+fine nets
@@ -360,6 +363,22 @@ def served_render_spills(names) -> list:
     return [x for name in names if name.startswith("fused_render_w") for x in library_spills(name, "render_kernel")]
 
 
+NO_SPILLS = r"\b0 bytes spill stores, 0 bytes spill loads"
+
+
+def ptxas_kernel_lines(log: str) -> list:
+    """(kernel, line) for each line of nvcc's -Xptxas -v output: a line that
+    names a function in quotes (an entry being compiled, a C75xx warning)
+    belongs to it, any other to the entry being compiled."""
+    out, entry = [], ""
+    for line in log.splitlines():
+        named = line.split("'")[1] if line.count("'") >= 2 else ""
+        if "Compiling entry" in line:
+            entry = named or line
+        out.append((named or entry, line))
+    return out
+
+
 def served_render_serialized(names, read_log=None) -> list:
     """(library, kernel, ptxas line) of every served `render_kernel` whose
     ptxas log carries a C7520 line: ptxas serialized its wgmma products.
@@ -368,20 +387,8 @@ def served_render_serialized(names, read_log=None) -> list:
     from nerf_workspaces_explorer_tpu_torch.ops import _build
 
     read_log = read_log or _build.build_log
-    bad = []
-    for name in names:
-        if not name.startswith("fused_render_w"):
-            continue
-        entry = ""
-        for line in read_log(name).splitlines():
-            if "Compiling entry" in line:
-                entry = line.split("'")[1] if "'" in line else line
-            elif "(C7520)" in line:
-                # The warning names its function; else it is the entry being compiled.
-                named = line.split("'")[1] if line.count("'") >= 2 else entry
-                if "render_kernel" in named:
-                    bad.append((name, named, line.strip()))
-    return bad
+    return [(name, kernel, line.strip()) for name in names if name.startswith("fused_render_w")
+            for kernel, line in ptxas_kernel_lines(read_log(name)) if "(C7520)" in line and "render_kernel" in kernel]
 
 
 def library_spills(name: str, kernel: str = "") -> list:
@@ -391,14 +398,8 @@ def library_spills(name: str, kernel: str = "") -> list:
 
     from nerf_workspaces_explorer_tpu_torch.ops import _build
 
-    bad, entry = [], ""
-    for line in _build.build_log(name).splitlines():
-        if "Compiling entry" in line:
-            entry = line.split("'")[1] if "'" in line else line
-        elif "spill stores" in line and kernel in entry:
-            if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line):
-                bad.append((name, entry, line.strip()))
-    return bad
+    return [(name, entry, line.strip()) for entry, line in ptxas_kernel_lines(_build.build_log(name))
+            if "spill stores" in line and kernel in entry and not re.search(NO_SPILLS, line)]
 
 
 def library_stack_or_spills(name: str):
@@ -409,15 +410,21 @@ def library_stack_or_spills(name: str):
 
     from nerf_workspaces_explorer_tpu_torch.ops import _build
 
-    n, bad, entry = 0, [], ""
-    for line in _build.build_log(name).splitlines():
-        if "Compiling entry" in line:
-            entry = line.split("'")[1] if "'" in line else line
-        elif "stack frame" in line:
-            n += 1
-            if not re.search(r"\b0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", line):
-                bad.append((entry, line.strip()))
-    return n, bad
+    lines = [(entry, line) for entry, line in ptxas_kernel_lines(_build.build_log(name)) if "stack frame" in line]
+    return len(lines), [(entry, line.strip()) for entry, line in lines
+                        if not re.search(r"\b0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", line)]
+
+
+def library_sass(name: str):
+    """A built library's SASS (cuobjdump -sass); None without cuobjdump."""
+    from nerf_workspaces_explorer_tpu_torch.ops import _build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    return subprocess.run([tool, "-sass", _build.library_path(name)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
 
 
 def sass_counts(name: str):
@@ -426,15 +433,52 @@ def sass_counts(name: str):
     compiles to); None without cuobjdump."""
     import re
 
-    from nerf_workspaces_explorer_tpu_torch.ops import _build
-
-    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
-    if tool is None:
+    sass = library_sass(name)
+    if sass is None:
         return None
-    sass = subprocess.run([tool, "-sass", _build.library_path(name)], capture_output=True, text=True, check=True,
-                          timeout=300).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "IGMMA", "HMMA", "IMMA")}
+
+
+def sass_functions(sass: str) -> dict:
+    """A library's SASS by function: cuobjdump's `Function : <name>`
+    sections."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
+CHAIN_KERNEL = "field_bwd_chain_kernel"  # K5's first kernel, csrc/train_field.cu
+
+
+def field_chain_stores(sass: str, log: str):
+    """The chain kernel of one training field library, from the library's
+    SASS and nvcc's -Xptxas -v output: ({"tma_stores": its UTMASTG
+    instructions, "stg128": its 128-bit global stores}, failures). It fails
+    when the kernel issues no TMA store, spills or carries C7520 (ptxas
+    serialized its wgmma products); other kernels' lines do not count."""
+    import re
+
+    code = "\n".join(text for fn, text in sass_functions(sass).items() if CHAIN_KERNEL in fn)
+    counts = {"tma_stores": len(re.findall(r"\bUTMASTG\b", code)),
+              "stg128": len(re.findall(r"\bSTG\.E(?:\.\w+)*\.128\b", code))}
+    failures = []
+    if not code:
+        failures.append(f"no {CHAIN_KERNEL} in the SASS")
+    elif counts["tma_stores"] == 0:
+        failures.append(f"{CHAIN_KERNEL} issues no TMA store")
+    for kernel, line in ptxas_kernel_lines(log):
+        if CHAIN_KERNEL not in kernel:
+            continue
+        if "spill stores" in line and not re.search(NO_SPILLS, line):
+            failures.append(f"{CHAIN_KERNEL} spills: {line.strip()}")
+        if "(C7520)" in line:
+            failures.append(f"{CHAIN_KERNEL} serialized: {line.strip()}")
+    return counts, failures
 
 
 def require(ok: bool, what: str) -> None:
@@ -2322,6 +2366,13 @@ def main() -> int:
         if counts is not None:
             require(counts["HMMA"] == 0 and counts["IMMA"] == 0 and counts["HGMMA"] > 0,
                     f"{name}: the products must be wgmma alone {counts}")
+    for name in field_libs:
+        sass = library_sass(name)
+        require(sass is not None, f"{name}: no cuobjdump to read the chain kernel's stores")
+        stores, failures = field_chain_stores(sass, _build.build_log(name))
+        print(f"sass gate {name}: {CHAIN_KERNEL} {stores['tma_stores']} TMA stores (UTMASTG), {stores['stg128']} "
+              f"128-bit global stores; {failures or 'ok'}", flush=True)
+        require(not failures, f"{name}: {failures}")
 
     # 2. Kernels against their plain versions at the main path's shapes.
     cfg = load_config(office_name="tokyo")

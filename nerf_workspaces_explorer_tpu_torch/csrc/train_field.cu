@@ -14,9 +14,13 @@
 //   points that is 0.315 ms (K4) and 0.925 ms (K5) at the bf16 peak. Bytes:
 //   K5's design moves more than its inputs. Its chain kernel writes each
 //   layer's bf16 input and cotangent to a scratch (4,976 bf16, 9.95 KB a
-//   point, 2.6 GB a step) that its weight-gradient kernel reads back, ~1.6
-//   ms a step at 3.35 TB/s, more than its operations bound. chip_smoke.py
-//   prints both bounds.
+//   point at the stock net) that its weight-gradient kernel reads back: 2.6
+//   GB written and 2.6 GB read a step, 1.56 ms at 3.35 TB/s. That round
+//   trip is the design's bytes bound, and it exceeds the operations bound.
+//   chip_smoke.py prints both bounds. Besides, each 128-point tile of the
+//   chain reads the backward weight stream from the L2 (2.36 MB at the
+//   stock net, 18 KB a point), so the L2 carries those reads beside the
+//   scratch's writes and their write-back.
 //
 // What the design does about it: every product is a bf16 wgmma with fp32
 //   accumulators in registers, on the render kernel's block (hopper.cuh).
@@ -37,13 +41,32 @@
 //     as one bit per accumulator of the thread), writing each layer's bf16
 //     cotangent to the scratch and, per warpgroup, its fp32 bias-gradient
 //     row (a fixed shuffle tree and warp order) to `dbpart`. The scratch
-//     rows leave as whole 16-byte vectors, copied from the activation region
-//     after each epilogue, and the two warpgroups never wait for each other
-//     inside a tile. field_dw_kernel forms every dW = G^T H over one chunk
-//     of points per block with wgmma, both operands point-major in shared
-//     memory (MN-major: wgmma's transpose bits, no transpose pass), fed by
-//     a cp.async pipeline; sum_rows_kernel sums the chunks' partials (and
-//     the bias rows over tiles) in a fixed order.
+//     leaves by TMA tensor stores straight from the swizzled regions
+//     (`ScratchMaps`: one tensor map an array, 64 x 64 boxes, rows past n
+//     and columns past the array's clipped by the hardware), so the
+//     consumer threads copy nothing. After an epilogue's proxy fence and
+//     warpgroup barrier, one thread of the warpgroup issues a store a
+//     64-column block of its activation region, with an L2 evict-first
+//     policy, and commits them as one bulk group: inside the next product,
+//     once the loads that product still waits for are ahead of them
+//     (`product_then_store`; at width 256 after 2 of a layer's 4 slabs,
+//     at the other widths before its first), or at once where no product
+//     reads the region next (the view layer's output, the last cotangent).
+//     The rows of E and V leave at the recompute's start. The waits
+//     (`cp.async.bulk.wait_group.read` by that thread, then the
+//     warpgroup's barrier) guard each region against its next write: the
+//     activation region before every epilogue (`region_free`); the
+//     warpgroup's rows of E, before the head cotangents go in, by the
+//     first epilogue's wait; E and V before the next tile's encoding, by a
+//     wait for all but the newest group ahead of the consumers' barrier.
+//     Every store completes before the block exits. The head cotangents
+//     (16 columns) and the bias rows stay thread stores. The two warpgroups
+//     never wait for each other inside a tile. field_dw_kernel forms every
+//     dW = G^T H over one chunk of points per block with wgmma, both
+//     operands point-major in shared memory (MN-major: wgmma's transpose
+//     bits, no transpose pass), fed by a cp.async pipeline; sum_rows_kernel
+//     sums the chunks' partials (and the bias rows over tiles) in a fixed
+//     order.
 //   Fusing the dW products into the chain would remove the scratch; the
 //   chain would then need every layer's dW accumulators at once.
 //   - The 2x64 proposal net (no skip) runs the same kernels at width 64:
@@ -68,6 +91,8 @@
 //     192-row dW takes two 128-row blocks, the second half empty (loads of
 //     zeros, no stores). A depth-6 student with the default skip takes it
 //     at layer 5, inside its trunk; a depth-4 one has none.
+
+#include <cuda.h>  // CUtensorMap and its encoder's types; the encoder itself is reached through the runtime
 
 #include "hopper.cuh"
 
@@ -163,6 +188,15 @@ static Scratch scratch_layout(bf16* base, int depth, size_t n) {
   return s;
 }
 
+// The chain kernel's tensor maps of the scratch arrays (`Scratch`'s, but
+// `gh`), each bf16 [layers][n][cols] (layers = depth for hs and g, else 1)
+// in boxes of 64 columns x 64 rows under the 128-byte swizzle: the
+// shared-memory image of one 64-row column block of an activation region
+// (`act_off`) or of a warpgroup's half of E or V.
+struct ScratchMaps {
+  CUtensorMap feat, venc, hs, feature, hv, ghv, gfeat, g;
+};
+
 // Bias-gradient layout (one row of `dbpart` per warpgroup of a tile, and the result):
 // db_0 .. db_{depth-1} (WIDTH each), db_feature (WIDTH), db_alpha (8, row 0
 // live), db_view (HALF), db_rgb (8, rows 0-2 live).
@@ -251,19 +285,80 @@ __device__ __forceinline__ void epi_fwd(const float (&d)[N / 2], unsigned char* 
   }
 }
 
-// This warpgroup's activation rows, columns [0, N), to global dst[point *
-// N + column] for points < n, in 16-byte vectors (coalesced rows). After the
-// epilogue's warpgroup barrier.
+// Tensor stores of the scratch (`ScratchMaps`). One thread of a warpgroup
+// issues them, predicated on `issue` and not branched: a branch here would
+// be a divergent path beside the warpgroup's wgmma. The hardware unswizzles
+// each box and clips its rows past n and its columns past the array's. The
+// stores carry an L2 evict-first policy: the scratch passes through the L2
+// once, and without the hint it competed with the weight stream that every
+// tile reads again from the L2 (the 8x256 chain took ~30% longer).
+__device__ __forceinline__ void tma_store(const CUtensorMap& map, uint32_t src, int col, int row, int layer,
+                                          bool issue) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 pol;\nsetp.ne.b32 p, %5, 0;\n"
+      "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      "@p cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%2, %3, %4}], [%1], pol;\n}\n" ::"l"(
+          reinterpret_cast<uint64_t>(&map)),
+      "r"(src), "r"(col), "r"(row), "r"(layer), "r"((int)issue)
+      : "memory");
+}
+
+// This warpgroup's 64 rows of a region of 128-byte column blocks WG_ROWS x
+// 128 bytes apart at shared address `src`, columns [0, N), to rows p0w.. of
+// `layer` of `map`: one tensor store a 64-column block, committed as one
+// bulk group. After the writes' proxy fence and warpgroup barrier.
 template <int N>
-__device__ __forceinline__ void save_act(const unsigned char* __restrict__ act, bf16* __restrict__ dst, int p0w,
-                                         int n) {
-  constexpr int CH = N / 8;  // 16-byte chunks a row
-  for (int v = threadIdx.x & 127; v < WG_ROWS * CH; v += 128) {
-    const int r = v / CH, ch = v % CH;
-    if (p0w + r < n)
-      *reinterpret_cast<uint4*>(dst + (size_t)(p0w + r) * N + ch * 8) =
-          *reinterpret_cast<const uint4*>(act + act_off(r, 16 * ch));
-  }
+__device__ __forceinline__ void store_rows(const CUtensorMap& map, uint32_t src, int p0w, int layer, bool issue) {
+#pragma unroll
+  for (int b = 0; b < (N + 63) / 64; ++b) tma_store(map, src + b * WG_ROWS * 128, 64 * b, p0w, layer, issue);
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n@p cp.async.bulk.commit_group;\n}\n" ::"r"((int)issue)
+               : "memory");
+}
+
+// The issuing thread waits until at most PENDING of its newest bulk groups
+// have yet to read their shared memory.
+template <int PENDING>
+__device__ __forceinline__ void stores_read(bool lead) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n@p cp.async.bulk.wait_group.read %1;\n}\n" ::"r"(
+                   (int)lead),
+               "n"(PENDING)
+               : "memory");
+}
+
+// The issuing thread waits until all its stores have completed.
+__device__ __forceinline__ void stores_done(bool lead) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n@p cp.async.bulk.wait_group 0;\n}\n" ::"r"((int)lead)
+               : "memory");
+}
+
+// Before an epilogue writes over this warpgroup's activation region: every
+// store has read it, and the warpgroup's barrier tells every thread.
+__device__ __forceinline__ void region_free(bool lead) {
+  stores_read<0>(lead);
+  warpgroup_sync();
+}
+
+// d (+)= A . B^T over KB bytes as `product` takes it (A this warpgroup's
+// rows at `a`, its NS slabs from the ring), with `store()`, the tensor
+// stores of the last epilogue, issued inside it. The SM's TMA unit serves
+// them beside the producer's slab loads, and they drain at the pace of
+// device memory: issued ahead of a load the product still waits for, they
+// delay it. When the epilogue ends, the loads of the product's first FRING
+// slabs at most have been issued; the load of slab FRING + j follows the
+// release of slab j. So the stores go out once this warpgroup has taken
+// NS - FRING + 1 slabs (one more than frees those stages, so that the
+// other warpgroup has released them too), and before the last: at width
+// 256, after 2 of a hidden layer's 4 slabs; at the other widths, whose
+// ring holds a whole layer, before the first.
+template <int N, int KB, bool ZERO, typename Store>
+__device__ __forceinline__ void product_then_store(float (&d)[N / 2], uint32_t a, int a_kbs, Ring& ring,
+                                                   Store store) {
+  constexpr int NS = (KB + 127) / 128, AFTER = NS - FRING + 1 > 0 ? NS - FRING + 1 : 0;
+  constexpr int FIRST = 128 * cmin(AFTER, NS - 1);
+  float none[1];
+  if constexpr (FIRST > 0) product<bf16, N, 0, FIRST, FRING, FSTAGE, ZERO>(d, none, a, a_kbs, ring);
+  store();
+  product<bf16, N, 0, KB - FIRST, FRING, FSTAGE, ZERO && FIRST == 0>(d, none, a + FIRST / 128 * a_kbs, a_kbs, ring);
 }
 
 // raw[row][col0 + c] = acc[row][c] + bias[c] for c < ncols (a head's first
@@ -323,14 +418,11 @@ __device__ __forceinline__ void epi_grad(const float (&d)[N / 2], unsigned char*
   }
 }
 
-// After a cotangent epilogue and its warpgroup barrier: the warpgroup's
-// copy of the cotangent rows to the scratch (`save_act`), and db[c] = its 4
-// warps' column sums, in warp order, for c < N (this warpgroup's row of the
-// bias-gradient partials).
+// After a cotangent epilogue and its warpgroup barrier: db[c] = the
+// warpgroup's 4 warps' column sums, in warp order, for c < N (this
+// warpgroup's row of the bias-gradient partials).
 template <int N>
-__device__ __forceinline__ void finish_grad(const unsigned char* act, bf16* save, const float* colpart,
-                                            float* __restrict__ db, int p0w, int n) {
-  save_act<N>(act, save, p0w, n);
+__device__ __forceinline__ void db_sums(const float* colpart, float* __restrict__ db) {
   for (int c = threadIdx.x & 127; c < N; c += 128) {
     float s = 0.f;
     for (int w = 0; w < 4; ++w) s += colpart[w * WIDTH + c];
@@ -353,25 +445,16 @@ __device__ __forceinline__ void encode_tile(const float* __restrict__ pts, const
   }
 }
 
-// This warpgroup's rows of a swizzled tile, first `chunks` 16-byte chunks,
-// to global [n, 8 chunks] rows (points < n), unswizzled.
-__device__ __forceinline__ void save_rows(const unsigned char* tile, int chunks, bf16* dst, int p0w, int n) {
-  const int wg = threadIdx.x >> 7;
-  for (int v = threadIdx.x & 127; v < WG_ROWS * chunks; v += 128) {
-    const int r = v / chunks, ch = v % chunks, row = wg * WG_ROWS + r;
-    if (p0w + r < n)
-      *reinterpret_cast<uint4*>(dst + (size_t)(p0w + r) * chunks * 8 + ch * 8) =
-          *reinterpret_cast<const uint4*>(tile + swz(row, 16 * ch));
-  }
-}
-
 // The forward over this warpgroup's rows: trunk, (alpha,) feature, view
 // layer (, rgb). K4 (SAVE = false) writes the heads to raw; the chain's
-// recompute (SAVE) skips the heads and saves every layer's bf16 output.
+// recompute (SAVE) skips the heads and stores every layer's bf16 output to
+// the scratch (`maps`) inside the next layer's product, each epilogue
+// waiting until the stores have read the region.
 template <bool SAVE>
 __device__ __forceinline__ void forward_tile(const FieldNet& net, unsigned char* act, uint32_t act_s, uint32_t enc_s,
-                                             uint32_t venc_s, Ring& ring, const Scratch& sc, float* raw,
+                                             uint32_t venc_s, Ring& ring, const ScratchMaps* maps, float* raw,
                                              uint32_t* mbits, int p0w, int n) {
+  const bool lead = (threadIdx.x & 127) == 0, issue = lead && p0w < n;
   float acc[WIDTH / 2];
   float none[1];
   // One call site per product kind, so that every layer's accumulators sit
@@ -382,11 +465,18 @@ __device__ __forceinline__ void forward_tile(const FieldNet& net, unsigned char*
     for (int t = 0; t < WIDTH / 2; ++t) acc[t] = 0.f;
     if (i == 0 || i == net.skip_layer)
       product<bf16, WIDTH, 0, ENC_K * 2, FRING, FSTAGE, false>(acc, none, enc_s, 0, ring);
-    if (i > 0) product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE, false>(acc, none, act_s, WG_ROWS * 128, ring);
+    if constexpr (SAVE) {
+      if (i > 0)
+        product_then_store<WIDTH, WIDTH * 2, false>(acc, act_s, WG_ROWS * 128, ring, [&] {
+          store_rows<WIDTH>(maps->hs, act_s, p0w, i - 1, issue);
+        });
+      region_free(lead);
+    } else if (i > 0) {
+      product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE, false>(acc, none, act_s, WG_ROWS * 128, ring);
+    }
     epi_fwd<WIDTH, true, SAVE>(acc, act, net.b[i], mbits + i * BITW(WIDTH));
     fence_proxy_async();
     warpgroup_sync();
-    if constexpr (SAVE) save_act<WIDTH>(act, sc.hs + (size_t)i * n * WIDTH, p0w, n);
   }
   if constexpr (!SAVE) {
     float a16[8];
@@ -394,21 +484,33 @@ __device__ __forceinline__ void forward_tile(const FieldNet& net, unsigned char*
     epi_head<16>(a16, net.b_alpha, raw, 3, 1);
   }
   // Feature (no activation, reference nerf_model.py:63-64), over h.
-  product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE>(acc, none, act_s, WG_ROWS * 128, ring);
+  if constexpr (SAVE) {
+    product_then_store<WIDTH, WIDTH * 2, true>(acc, act_s, WG_ROWS * 128, ring, [&] {
+      store_rows<WIDTH>(maps->hs, act_s, p0w, net.depth - 1, issue);
+    });
+    region_free(lead);
+  } else {
+    product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE>(acc, none, act_s, WG_ROWS * 128, ring);
+  }
   epi_fwd<WIDTH, false, false>(acc, act, net.b_feat, nullptr);
   fence_proxy_async();
   warpgroup_sync();
-  if constexpr (SAVE) save_act<WIDTH>(act, sc.feature, p0w, n);
   {
     // hv = relu(W_view_h . feature + W_view_enc . venc + b_view).
     float hv[HALF / 2];
-    product<bf16, HALF, 0, WIDTH * 2, FRING, FSTAGE>(hv, none, act_s, WG_ROWS * 128, ring);
+    if constexpr (SAVE)
+      product_then_store<HALF, WIDTH * 2, true>(hv, act_s, WG_ROWS * 128, ring, [&] {
+        store_rows<WIDTH>(maps->feature, act_s, p0w, 0, issue);
+      });
+    else
+      product<bf16, HALF, 0, WIDTH * 2, FRING, FSTAGE>(hv, none, act_s, WG_ROWS * 128, ring);
     product<bf16, HALF, 0, VENC_K * 2, FRING, FSTAGE, false>(hv, none, venc_s, 0, ring);
+    if constexpr (SAVE) region_free(lead);
     epi_fwd<HALF, true, SAVE>(hv, act, net.b_view, mbits + MAXD * BITW(WIDTH));
   }
   fence_proxy_async();
   warpgroup_sync();
-  if constexpr (SAVE) save_act<HALF>(act, sc.hv, p0w, n);
+  if constexpr (SAVE) store_rows<HALF>(maps->hv, act_s, p0w, 0, issue);
   if constexpr (!SAVE) {
     float rgb[8];
     product<bf16, 16, 0, HALF * 2, FRING, FSTAGE>(rgb, none, act_s, WG_ROWS * 128, ring);
@@ -475,14 +577,13 @@ field_fwd_kernel(const __grid_constant__ FieldNet net, const __grid_constant__ F
   float* raw = reinterpret_cast<float*>(b.smem + FLay::O_RAW);
   unsigned char* act = b.smem + wg * FLay::ACT;
   const uint32_t act_s = saddr(act), enc_s = saddr(E) + wg * WG_ROWS * 128, venc_s = saddr(V) + wg * WG_ROWS * 128;
-  const Scratch none = {};
   for (int tile = blockIdx.x; tile < b.n_tiles; tile += gridDim.x) {
     const int p0 = tile * MP;
     consumers_sync();  // the previous tile's reads of E, V and raw are done
     encode_tile(pts, views, p0, n, E, V);
     fence_proxy_async();
     consumers_sync();
-    forward_tile<false>(net, act, act_s, enc_s, venc_s, b.ring, none, raw, nullptr, p0 + wg * WG_ROWS, n);
+    forward_tile<false>(net, act, act_s, enc_s, venc_s, b.ring, nullptr, raw, nullptr, p0 + wg * WG_ROWS, n);
     consumers_sync();
     for (int i = tid; i < 8 * MP; i += N_CONSUMERS) {
       const int r = i / MP, row = i % MP, pt = p0 + row;
@@ -495,11 +596,12 @@ field_fwd_kernel(const __grid_constant__ FieldNet net, const __grid_constant__ F
 __global__ void __launch_bounds__(RK_THREADS, 1)
 field_bwd_chain_kernel(const __grid_constant__ FieldNet net, const __grid_constant__ FieldStream st,
                        const float* __restrict__ pts, const float* __restrict__ views,
-                       const float* __restrict__ g_raw, const __grid_constant__ Scratch sc,
-                       float* __restrict__ dbpart, int n) {
+                       const float* __restrict__ g_raw, bf16* __restrict__ gh,
+                       const __grid_constant__ ScratchMaps maps, float* __restrict__ dbpart, int n) {
   FBlock b;
   if (!field_block(st, n, b)) return;
   const int tid = threadIdx.x, wg = tid >> 7, L = net.depth;
+  const bool lead = (tid & 127) == 0;  // the thread that issues and waits for the warpgroup's tensor stores
   unsigned char* E = b.smem + FLay::O_E;
   unsigned char* V = b.smem + FLay::O_V;
   float* colpart0 = reinterpret_cast<float*>(b.smem + FLay::O_COL) + wg * 2 * 4 * WIDTH;
@@ -511,23 +613,29 @@ field_bwd_chain_kernel(const __grid_constant__ FieldNet net, const __grid_consta
   uint32_t mbits[MAXD * BITW(WIDTH) + BITW(HALF)];
   for (int tile = blockIdx.x; tile < b.n_tiles; tile += gridDim.x) {
     const int p0 = tile * MP, p0w = p0 + wg * WG_ROWS;
+    const bool issue = lead && p0w < n;
     // This warpgroup's bias-gradient row: db_0 .. db_{L-1}, feature, alpha,
     // view, rgb (db_size).
     float* db_row = dbpart + (size_t)(2 * tile + wg) * db_size(L);
     int par = 0;  // which of the warpgroup's two column-sum buffers
 
-    // 1. Recompute the forward, saving every layer's input.
+    // 1. Recompute the forward, storing every layer's input. Both
+    // warpgroups' stores of E and V have read them: every group but the
+    // newest (the last cotangent's, from act, which the first epilogue
+    // waits for).
+    stores_read<1>(lead);
     consumers_sync();
     encode_tile(pts, views, p0, n, E, V);
     fence_proxy_async();
     consumers_sync();
-    save_rows(E, ENC / 8, sc.feat, p0w, n);
-    save_rows(V, VENC / 8, sc.venc, p0w, n);
-    forward_tile<true>(net, act, act_s, enc_s, venc_s, b.ring, sc, nullptr, mbits, p0w, n);
+    store_rows<ENC>(maps.feat, enc_s, p0w, 0, issue);
+    store_rows<VENC>(maps.venc, venc_s, p0w, 0, issue);
+    forward_tile<true>(net, act, act_s, enc_s, venc_s, b.ring, &maps, nullptr, mbits, p0w, n);
 
-    // 2. Head cotangents, bf16, into this warpgroup's rows of E: columns 0-2
-    // rgb, GH_SIGMA sigma (only rgb rows 0-2 and sigma row 3 of g_raw are
-    // live); the same rows to the scratch.
+    // 2. Head cotangents, bf16, into this warpgroup's rows of E (whose
+    // stores the first epilogue's wait saw read): columns 0-2 rgb, GH_SIGMA
+    // sigma (only rgb rows 0-2 and sigma row 3 of g_raw are live); the same
+    // rows to the scratch.
     for (int i = tid & 127; i < WG_ROWS * GH; i += 128) {
       const int r = i / GH, c = i % GH, pt = p0w + r, row = wg * WG_ROWS + r;
       float v = 0.f;
@@ -535,7 +643,7 @@ field_bwd_chain_kernel(const __grid_constant__ FieldNet net, const __grid_consta
       if (pt < n && c == GH_SIGMA) v = g_raw[(size_t)3 * n + pt];
       const bf16 vb = __float2bfloat16(v);
       *reinterpret_cast<bf16*>(SwRow{E + row * 128, row}.at(2 * c)) = vb;
-      if (pt < n) sc.gh[(size_t)pt * GH + c] = vb;
+      if (pt < n) gh[(size_t)pt * GH + c] = vb;
     }
     const int t = tid & 127;
     if (t < 4) {  // db_rgb, db_alpha: fp32 sums of the fp32 cotangent, in point order
@@ -555,43 +663,53 @@ field_bwd_chain_kernel(const __grid_constant__ FieldNet net, const __grid_consta
     {
       float ghv[HALF / 2];
       product<bf16, HALF, 0, GH * 2, FRING, FSTAGE>(ghv, none, enc_s, 0, b.ring);
+      region_free(lead);
       epi_grad<HALF, true, true>(ghv, act, mbits + MAXD * BITW(WIDTH), colpart0 + par * 4 * WIDTH, p0w, n);
     }
     fence_proxy_async();
     warpgroup_sync();
-    finish_grad<HALF>(act, sc.ghv, colpart0 + par * 4 * WIDTH, db_row + (L + 1) * WIDTH + 8, p0w, n);
+    db_sums<HALF>(colpart0 + par * 4 * WIDTH, db_row + (L + 1) * WIDTH + 8);
     par ^= 1;
     // 4. g_feature = W_view_h^T g_hv (no activation on the feature head).
     float acc[WIDTH / 2];
-    product<bf16, WIDTH, 0, HALF * 2, FRING, FSTAGE>(acc, none, act_s, WG_ROWS * 128, b.ring);
+    product_then_store<WIDTH, HALF * 2, true>(acc, act_s, WG_ROWS * 128, b.ring, [&] {
+      store_rows<HALF>(maps.ghv, act_s, p0w, 0, issue);
+    });
+    region_free(lead);
     epi_grad<WIDTH, false, false>(acc, act, nullptr, colpart0 + par * 4 * WIDTH, p0w, n);
     fence_proxy_async();
     warpgroup_sync();
-    finish_grad<WIDTH>(act, sc.gfeat, colpart0 + par * 4 * WIDTH, db_row + L * WIDTH, p0w, n);
+    db_sums<WIDTH>(colpart0 + par * 4 * WIDTH, db_row + L * WIDTH);
     par ^= 1;
     // 5. g_{L-1} = mask(h_{L-1}) * (W_feature^T g_feature + W_alpha^T g_sigma).
 #pragma unroll
     for (int t = 0; t < WIDTH / 2; ++t) acc[t] = 0.f;
-    product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE, false>(acc, none, act_s, WG_ROWS * 128, b.ring);
+    product_then_store<WIDTH, WIDTH * 2, false>(acc, act_s, WG_ROWS * 128, b.ring, [&] {
+      store_rows<WIDTH>(maps.gfeat, act_s, p0w, 0, issue);
+    });
     product<bf16, WIDTH, 0, GH * 2, FRING, FSTAGE, false>(acc, none, enc_s, 0, b.ring);
+    region_free(lead);
     epi_grad<WIDTH, true, false>(acc, act, mbits + (L - 1) * BITW(WIDTH), colpart0 + par * 4 * WIDTH, p0w, n);
     fence_proxy_async();
     warpgroup_sync();
-    finish_grad<WIDTH>(act, sc.g + (size_t)(L - 1) * n * WIDTH, colpart0 + par * 4 * WIDTH, db_row + (L - 1) * WIDTH,
-        p0w, n);
+    db_sums<WIDTH>(colpart0 + par * 4 * WIDTH, db_row + (L - 1) * WIDTH);
     par ^= 1;
     // 6. The trunk: g_{i-1} = mask(h_{i-1}) * (W_i^T g_i), down to layer 0
     // (no input gradient into the encoding).
     for (int i = L - 1; i >= 1; --i) {
-      product<bf16, WIDTH, 0, WIDTH * 2, FRING, FSTAGE>(acc, none, act_s, WG_ROWS * 128, b.ring);
+      product_then_store<WIDTH, WIDTH * 2, true>(acc, act_s, WG_ROWS * 128, b.ring, [&] {
+        store_rows<WIDTH>(maps.g, act_s, p0w, i, issue);
+      });
+      region_free(lead);
       epi_grad<WIDTH, true, false>(acc, act, mbits + (i - 1) * BITW(WIDTH), colpart0 + par * 4 * WIDTH, p0w, n);
       fence_proxy_async();
       warpgroup_sync();
-      finish_grad<WIDTH>(act, sc.g + (size_t)(i - 1) * n * WIDTH, colpart0 + par * 4 * WIDTH,
-          db_row + (i - 1) * WIDTH, p0w, n);
+      db_sums<WIDTH>(colpart0 + par * 4 * WIDTH, db_row + (i - 1) * WIDTH);
       par ^= 1;
     }
+    store_rows<WIDTH>(maps.g, act_s, p0w, 0, issue);
   }
+  stores_done(lead);  // before the block exits
 }
 
 // ---------------------------------------------------------------------------
@@ -766,6 +884,39 @@ static bool unpack_stream(const void* base, const int* off, const int* bytes, in
   return true;
 }
 
+// cuTensorMapEncodeTiled, a driver function, looked up once through the
+// runtime, so that the library links against the runtime alone; null if the
+// driver lacks it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a bf16 scratch array [layers][rows][cols] at `base`
+// (`ScratchMaps`): boxes of 64 columns x WG_ROWS rows x 1 layer, 128-byte
+// swizzle.
+static bool scratch_map(EncodeTiled encode, CUtensorMap* map, const bf16* base, int cols, int rows, int layers) {
+  const cuuint64_t dim[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)layers};
+  const cuuint64_t stride[2] = {(cuuint64_t)cols * sizeof(bf16), (cuuint64_t)cols * sizeof(bf16) * rows};
+  const cuuint32_t box[3] = {64, WG_ROWS, 1}, unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(base), dim, stride, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 constexpr int kMaxDevices = 64;
 
 // The current device's setup, made once on each device: its SM count and
@@ -857,11 +1008,20 @@ extern "C" int field_backward_launch(const void* const* biases, int depth, int s
   cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
   const FieldNet net = unpack_net(biases, depth, skip_layer);
   const Scratch sc = scratch_layout(static_cast<bf16*>(scratch), depth, (size_t)n);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  ScratchMaps maps;
+  if (!(scratch_map(encode, &maps.feat, sc.feat, ENC, n, 1) && scratch_map(encode, &maps.venc, sc.venc, VENC, n, 1) &&
+        scratch_map(encode, &maps.hs, sc.hs, WIDTH, n, depth) &&
+        scratch_map(encode, &maps.feature, sc.feature, WIDTH, n, 1) &&
+        scratch_map(encode, &maps.hv, sc.hv, HALF, n, 1) && scratch_map(encode, &maps.ghv, sc.ghv, HALF, n, 1) &&
+        scratch_map(encode, &maps.gfeat, sc.gfeat, WIDTH, n, 1) && scratch_map(encode, &maps.g, sc.g, WIDTH, n, depth)))
+    return (int)cudaErrorInvalidValue;
   const int n_tiles = (n + MP - 1) / MP;
   const DeviceSetup dev = device_setup();
   if (dev.err != cudaSuccess) return (int)dev.err;
-  field_bwd_chain_kernel<<<field_grid(n, dev.sms), RK_THREADS, FLay::BYTES, cs>>>(net, st, pts, views, g_raw, sc,
-                                                                                   dbpart, n);
+  field_bwd_chain_kernel<<<field_grid(n, dev.sms), RK_THREADS, FLay::BYTES, cs>>>(net, st, pts, views, g_raw, sc.gh,
+                                                                                   maps, dbpart, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -10,6 +10,7 @@ JAX nor the JAX package, so it runs on a machine without them:
     python -m pytest tests/test_torch_gpu.py --noconftest -m gpu -q
 """
 
+import hashlib
 import os
 
 import numpy as np
@@ -356,6 +357,63 @@ def test_student_field_backward_is_deterministic(cuda, student):
     for name in a:
         assert torch.equal(a[name], b[name]), name
     assert torch.equal(fa, fb)
+
+
+# K5's dW and db at every built field shape, recorded on the card by
+# `scripts/record_field_bits.py` from fixed seeded inputs at two ragged point
+# counts (a ragged last 128-point tile; one past 65,536): a change that
+# moves the same bytes by other means keeps every bit. Each buffer is
+# recorded as the SHA-256 digest of its raw float32 bytes, with a few
+# sampled values to read when it differs.
+FIELD_BITS = os.path.join(ROOT, "tests", "field_backward_bits.npz")
+FIELD_BIT_SPECS = {"stock-8x256": {}, **STUDENTS, "proposal-2x64": "proposal"}
+FIELD_BIT_CASES = [(shape, n) for shape in FIELD_BIT_SPECS for n in (1000, 65_573)]
+FIELD_BIT_SAMPLES = 16
+
+
+def field_bits_key(shape, n):
+    return f"{shape}__n{n}"
+
+
+def field_bits_case(device, shape, n):
+    """(dW, db) of one K5 call on seeded inputs, flat float32 numpy arrays in
+    the kernel's order."""
+    from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
+
+    kw = FIELD_BIT_SPECS[shape]
+    spec = proposal_spec(6) if kw == "proposal" else NerfMLPSpec(**kw)
+    ff, inputs, meta, pts, views, g_raw = _field_setup(device, n, seed=7, spec=spec)
+    grads, n_dw = ff._field_backward_flat(ff.pack_field_stream(inputs, meta), meta, pts, views, g_raw)
+    torch.cuda.synchronize()
+    out = grads.cpu().numpy()
+    return out[:n_dw], out[n_dw:]
+
+
+def field_bits_record(key, dw, db):
+    """The `.npz` entries of one case: per buffer its size, digest, and
+    FIELD_BIT_SAMPLES values at evenly spaced indices."""
+    rec = {}
+    for part, a in (("dw", dw), ("db", db)):
+        idx = np.linspace(0, a.size - 1, FIELD_BIT_SAMPLES).astype(np.int64)
+        rec[f"{key}__{part}_size"] = np.int64(a.size)
+        rec[f"{key}__{part}_sha256"] = np.array(hashlib.sha256(a.tobytes()).hexdigest())
+        rec[f"{key}__{part}_idx"] = idx
+        rec[f"{key}__{part}_val"] = a[idx]
+    return rec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,n", FIELD_BIT_CASES, ids=[field_bits_key(*c) for c in FIELD_BIT_CASES])
+def test_field_backward_bit_equal_to_recorded(cuda, shape, n):
+    """K5 at every built shape gives the recorded dW and db bit for bit."""
+    key = field_bits_key(shape, n)
+    got = field_bits_record(key, *field_bits_case(cuda, shape, n))
+    with np.load(FIELD_BITS) as recorded:
+        for part in ("dw", "db"):
+            k = f"{key}__{part}"
+            assert int(recorded[k + "_size"]) == int(got[k + "_size"]), part
+            assert str(recorded[k + "_sha256"]) == str(got[k + "_sha256"]), (
+                part, recorded[k + "_val"].tolist(), got[k + "_val"].tolist())
 
 
 @pytest.mark.gpu

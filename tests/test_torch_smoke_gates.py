@@ -1,6 +1,9 @@
-"""`chip_smoke.py`'s ptxas gates on canned nvcc logs, on the CPU: the C7520
-gate (ptxas serialized the wgmma products of a served render kernel) names
-exactly the served `render_kernel` entries that carry the warning."""
+"""`chip_smoke.py`'s ptxas and SASS gates on canned nvcc logs and cuobjdump
+output, on the CPU: the C7520 gate (ptxas serialized the wgmma products of
+a served render kernel) names exactly the served `render_kernel` entries
+that carry the warning; the training field's chain gate counts the chain
+kernel's TMA stores and fails on none, on its spills and on its C7520, and
+on no other kernel's."""
 
 import importlib.util
 import os
@@ -65,3 +68,49 @@ def test_served_render_serialized_falls_back_to_the_compiled_entry(smoke):
     log = _entry(K1) + "ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized\n"
     got = smoke.served_render_serialized(["fused_render_w64f6"], read_log={"fused_render_w64f6": log}.__getitem__)
     assert [(lib, kernel) for lib, kernel, _ in got] == [("fused_render_w64f6", K1)]
+
+
+# The training field's chain kernel gate (`field_chain_stores`): cuobjdump's
+# SASS of a library, one section a function, and its ptxas log.
+CHAIN = "_Z22field_bwd_chain_kernel8FieldNet7StreamTILi160EEPKfS3_S3_P13__nv_bfloat1611ScratchMapsPfi"
+FWD = "_Z16field_fwd_kernel8FieldNet7StreamTILi160EEPKfS3_Pfi"
+TMA_STORE = "        /*1a40*/                   UTMASTG.3D [UR8], [UR4] ;"
+STG128 = "        /*1b00*/              @!P0 STG.E.128 desc[UR6][R2.64], R4 ;"
+HGMMA = "        /*0f30*/                   HGMMA.64x256x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;"
+
+
+def _sass(**bodies):
+    return "\n".join(f"\t\tFunction : {name}\n" + "\n".join(lines) for name, lines in bodies.items())
+
+
+def _spill(name, nbytes):
+    return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {name}\n"
+            f"    0 bytes stack frame, {nbytes} bytes spill stores, {nbytes} bytes spill loads\n"
+            "ptxas info    : Used 232 registers, used 16 barriers\n")
+
+
+CHAIN_CASES = {
+    # name: (SASS, ptxas log, counts, failure words)
+    "tma-stores": (_sass(**{FWD: [HGMMA], CHAIN: [HGMMA, TMA_STORE, TMA_STORE, STG128]}),
+                   _spill(FWD, 0) + _spill(CHAIN, 0), {"tma_stores": 2, "stg128": 1}, []),
+    "missing-stores": (_sass(**{CHAIN: [HGMMA, STG128, STG128]}), _spill(CHAIN, 0),
+                       {"tma_stores": 0, "stg128": 2}, ["no TMA store"]),
+    "spilling": (_sass(**{CHAIN: [HGMMA, TMA_STORE]}), _spill(CHAIN, 8), {"tma_stores": 1, "stg128": 0},
+                 ["spills"]),
+    "serialized": (_sass(**{CHAIN: [HGMMA, TMA_STORE]}), C7520.format(CHAIN) + "\n" + _spill(CHAIN, 0),
+                   {"tma_stores": 1, "stg128": 0}, ["serialized"]),
+    # Another kernel's TMA stores, spills and C7520 are not the chain's.
+    "another-kernel": (_sass(**{FWD: [TMA_STORE], CHAIN: [HGMMA, STG128]}),
+                       C7520.format(FWD) + "\n" + _spill(FWD, 16) + _spill(CHAIN, 0),
+                       {"tma_stores": 0, "stg128": 1}, ["no TMA store"]),
+}
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES)
+def test_field_chain_stores_gate(smoke, case):
+    sass, log, counts, words = CHAIN_CASES[case]
+    got, failures = smoke.field_chain_stores(sass, log)
+    assert got == counts
+    assert len(failures) == len(words)
+    assert all(word in failure for word, failure in zip(words, failures))
