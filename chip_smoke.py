@@ -9,7 +9,10 @@ It builds the port's CUDA kernels from `nerf_workspaces_explorer_tpu_torch/
 csrc/` and drives the port's paths in this order: serving, the explorer
 app, the strip-pipelined frame, the presets, the two profiling scripts'
 kernels, training from a Replica-layout sequence, the device mesh,
-training, distillation, the serving quality gate. After the build it
+training, distillation, the serving quality gate, and mip-NeRF 360 at its
+published widths (`mip360_phase`: K10-K13 and their launches in one
+profiled frame, each held against its plain version on a frame's own
+inputs, their bounds, 512 rays against the plain float32 reference). After the build it
 prints every library's ptxas lines and fails on a spill in a served render
 kernel, a training field or the int4 probe, on a served render kernel
 whose wgmma products ptxas serialized (C7520; the count per library), and
@@ -2231,6 +2234,264 @@ QUALITY_COUNTERS = {
 }
 
 
+def _mip360_reference():
+    """`benchmark/reference/mipnerf360.py`, the plain float32 mip-NeRF 360
+    (it imports nothing of the port)."""
+    import importlib.util
+
+    path = os.path.join(HERE, "benchmark", "reference", "mipnerf360.py")
+    spec = importlib.util.spec_from_file_location("bench_reference_mipnerf360", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def mip360_launches(spec, rays: int) -> dict:
+    """The kernel launches of one frame of `rays` rays
+    (`ops/mipnerf360.py::render_rays_mip360`): a placement and a
+    compositing a level; a K10 a chunk; a K11 a proposal chunk (the MLP in
+    one launch) and one a layer of a NeRF chunk (the trunk, the bottleneck,
+    the view and rgb layer)."""
+    from nerf_workspaces_explorer_tpu_torch.ops import mipnerf360 as m3
+
+    rp = -(-rays // m3.RAY_MULTIPLE) * m3.RAY_MULTIPLE
+    levels = [*spec.prop_samples, spec.nerf_samples]
+    chunks = [-(-rp // max(m3.RAY_MULTIPLE, (m3.CHUNK_ROWS // n) // m3.RAY_MULTIPLE * m3.RAY_MULTIPLE))
+              for n in levels]
+    return {"encode": sum(chunks), "linear": sum(chunks[:-1]) + chunks[-1] * (spec.nerf_depth + 2),
+            "place": len(levels), "composite": len(levels)}
+
+
+class Mip360Checks:
+    """Patches `ops/mipnerf360.py`'s kernel wrappers so that each call of a
+    frame also runs its plain version on the same inputs: each plain call's
+    device ms (CUDA events) is added to its kernel's `plain_ms`, each
+    kernel's worst gaps over the frame are kept, and every call is held at
+    `tests/test_torch_gpu.py`'s tolerances (K10's widened where the frame's
+    last interval reaches the far plane: `encode_slabs`)."""
+
+    KEYS = ("encode", "linear", "place", "composite")
+
+    def __init__(self, m3) -> None:
+        self.m3 = m3
+        self.plain_ms = dict.fromkeys(self.KEYS, 0.0)
+        self.worst: dict = {}
+        self.held = dict.fromkeys(self.KEYS, 0)
+        self.level = -1
+        self.real = {k: getattr(m3, k) for k in ("place", "encode_slabs", "prop_density_slabs", "nerf_slabs",
+                                                  "composite")}
+
+    def _plain(self, key, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        self.plain_ms[key] += start.elapsed_time(end)
+        return out
+
+    def _keep(self, name, value):
+        self.worst[name] = max(self.worst.get(name, 0.0), float(value))
+
+    def place(self, t_in, w_in, dilation, n, spec):
+        self.level += 1
+        s_k, t_k = self.real["place"](t_in, w_in, dilation, n, spec)
+        s_p, _ = self._plain("place", lambda: self.m3.place_plain(t_in, w_in, dilation, n, spec))
+        off = ((s_k - s_p).abs() > 2e-5).float().mean().item()
+        t_err = ((t_k - self.m3.s_to_t(s_k, spec)).abs() / t_k.abs()).max().item()
+        self._keep("place centres off by > 2e-5 (share)", off)
+        self.held["place"] += 1
+        # the CDF's sums in another order; a quantile on a flat stretch of
+        # the CDF moves across it by an ulp (tests/test_torch_gpu.py)
+        require(off <= 1e-3 and t_err <= 1e-5 and bool((s_k[:, 1:] >= s_k[:, :-1]).all()),
+                f"K12 at level {self.level}: share off {off}, t rel err {t_err}")
+        return s_k, t_k
+
+    def encode_slabs(self, o, d, radii, tdist, model):
+        out = self.real["encode_slabs"](o, d, radii, tdist, model)
+        rows = tdist.shape[0] * (tdist.shape[1] - 1)
+        p = self._plain("encode", lambda: self.m3.encode_plain(o, d, radii, tdist, model))
+        full = self.m3.from_slabs(out, rows, self.m3.ENC_PAD)
+        err = (full[:, : p.shape[1]].float() - p).abs()
+        self._keep("K10 max |err|", err.max().item())
+        self._keep("K10 mean |err|", err.mean().item())
+        over = "K10 features over one ulp (the frame)"
+        self.worst[over] = self.worst.get(over, 0) + int((err > 2**-8).sum())
+        self.held["encode"] += 1
+        # both bf16 (an ulp 2^-8 at |x| <= 1). Toward the far plane the
+        # contraction's Jacobian along the ray, s + c|x|^2 = 1/|x|^2, is a
+        # difference of two terms near 2/|x| and cancels in fp32, so the far
+        # intervals' high-degree features carry errors of ~1e-3 in either
+        # order of evaluation and land up to two ulps apart (one 320x240
+        # frame on an H100: 9 of 12.3 M features, each a ray's last
+        # interval at degree 11; the kernel 0.0074 from float64, the plain
+        # 0.0031); elsewhere within one
+        require(err.max().item() <= 2**-7 and err.mean().item() <= 1e-4 and bool((full[:, p.shape[1]:] == 0).all()),
+                f"K10 at level {self.level}: max {err.max().item()}, mean {err.mean().item()}")
+        return out
+
+    def _raw_gap(self, raw, raw_p, what):
+        gap = ((raw.sum(-1, keepdim=True) - raw_p).abs() - 2e-2 * raw_p.abs()).max().item()
+        self._keep(f"{what} raw density |err| - 2e-2 |plain|", gap)
+        return gap
+
+    def prop_density_slabs(self, model, enc, rows, dens_out):
+        self.real["prop_density_slabs"](model, enc, rows, dens_out)
+        x = self.m3.from_slabs(enc, rows, model.spec.enc_dim).float()
+        raw_p = self._plain("linear", lambda: self.m3.prop_density_plain(model, x))
+        gap = self._raw_gap(dens_out, raw_p, "K11 proposal")
+        self.held["linear"] += 1
+        require(gap <= 2e-2, f"K11 proposal at level {self.level}: raw density gap {gap}")
+
+    def nerf_slabs(self, model, enc, rows, vray, samples, dens_out, rgb_out):
+        self.real["nerf_slabs"](model, enc, rows, vray, samples, dens_out, rgb_out)
+        x = self.m3.from_slabs(enc, rows, model.spec.enc_dim).float()
+        raw_p, rgb_p = self._plain("linear", lambda: self.m3.nerf_plain(model, x, vray, samples))
+        gap = self._raw_gap(dens_out, raw_p, "K11 NeRF")
+        err = (rgb_out - rgb_p).abs()
+        self._keep("K11 NeRF rgb max |err|", err.max().item())
+        self._keep("K11 NeRF rgb mean |err|", err.mean().item())
+        self.held["linear"] += 1
+        # bf16 activations through 8 layers: a row's sums in another order
+        # move an activation by an ulp now and then
+        require(gap <= 2e-2 and err.max().item() <= 2e-2 and err.mean().item() < 2e-3,
+                f"K11 NeRF: raw density gap {gap}, rgb max {err.max().item()} mean {err.mean().item()}")
+
+    def composite(self, tdist, raw, b_sigma, dnorm, rgb=None, need_weights=True):
+        w, color = self.real["composite"](tdist, raw, b_sigma, dnorm, rgb, need_weights)
+        w_p, c_p = self._plain("composite", lambda: self.m3.composite_plain(tdist, raw, b_sigma, dnorm, rgb))
+        gaps = []
+        if w is not None:
+            gaps.append(((w - w_p).abs() - 1e-4 * w_p.abs() - 1e-6).max().item())
+        if color is not None:
+            gaps.append(((color - c_p).abs() - 1e-4 * c_p.abs() - 1e-5).max().item())
+        self._keep("K13 |err| over rtol 1e-4 + atol", max(gaps))
+        self.held["composite"] += 1
+        require(max(gaps) <= 0, f"K13 at level {self.level}: {gaps}")
+        return w, color
+
+    def __enter__(self):
+        for k in self.real:
+            setattr(self.m3, k, getattr(self, k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.real.items():
+            setattr(self.m3, k, fn)
+
+
+def mip360_phase(card: str, device: torch.device) -> list:
+    """mip-NeRF 360 at its published widths through `Workspace.render_image`
+    (320x240, `assets/bench/mipnerf360_seeded.json`): warm ms a frame over
+    4 clicks after 4 warm-up clicks; one more click profiled, with the
+    launch counters set to 0 just before it, for each kernel's device ms
+    and launches (held to `mip360_launches`) beside its bound; one more
+    click with every kernel call held against its plain version on the
+    same inputs (`Mip360Checks`), the plain versions' device ms over that
+    frame the rows' plain ms; 512 rays of the path against the plain float32
+    reference (`benchmark/reference/mipnerf360.py`). Returns the kernels'
+    rows."""
+    from nerf_workspaces_explorer_tpu_torch.app.workspace import OfficeTokyoWorkspace
+    from nerf_workspaces_explorer_tpu_torch.core.config import load_config
+    from nerf_workspaces_explorer_tpu_torch.infer.renderer import NeRFRenderer
+    from nerf_workspaces_explorer_tpu_torch.obs.profiler import kernel_name
+    from nerf_workspaces_explorer_tpu_torch.ops import mipnerf360 as m3
+
+    t0 = time.perf_counter()
+    h, w = 240, 320
+    cfg = load_config(office_name="office_tokyo")
+    cfg = dataclasses.replace(cfg, experiment=dataclasses.replace(cfg.experiment, image_width=w, image_height=h))
+    r = NeRFRenderer("office_tokyo", "assets/bench/mipnerf360_seeded.json", config=cfg, precision="fast",
+                     preset="mipnerf360", device=device)
+    space = OfficeTokyoWorkspace(renderer=r)
+    space.initialize_models()
+    model, spec = r._m360, r._m360.spec
+    clicks = [(0.5, 0.6, 30 * k, (-30, 0, 30)[k % 3]) for k in range(4)]
+
+    def click(c):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return space.render_image(*c)
+
+    frames = [click(c) for c in clicks]
+    require(not np.array_equal(frames[0], frames[1]), "mip-NeRF 360: two clicks gave one frame")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for c in clicks:
+        click(c)
+    frame_ms = (time.perf_counter() - t1) / len(clicks) * 1e3
+
+    zero_launches(m3.LAUNCHES)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        click(clicks[1])
+        torch.cuda.synchronize()
+    launches, want = dict(m3.LAUNCHES), mip360_launches(spec, h * w)
+    require(launches == want, f"mip-NeRF 360 launches a frame {launches}, expected {want}")
+    dev_ms: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            dev_ms[kernel_name(e.key)] = dev_ms.get(kernel_name(e.key), 0.0) + e.self_device_time_total / 1e3
+
+    with Mip360Checks(m3) as checks:
+        checked = click(clicks[2])
+    require(np.array_equal(checked, frames[2]), "mip-NeRF 360: the checked click's frame differs from its first")
+    # one MLP call a chunk
+    held = dict(launches, linear=launches["encode"])
+    require(checks.held == held, f"mip-NeRF 360 calls held {checks.held}, expected {held}")
+
+    # 512 rays of the path against the plain float32 reference.
+    plain = _mip360_reference()
+    g = torch.Generator().manual_seed(0)
+    o = torch.randn(512, 3, generator=g).to(device)
+    d = torch.randn(512, 3, generator=g).to(device)
+    v = (d / d.norm(dim=-1, keepdim=True)).contiguous()
+    rad = torch.full((512,), 2 / (160 * np.sqrt(12)), device=device)
+    rgb = m3.render_rays_mip360(model, o, d, v, rad)
+    sc = np.float32(spec.scene_scale)
+    params, ref_spec = plain.load(os.path.join(HERE, "assets", "bench", "mipnerf360_seeded.json"), device)
+    ref = plain.render_rays(params, o / sc, d / sc, v, rad / sc, ref_spec)
+    err = (rgb - ref).abs()
+    # tests/test_torch_gpu.py::test_m360_frame_matches_plain_reference
+    require(err.mean().item() < 2e-3 and err.max().item() < 1.6e-2,
+            f"mip-NeRF 360 against its plain reference: mean |err| {err.mean().item()}, max {err.max().item()}")
+
+    rays, n = h * w, spec.nerf_samples
+    shapes = spec.layer_shapes()
+    mlp_flops = 2.0 * rays * (sum(spec.prop_samples) * sum(i * o_ for _, i, o_ in shapes["prop"])
+                              + n * (sum(i * o_ for k, i, o_ in shapes["nerf"] if k != "view")
+                                     + spec.bottleneck * spec.view_width) + spec.view_dim * spec.view_width)
+    rows = rays * (sum(spec.prop_samples) + n)
+    b10 = bound_ms(0, rows * 512 * 2)
+    b11 = bound_ms(mlp_flops, 0)
+    b12 = bound_ms(0, rays * 4 * 2 * sum(2 * k + 1 for k in (*spec.prop_samples, n)))
+    b13 = bound_ms(0, rays * 4 * sum(2 * k + 1 for k in (*spec.prop_samples, n)))
+    k11 = sum(v_ for k, v_ in dev_ms.items() if k.startswith("linear_kernel"))
+    worst = ", ".join(f"{k} {v_:.3g}" for k, v_ in checks.worst.items())
+    print(f"mip360 (8x1024 NeRF, 4x256 proposal, 64+64+32 samples, {w}x{h}): set-up {t1 - t0:.1f} s, warm "
+          f"{frame_ms:.2f} ms a frame; one profiled frame: K11 {k11:.2f} ms ({b11[0] / k11 * 100:.1f}% of the bf16 "
+          f"peak), K10 {dev_ms.get('encode_kernel', 0):.2f}, K12 {dev_ms.get('place_kernel', 0):.3f}, K13 "
+          f"{dev_ms.get('composite_kernel', 0):.3f}, launches {launches}; one frame held against the plain "
+          f"versions (plain ms {', '.join(f'{k} {v_:.1f}' for k, v_ in checks.plain_ms.items())}; worst over the "
+          f"frame: {worst}); 512 rays vs plain float32 mean |err| {err.mean().item():.2e} max "
+          f"{err.max().item():.2e}; card {card}", flush=True)
+    src, common = f"{PACKAGE}/csrc/mipnerf360.cu", dict(route="cuda", replaces=None, library_ms=None,
+                                                       held_against_plain=True, frame_ms=frame_ms)
+    return [
+        dict(name="K10 mip-NeRF 360 integrated encoding", source=src, ms=dev_ms.get("encode_kernel", 0.0),
+             plain_ms=checks.plain_ms["encode"], bound_ms=b10[0], bound_by=b10[1], launches=launches["encode"],
+             **common),
+        dict(name="K11 mip-NeRF 360 dense layers (8x1024 NeRF, 4x256 proposal)", source=src, ms=k11,
+             plain_ms=checks.plain_ms["linear"], bound_ms=b11[0], bound_by=b11[1], launches=launches["linear"],
+             max_abs_err=err.max().item(), **common),
+        dict(name="K12 mip-NeRF 360 placement", source=src, ms=dev_ms.get("place_kernel", 0.0),
+             plain_ms=checks.plain_ms["place"], bound_ms=b12[0], bound_by=b12[1], launches=launches["place"],
+             **common),
+        dict(name="K13 mip-NeRF 360 compositing", source=src, ms=dev_ms.get("composite_kernel", 0.0),
+             plain_ms=checks.plain_ms["composite"], bound_ms=b13[0], bound_by=b13[1],
+             launches=launches["composite"], **common),
+    ]
+
+
 def quality_phase(card: str) -> dict:
     """The serving quality gate and the spread of its proposal comparison
     (module docstring); returns each kernel's launches summed over the
@@ -2544,6 +2805,9 @@ def main() -> int:
     # 10. The serving quality gate at the JAX package's default recipe.
     quality_launches = quality_phase(card)
 
+    # 10b. mip-NeRF 360 at its published widths.
+    m360_kernels = mip360_phase(card, device)
+
     # 11. The kernels line, then the result line.
     src = f"{PACKAGE}/csrc/"
     kernels = [
@@ -2566,7 +2830,7 @@ def main() -> int:
              products_matmul_ms=t["products_matmul"], app_launches_qt=app["qt"]["K3"],
              app_launches_tk=app["tk"]["K3"], app_click_ms_qt=app["qt_ms"], app_click_ms_tk=app["tk_ms"],
              app_render_image_ms=app["render_ms"], **st3),
-    ] + preset_kernels + train_kernels + distill_kernels + probe_kernels
+    ] + preset_kernels + train_kernels + distill_kernels + probe_kernels + m360_kernels
     for entry in kernels:
         counters = MESH_COUNTERS.get(entry["name"].split()[0])
         if counters:  # the kernel's launches over the mesh phase's dry runs

@@ -23,6 +23,10 @@ checkpoint, whose nets have different architectures (a 2x64 proposal net
 beside an 8x256 fine net or a narrow student): `params_from_numpy` carries
 any such tree, and each net's spec comes from its own shapes
 (`ops/quantize.py::spec_from_net_params`).
+
+A third, `.json`, holds no arrays: mip-NeRF 360's seeded checkpoint
+(`load_seeded_checkpoint`), its format tag, a seed and the spec, whose
+weights `models.mipnerf360.init_params` draws from the seed.
 """
 
 from __future__ import annotations
@@ -214,3 +218,19 @@ def load_torch_checkpoint(path: str) -> Tuple[Params, Params, int]:
     coarse = torch_state_dict_to_params(checkpoint["network_coarse_state_dict"])
     fine = torch_state_dict_to_params(checkpoint["network_fine_state_dict"])
     return coarse, fine, int(checkpoint.get("global_step", 0))
+
+
+SEEDED_FORMAT = "mipnerf360-seeded"
+
+
+def load_seeded_checkpoint(path: str):
+    """A seeded `.json` checkpoint -> (tree of numpy arrays, Mip360Spec, its
+    fields): {"format": "mipnerf360-seeded", "seed": n, "spec": {...}}."""
+    from nerf_workspaces_explorer_tpu_torch.models.mipnerf360 import Mip360Spec, init_params
+
+    with open(path) as f:
+        meta = json.load(f)
+    if meta.get("format") != SEEDED_FORMAT:
+        raise ValueError(f"{path}: not a {SEEDED_FORMAT} checkpoint (format {meta.get('format')!r})")
+    spec = Mip360Spec.from_dict(meta.get("spec", {}))
+    return init_params(int(meta["seed"]), spec), spec, meta

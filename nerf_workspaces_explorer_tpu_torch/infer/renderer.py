@@ -36,7 +36,11 @@ The preset picks the placement (JAX renderer.py:235-319):
     reports/quality_gate_room_fast_partial.md): for the offices serve
     "reference" or a gated "turbo" student;
   - "turbo": the distilled student in the checkpoint's `.turbo.npz`
-    sidecar, with the spec and serving settings its metadata names.
+    sidecar, with the spec and serving settings its metadata names;
+  - "mipnerf360": mip-NeRF 360 (`models/mipnerf360.py`) from a seeded
+    `.json` checkpoint (`infer.checkpoint.load_seeded_checkpoint`), served
+    at bf16 products (precision "fast") by `ops.mipnerf360`: its kernels on
+    the card, their plain versions on the CPU; every frame eager.
 """
 
 from __future__ import annotations
@@ -54,10 +58,13 @@ from nerf_workspaces_explorer_tpu_torch.core.config import FrameworkConfig, load
 from nerf_workspaces_explorer_tpu_torch.core.types import COORD
 from nerf_workspaces_explorer_tpu_torch.infer.checkpoint import (
     load_checkpoint,
+    load_seeded_checkpoint,
     load_torch_checkpoint,
     params_from_numpy,
 )
 from nerf_workspaces_explorer_tpu_torch.models.encoding import embedding_output_dim
+from nerf_workspaces_explorer_tpu_torch.models.mipnerf360 import Mip360Spec
+from nerf_workspaces_explorer_tpu_torch.models.mipnerf360 import init_params as init_mip360_params
 from nerf_workspaces_explorer_tpu_torch.models.mlp import NerfMLP, NerfMLPSpec, init_nerf_params
 from nerf_workspaces_explorer_tpu_torch.obs import profiler
 from nerf_workspaces_explorer_tpu_torch.obs.debug import scan_outputs_finite
@@ -69,6 +76,7 @@ from nerf_workspaces_explorer_tpu_torch.ops.fused_render import (
     render_rays_single_pass,
     weight_stream,
 )
+from nerf_workspaces_explorer_tpu_torch.ops.mipnerf360 import Mip360Model, ray_radii, render_rays_mip360
 from nerf_workspaces_explorer_tpu_torch.ops.quantize import (
     calibrate_model_quant,
     spec_from_net_params,
@@ -83,7 +91,7 @@ from nerf_workspaces_explorer_tpu_torch.render.pipeline import (
 from nerf_workspaces_explorer_tpu_torch.render.proposal import proposal_spec
 
 PRECISIONS = ("parity", "fast", "int8", "int8-trunk")
-PRESETS = ("reference", "fast", "turbo")
+PRESETS = ("reference", "fast", "turbo", "mipnerf360")
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -236,6 +244,8 @@ class NeRFRenderer:
         if preset not in PRESETS:
             raise ValueError(f"unknown preset {preset!r} ({'|'.join(PRESETS)})")
         fused = precision != "parity"
+        if preset == "mipnerf360" and (precision != "fast" or mesh is not None):
+            raise ValueError("preset='mipnerf360' serves precision='fast' (bf16 products) on one device")
         if mesh is not None:
             if not isinstance(mesh, DataMesh):
                 raise ValueError(f"mesh must be a parallel.DataMesh (data_mesh()), got {type(mesh).__name__}")
@@ -326,6 +336,8 @@ class NeRFRenderer:
         self._kparams: Optional[Dict[str, Any]] = None  # fused precisions
         self._quant = None
         self._frame_graph: Optional[FrameGraph] = None
+        self._m360: Optional[Mip360Model] = None  # preset "mipnerf360"
+        self._m360_preset = preset == "mipnerf360"
 
     @property
     def device(self) -> torch.device:
@@ -366,6 +378,17 @@ class NeRFRenderer:
         `allow_random_init`: then fresh weights from `generator` (default: a
         CPU generator seeded with `seed`; JAX's PRNG streams cannot be
         reproduced)."""
+        if self._m360_preset:
+            if self._ckpt_path is not None and os.path.exists(self._ckpt_path):
+                tree, spec, _ = load_seeded_checkpoint(self._ckpt_path)
+            elif allow_random_init:
+                spec = Mip360Spec()
+                tree = init_mip360_params(seed, spec)
+            else:
+                raise RuntimeError(f"Checkpoint path: {self._ckpt_path} for model cannot be found!")
+            self._m360 = Mip360Model(tree, spec, self._device)
+            self._params = self._m360.params
+            return
         if self._turbo_path is not None:
             from nerf_workspaces_explorer_tpu_torch.train.distill import load_turbo_checkpoint
 
@@ -396,6 +419,10 @@ class NeRFRenderer:
         trainer): recalibrate int8, rebuild the kernel parameters and drop
         the frame graph (the next single frame runs eagerly and captures
         anew)."""
+        if self._m360_preset:
+            self._m360 = Mip360Model(params, self._m360.spec if self._m360 else Mip360Spec(), self._device)
+            self._params = self._m360.params
+            return
         first = "proposal" if self._settings.use_proposal else "coarse"
         if first not in params or "fine" not in params:
             have = "/".join(sorted(k for k in params if isinstance(params[k], dict)))
@@ -427,7 +454,7 @@ class NeRFRenderer:
                 weight_stream(kp)
 
     def _require_models(self) -> None:
-        if self._kparams is None and self._models is None:
+        if self._kparams is None and self._models is None and self._m360 is None:
             raise RuntimeError("initialize_models() must be called before rendering")
 
     def _rays(self, c2ws: Sequence[np.ndarray], height: Optional[int] = None, cy: Optional[float] = None):
@@ -467,7 +494,12 @@ class NeRFRenderer:
         passes' sample counters (`render_rays_fused`)."""
         h = self._config.experiment.image_height if height is None else height
         w = self._config.experiment.image_width
-        if self._kparams is not None:
+        if self._m360 is not None:
+            dirs = rays.dirs.reshape(n * h, w, 3)
+            rgb = render_rays_mip360(self._m360, rays.origins, rays.dirs, rays.viewdirs,
+                                     ray_radii(dirs).reshape(-1))
+            out = {"rgb_fine": rgb}
+        elif self._kparams is not None:
             # The ray axis is n frames of h rows: an (n * h, w) grid, so the
             # placement lattice's blocks never straddle two frames.
             fused = render_rays_fused(
@@ -641,6 +673,8 @@ class NeRFRenderer:
     def render_pose_preview_uint8(self, c2w: np.ndarray, n_samples: int = 64) -> torch.Tensor:
         """The preview frame of one pose, uint8 [H, W, 3] on the device."""
         self._require_models()
+        if self._m360 is not None:  # no cheaper pass: the full frame
+            return _to_uint8(self._render_batch([c2w])[0])
         cfg = self._config
         h, w = cfg.experiment.image_height, cfg.experiment.image_width
         rays = self._rays([c2w])

@@ -108,6 +108,11 @@ ENTRY_TYPES = {
     "field_forward_launch": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P),
     "field_backward_launch": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "field_backward_sizes": (_I, _I, _L, _P, _P, _P),
+    # csrc/mipnerf360.cu (K10-K13)
+    "m360_encode_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "m360_linear_launch": (_I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    "m360_place_launch": (_P, _P, _I, _F, _P, _P, _I, _I, _F, _F, _P),
+    "m360_composite_launch": (_P, _P, _I, _F, _P, _P, _P, _P, _I, _I, _P),
 }
 
 # A shared library, once loaded, is process-wide; so are these caches of

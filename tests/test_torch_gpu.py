@@ -2,7 +2,8 @@
 at every network shape the in-repo checkpoints need, K6 and K7, K4/K5, the
 fine-pass ablation K8 and the int4 probe K9; and the paths that need the
 card to show their contract (the strip-pipelined frame's bytes, the fast
-preset at its served eps).
+preset at its served eps); mip-NeRF 360's K10-K13 at its published widths
+and 512 rays of its path against the plain float32 reference.
 
 Marked `gpu`: each test skips without a CUDA card. This file imports neither
 JAX nor the JAX package, so it runs on a machine without them:
@@ -1742,3 +1743,148 @@ def test_frame_graph_counts_the_eager_frames_samples(cuda):
     assert replayed.pop("render.graph_replays") == len(poses)
     assert eager["render.density_samples"] > 0 and eager["render.fine_samples"] > 0
     assert replayed == eager, (replayed, eager)
+
+
+# ---------------------------------------------------------------------------
+# mip-NeRF 360 (K10-K13, csrc/mipnerf360.cu) at the published widths,
+# against their plain versions on the same inputs.
+
+def _m360(device, seed=3):
+    from nerf_workspaces_explorer_tpu_torch.models.mipnerf360 import Mip360Spec, init_params
+    from nerf_workspaces_explorer_tpu_torch.ops import mipnerf360 as m3
+
+    spec = Mip360Spec()
+    return m3, m3.Mip360Model(init_params(seed, spec), spec, device)
+
+
+def _m360_rays(device, n_rays, seed=0):
+    from nerf_workspaces_explorer_tpu_torch.rays.raygen import create_rays
+
+    g = torch.Generator().manual_seed(seed)
+    c2w = torch.eye(4)
+    c2w[:3, :3] = torch.linalg.qr(torch.randn(3, 3, generator=g))[0]
+    c2w[:3, 3] = torch.randn(3, generator=g)
+    w = 32
+    rays = create_rays(c2w, n_rays // w, w, 160.0, 160.0, 159.5, 119.5, 0.1, 10.0).reshape(n_rays)
+    radii = torch.full((n_rays,), (1 / 160.0) * 2 / np.sqrt(12))
+    return [t.to(device).contiguous() for t in (rays.origins, rays.dirs, rays.viewdirs, radii)]
+
+
+def _m360_level(m3, model, device, n_rays, n, seed=0):
+    """Rays (scaled) and a level's intervals from a seed-drawn step function."""
+    o, d, v, rad = _m360_rays(device, n_rays, seed)
+    s = np.float32(model.spec.scene_scale)
+    g = torch.Generator().manual_seed(seed + 1)
+    w_in = torch.rand(n_rays, 64, generator=g).to(device) ** 4
+    t_in = torch.sort(torch.rand(n_rays, 65, generator=g), -1).values.to(device)
+    t_in[:, 0], t_in[:, -1] = 0.0, 1.0
+    sd, td = m3.place_plain(t_in, w_in, 0.01, n, model.spec)
+    return (o / s).contiguous(), (d / s).contiguous(), (rad / s).contiguous(), v, sd, td
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dilation", [None, 0.0025 + 0.5 / 64], ids=["plain", "dilated"])
+def test_m360_place_kernel_matches_plain(cuda, dilation):
+    m3, model = _m360(cuda)
+    g = torch.Generator().manual_seed(11)
+    n_rays = 1000
+    w_in = (torch.rand(n_rays, 64, generator=g) ** 4).to(cuda)
+    w_in[::7, 10:40] = 0.0  # empty stretches
+    t_in = torch.sort(torch.rand(n_rays, 65, generator=g), -1).values.to(cuda)
+    t_in[:, 0], t_in[:, -1] = 0.0, 1.0
+    t_in[::5, 20:23] = t_in[::5, 20:21]  # zero-width intervals
+    for n in (64, 32):
+        s_k, t_k = m3.place(t_in, w_in, dilation, n, model.spec)
+        s_p, t_p = m3.place_plain(t_in, w_in, dilation, n, model.spec)
+        # the CDF's sums in another order move a centre by its slope times
+        # ~1e-7; where a quantile falls on a flat stretch of the CDF (an empty
+        # interval) an ulp moves it across the stretch: a few centres in 1e4
+        off = (s_k - s_p).abs() > 2e-5
+        assert off.float().mean().item() <= 1e-3, off.sum().item()
+        torch.testing.assert_close(t_k, m3.s_to_t(s_k, model.spec), rtol=1e-5, atol=0)
+        assert bool((s_k[:, 1:] >= s_k[:, :-1]).all())
+
+
+@pytest.mark.gpu
+def test_m360_encode_kernel_matches_plain(cuda):
+    m3, model = _m360(cuda)
+    o, d, rad, _, _, td = _m360_level(m3, model, cuda, 256, 64)
+    k = m3.from_slabs(m3.encode_slabs(o, d, rad, td, model), 256 * 64, 504).float()
+    p = m3.encode_plain(o, d, rad, td, model)
+    # both bf16 (an ulp 2^-8 of |x| <= 1); the kernel's polynomial sine and
+    # cosine after an exact reduction differ from torch's by ~1e-6 before it
+    assert (k - p).abs().max().item() <= 2**-8
+    assert (k - p).abs().mean().item() <= 1e-4
+    pad = m3.from_slabs(m3.encode_slabs(o, d, rad, td, model), 256 * 64, 512)[:, 504:]
+    assert bool((pad == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", ["prop", "nerf"])
+def test_m360_mlp_kernels_match_plain(cuda, net):
+    m3, model = _m360(cuda)
+    n_rays = 256 if net == "prop" else 512
+    n = 64 if net == "prop" else 32
+    o, d, rad, v, _, td = _m360_level(m3, model, cuda, n_rays, n)
+    enc = m3.encode_slabs(o, d, rad, td, model)
+    x = m3.from_slabs(enc, n_rays * n, 504).float()
+    rows = n_rays * n
+    if net == "prop":
+        raw = torch.empty((rows, 1), device=cuda)
+        m3.prop_density_slabs(model, enc, rows, raw)
+        raw_p = m3.prop_density_plain(model, x)
+    else:
+        from nerf_workspaces_explorer_tpu_torch.models.mipnerf360 import view_encoding
+
+        nv = model.params["nerf"]["view"]
+        vray = (m3._bf(view_encoding(v, 4)) @ m3._bf(nv["w"][256:]) + nv["b"]).contiguous()
+        raw = torch.empty((rows, 4), device=cuda)
+        rgb = torch.empty((rows, 3), device=cuda)
+        m3.nerf_slabs(model, enc, rows, vray, n, raw, rgb)
+        raw_p, rgb_p = m3.nerf_plain(model, x, vray, n)
+        # bf16 activations through 8 layers: a row's sums in another order
+        # move an activation by an ulp (2^-8) now and then
+        torch.testing.assert_close(rgb, rgb_p, rtol=0, atol=2e-2)
+        assert (rgb - rgb_p).abs().mean().item() < 2e-3
+    torch.testing.assert_close(raw.sum(-1, keepdim=True), raw_p, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_m360_composite_kernel_matches_plain(cuda):
+    m3, model = _m360(cuda)
+    g = torch.Generator().manual_seed(5)
+    n_rays, n = 1000, 32
+    td = torch.sort(torch.rand(n_rays, n + 1, generator=g) * 10 + 0.1, -1).values.to(cuda)
+    raw = (torch.randn(n_rays * n, 4, generator=g) * 2).to(cuda)
+    rgb = torch.rand(n_rays * n, 3, generator=g).to(cuda)
+    dn = (torch.rand(n_rays, generator=g) + 0.5).to(cuda)
+    w_k, c_k = m3.composite(td, raw, 0.0, dn, rgb)
+    w_p, c_p = m3.composite_plain(td, raw, 0.0, dn, rgb)
+    torch.testing.assert_close(w_k, w_p, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(c_k, c_p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_m360_frame_matches_plain_reference(cuda):
+    """A few hundred rays through the card's path against the plain float32
+    reference (`benchmark/reference/mipnerf360.py`) at the published widths."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark", "reference",
+                        "mipnerf360.py")
+    mod_spec = importlib.util.spec_from_file_location("bench_reference_mipnerf360", path)
+    plain = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(plain)
+    m3, model = _m360(cuda, seed=2022)
+    o, d, v, rad = _m360_rays(cuda, 512, seed=4)
+    rgb = m3.render_rays_mip360(model, o, d, v, rad)
+    s = np.float32(model.spec.scene_scale)
+    ref = plain.render_rays(plain.init_params(2022, model.spec.to_dict(), cuda), o / s, d / s, v, rad / s,
+                            model.spec.to_dict())
+    err = (rgb - ref).abs()
+    print(f"m360 frame vs plain: mean {err.mean().item():.3e} max {err.max().item():.3e}")
+    # bf16 products against float32 (measured: mean 6.1e-4): the colours'
+    # mean gap stays under half a uint8 level, the worst under 4 (placement
+    # moves with the proposal's rounding)
+    assert err.mean().item() < 2e-3
+    assert err.max().item() < 1.6e-2

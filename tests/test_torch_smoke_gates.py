@@ -3,7 +3,9 @@ output, on the CPU: the C7520 gate (ptxas serialized the wgmma products of
 a served render kernel) names exactly the served `render_kernel` entries
 that carry the warning; the training field's chain gate counts the chain
 kernel's TMA stores and fails on none, on its spills and on its C7520, and
-on no other kernel's."""
+on no other kernel's. The mip-NeRF 360 phase's launches a frame follow the
+frame's chunks, and its checks patch the kernel wrappers only while they
+hold a frame."""
 
 import importlib.util
 import os
@@ -114,3 +116,25 @@ def test_field_chain_stores_gate(smoke, case):
     assert got == counts
     assert len(failures) == len(words)
     assert all(word in failure for word, failure in zip(words, failures))
+
+
+@pytest.mark.parametrize("rays,want", [(76800, (188, 530)), (192, (3, 12))], ids=["320x240", "16x12"])
+def test_mip360_launches_follow_the_frames_chunks(smoke, rays, want):
+    """A chunk is 65,536 sample rows: 1,024 rays at 64 samples, 2,048 at
+    32. K10 once a chunk; K11 once a proposal chunk, ten times (eight trunk
+    layers, the bottleneck, the view and rgb layer) a NeRF chunk."""
+    from nerf_workspaces_explorer_tpu_torch.models.mipnerf360 import Mip360Spec
+
+    got = smoke.mip360_launches(Mip360Spec(), rays)
+    assert got == {"encode": want[0], "linear": want[1], "place": 3, "composite": 3}
+
+
+def test_mip360_checks_patch_the_wrappers_only_inside(smoke):
+    from nerf_workspaces_explorer_tpu_torch.ops import mipnerf360 as m3
+
+    names = ("place", "encode_slabs", "prop_density_slabs", "nerf_slabs", "composite")
+    real = {k: getattr(m3, k) for k in names}
+    with smoke.Mip360Checks(m3) as checks:
+        for k in names:
+            assert getattr(m3, k) == getattr(checks, k) and getattr(m3, k) is not real[k]
+    assert all(getattr(m3, k) is real[k] for k in names)
